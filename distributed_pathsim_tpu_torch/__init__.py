@@ -1,0 +1,19 @@
+"""distributed_pathsim_tpu_torch — meta-path similarity on a CUDA card.
+
+The PyTorch port of ``distributed_pathsim_tpu`` (the JAX package, kept
+beside it as the reference): typed-HIN data model, metapath compiler,
+sparsity-aware chain planner, a host f64 oracle backend and a dense
+torch backend whose hot path runs on hand-written CUDA kernels for
+Hopper (``csrc/``). It imports neither JAX nor the JAX package.
+"""
+
+__version__ = "0.1.0"
+
+from .config import RunConfig  # noqa: F401
+from .data.schema import HINGraph, HINSchema  # noqa: F401
+from .data.encode import EncodedHIN, encode_hin  # noqa: F401
+from .data.gexf import read_gexf  # noqa: F401
+from .ops.metapath import MetaPath, compile_metapath  # noqa: F401
+from .backends.base import available_backends, create_backend  # noqa: F401
+from .driver import PathSimDriver  # noqa: F401
+from .engine import build, load_dataset  # noqa: F401

@@ -1,0 +1,26 @@
+"""Run configuration.
+
+The reference hard-codes everything — dataset path, source author, output
+path, engine package pin (``DPathSim_APVPA.py:141-176``). This is the
+config the CLI fills in, also constructible programmatically.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class RunConfig:
+    dataset: str  # GEXF path
+    backend: str = "torch"  # see backends.available_backends()
+    metapath: str = "APVPA"
+    variant: str = "rowsum"  # reference semantics; "diagonal" = Sun et al.
+    source: str | None = None  # node label (like the reference) …
+    source_id: str | None = None  # … or node id
+    output: str | None = None  # reference-grammar log path
+    all_pairs: bool = False
+    top_k: int = 0
+    loader: str = "python"  # GEXF loader (the native one is not ported)
+    platform: str = "cuda"  # device of the torch backend: cuda | cpu
+    echo: bool = True

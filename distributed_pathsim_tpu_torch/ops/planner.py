@@ -1,0 +1,495 @@
+"""Sparsity-aware metapath evaluation planner (DESIGN.md §28).
+
+The chain is **data**: :func:`plan_metapath` compiles a
+:class:`~.metapath.MetaPath` plus per-factor :class:`FactorStats` (nnz,
+density, log2 degree histograms) into an :class:`EvalPlan` — a DP-optimal
+association tree over the chain (Atrapos, arXiv:2201.04058) with the
+density-propagation cost estimate recorded on every node, so every
+ordering choice is auditable. Symmetric metapaths plan the palindromic
+half chain (``M = C·Cᵀ``); general chains plan the full product and use
+the ``rowsums_general`` right-fold for row sums (a vector fold is already
+association-optimal).
+
+The ``execute_*`` / ``fold_*`` functions are the doorway to the
+chain-fold primitives. Every ordering choice is **bit-invisible**: path
+counts are exact integers in every carry dtype the backends guard (f64 <
+2⁵³, f32 < 2²⁴), so any association order produces identical integers.
+
+The knobs take the JAX package's built-in heuristic defaults (density
+cutover 0.25, DP length cutoff 16) — the values it resolves with no
+tuning table installed. The tuning registry and the sub-chain memo are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+
+from . import chain
+from . import sparse as sp
+from .metapath import MetaPath, Step
+
+# The JAX package's heuristic knob defaults (what it resolves with no
+# tuning table installed): density above which a sparse join is costed
+# like a GEMM, and the longest chain the interval DP orders.
+DEFAULT_DENSITY_CUTOVER = 0.25
+DEFAULT_DP_MAX_LEN = 16
+
+# Log2 degree-histogram buckets: bucket b counts nodes with degree in
+# [2^(b-1), 2^b); bucket 0 counts degree-0 nodes. 24 buckets cover any
+# graph this repo can encode (int32 index spaces).
+_DEG_BUCKETS = 24
+
+
+def _deg_hist(deg: np.ndarray) -> tuple[int, ...]:
+    if deg.size == 0:
+        return (0,) * _DEG_BUCKETS
+    buckets = np.zeros(_DEG_BUCKETS, dtype=np.int64)
+    nz = deg[deg > 0]
+    buckets[0] = int(deg.size - nz.size)
+    if nz.size:
+        b = np.minimum(
+            np.floor(np.log2(nz)).astype(np.int64) + 1, _DEG_BUCKETS - 1
+        )
+        np.add.at(buckets, b, 1)
+    return tuple(int(x) for x in buckets)
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorStats:
+    """Sparsity statistics of one oriented chain factor — everything
+    the cost model consumes. ``row_deg``/``col_deg`` are the exact
+    per-index degree vectors (excluded from equality/repr: they exist
+    so leaf-leaf products can be costed *exactly* via the join-size
+    identity Σ_k coldeg_A(k)·rowdeg_B(k); the compressed histograms
+    are the auditable summary that lands in plan dumps)."""
+
+    shape: tuple[int, int]
+    nnz: int
+    density: float
+    row_deg_hist: tuple[int, ...]
+    col_deg_hist: tuple[int, ...]
+    row_deg: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    col_deg: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+
+def factor_stats_from_coo(
+    rows: np.ndarray, cols: np.ndarray, shape: tuple[int, int]
+) -> FactorStats:
+    m, n = int(shape[0]), int(shape[1])
+    nnz = int(rows.shape[0])
+    row_deg = np.bincount(rows, minlength=m).astype(np.int64)
+    col_deg = np.bincount(cols, minlength=n).astype(np.int64)
+    return FactorStats(
+        shape=(m, n),
+        nnz=nnz,
+        density=nnz / max(m * n, 1),
+        row_deg_hist=_deg_hist(row_deg),
+        col_deg_hist=_deg_hist(col_deg),
+        row_deg=row_deg,
+        col_deg=col_deg,
+    )
+
+
+def factor_stats(hin, step: Step) -> FactorStats:
+    """Oriented stats for one metapath step against the bound HIN."""
+    b = hin.block(step.relationship)
+    rows, cols, shape = b.rows, b.cols, b.shape
+    if step.reverse:
+        rows, cols, shape = cols, rows, (shape[1], shape[0])
+    return factor_stats_from_coo(rows, cols, shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanNode:
+    """One node of the association tree. ``lo:hi`` is the step span it
+    covers; ``est_flops`` is the estimated cost of *this* product
+    (0 for leaves), ``total_flops`` the cumulative subtree cost — both
+    recorded so a plan dump explains every choice the DP made."""
+
+    lo: int
+    hi: int
+    shape: tuple[int, int]
+    est_nnz: float
+    est_density: float
+    est_flops: float
+    total_flops: float
+    step: Step | None = None
+    left: "PlanNode | None" = None
+    right: "PlanNode | None" = None
+    stats: FactorStats | None = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def is_leaf(self) -> bool:
+        return self.left is None and self.right is None
+
+    def order_tree(self):
+        """Hashable nested-tuple association order (leaf = step index)
+        — what the jit-per-order caches key on."""
+        if self.is_leaf:
+            return self.lo
+        return (self.left.order_tree(), self.right.order_tree())
+
+    def describe(self, labels: Sequence[str]) -> str:
+        if self.is_leaf:
+            return labels[self.lo]
+        return (
+            f"({self.left.describe(labels)}·{self.right.describe(labels)})"
+        )
+
+    def to_dict(self, labels: Sequence[str]) -> dict:
+        d = {
+            "span": [self.lo, self.hi],
+            "expr": self.describe(labels),
+            "shape": list(self.shape),
+            "est_nnz": round(float(self.est_nnz), 3),
+            "est_density": float(self.est_density),
+            "est_flops": round(float(self.est_flops), 3),
+            "total_flops": round(float(self.total_flops), 3),
+        }
+        if not self.is_leaf:
+            d["left"] = self.left.to_dict(labels)
+            d["right"] = self.right.to_dict(labels)
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalPlan:
+    """A compiled evaluation plan for one metapath: the association
+    tree (over the half chain when ``mode == "half"``, the full chain
+    otherwise), the left-to-right baseline cost for comparison, and
+    the labels the audit dump renders spans with."""
+
+    metapath: MetaPath
+    mode: str  # "half" (symmetric: M = C·Cᵀ) | "general"
+    root: PlanNode
+    naive_flops: float
+    dp: bool  # False: DP skipped (chain over the size cutoff)
+    labels: tuple[str, ...]
+
+    @property
+    def est_flops(self) -> float:
+        return self.root.total_flops
+
+    def order(self) -> str:
+        return self.root.describe(self.labels)
+
+    def order_tree(self):
+        return self.root.order_tree()
+
+    def steps(self) -> tuple[Step, ...]:
+        mp = self.metapath
+        return mp.half() if self.mode == "half" else mp.steps
+
+    def summary(self) -> dict:
+        return {
+            "metapath": self.metapath.name,
+            "mode": self.mode,
+            "order": self.order(),
+            "est_flops": round(float(self.est_flops), 3),
+            "naive_flops": round(float(self.naive_flops), 3),
+            "dp": self.dp,
+        }
+
+    def to_dict(self) -> dict:
+        out = self.summary()
+        out["tree"] = self.root.to_dict(self.labels)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Cost model: density propagation (Atrapos §4)
+# ---------------------------------------------------------------------------
+
+
+def _product_estimate(
+    a: PlanNode, b: PlanNode, dense_cutover: float, cost: str
+) -> tuple[float, float, float]:
+    """(est_nnz, est_density, est_flops) of A·B under the named cost
+    model.
+
+    ``cost="sparse"`` (COO joins — the half-chain fold, delta
+    refolds): the expected join size under independent uniform
+    placement, 2·nnz(A)·nnz(B)/r scalar mul-adds over the shared
+    dimension r; when BOTH operands are leaves the join size is exact
+    (Σ_k coldeg_A(k)·rowdeg_B(k)). Past ``dense_cutover`` density on
+    both sides the dense model takes over (a near-dense join costs
+    like a GEMM, and the sparse estimator under-costs that regime).
+
+    ``cost="dense"`` (the backends' general-chain GEMMs): a dense
+    matmul pays 2·m·r·n regardless of zeros, so sparsity must not
+    seduce the DP into an order that is only cheap for a format the
+    executor does not use.
+
+    Output density propagates either way as 1−(1−dₐ·d_b)^r — the
+    standard Boolean-product estimator (Atrapos §4), computed via
+    expm1/log1p so near-0 and near-1 densities stay stable; it rides
+    every node for the audit dump and the sparse cost of parents."""
+    m, r = a.shape
+    _, n = b.shape
+    p = a.est_density * b.est_density
+    if p >= 1.0:
+        est_density = 1.0
+    else:
+        est_density = -math.expm1(r * math.log1p(-min(p, 1.0 - 1e-12)))
+    est_density = min(max(est_density, 0.0), 1.0)
+    est_nnz = est_density * m * n
+    dense_flops = 2.0 * float(m) * float(r) * float(n)
+    if cost == "dense":
+        return est_nnz, est_density, dense_flops
+    if a.est_density >= dense_cutover and b.est_density >= dense_cutover:
+        return est_nnz, est_density, dense_flops
+    if (
+        a.stats is not None
+        and b.stats is not None
+        and a.stats.col_deg is not None
+        and b.stats.row_deg is not None
+    ):
+        # leaf·leaf: the join size is exact, Σ_k coldeg_A(k)·rowdeg_B(k)
+        joins = 2.0 * float(
+            a.stats.col_deg.astype(np.float64) @ b.stats.row_deg
+        )
+    else:
+        joins = 2.0 * a.est_nnz * b.est_nnz / max(r, 1)
+    return est_nnz, est_density, joins
+
+
+def _leaf(i: int, st: Step | None, stats: FactorStats) -> PlanNode:
+    return PlanNode(
+        lo=i,
+        hi=i + 1,
+        shape=stats.shape,
+        est_nnz=float(stats.nnz),
+        est_density=float(stats.density),
+        est_flops=0.0,
+        total_flops=0.0,
+        step=st,
+        stats=stats,
+    )
+
+
+def _combine(a: PlanNode, b: PlanNode, dense_cutover: float,
+             cost: str) -> PlanNode:
+    est_nnz, est_density, flops = _product_estimate(a, b, dense_cutover, cost)
+    return PlanNode(
+        lo=a.lo,
+        hi=b.hi,
+        shape=(a.shape[0], b.shape[1]),
+        est_nnz=est_nnz,
+        est_density=est_density,
+        est_flops=flops,
+        total_flops=a.total_flops + b.total_flops + flops,
+        left=a,
+        right=b,
+    )
+
+
+def _left_to_right(leaves: list[PlanNode], dense_cutover: float,
+                   cost: str) -> PlanNode:
+    acc = leaves[0]
+    for leaf in leaves[1:]:
+        acc = _combine(acc, leaf, dense_cutover, cost)
+    return acc
+
+
+def _dp_order(leaves: list[PlanNode], dense_cutover: float,
+              cost: str) -> PlanNode:
+    """Classic interval DP over the chain, ties broken toward the
+    smallest split (deterministic plans for equal-cost orders)."""
+    n = len(leaves)
+    best: dict[tuple[int, int], PlanNode] = {
+        (i, i + 1): leaves[i] for i in range(n)
+    }
+    for span in range(2, n + 1):
+        for i in range(0, n - span + 1):
+            j = i + span
+            winner: PlanNode | None = None
+            for k in range(i + 1, j):
+                cand = _combine(
+                    best[(i, k)], best[(k, j)], dense_cutover, cost
+                )
+                if winner is None or cand.total_flops < winner.total_flops:
+                    winner = cand
+            best[(i, j)] = winner
+    return best[(0, n)]
+
+
+def plan_chain(
+    stats: Sequence[FactorStats],
+    steps: Sequence[Step | None] | None = None,
+    dense_cutover: float | None = None,
+    dp_max_len: int | None = None,
+    cost: str = "sparse",
+) -> tuple[PlanNode, float, bool]:
+    """Order an arbitrary factor chain: (root, naive_flops, dp_ran).
+    The core of :func:`plan_metapath`.
+    ``cost`` names the executor's model — "sparse" for COO joins,
+    "dense" for GEMM chains (see :func:`_product_estimate`)."""
+    if not stats:
+        raise ValueError("cannot plan an empty chain")
+    if steps is None:
+        steps = [None] * len(stats)
+    if dense_cutover is None:
+        dense_cutover = DEFAULT_DENSITY_CUTOVER
+    if dp_max_len is None:
+        dp_max_len = DEFAULT_DP_MAX_LEN
+    leaves = [_leaf(i, st, s) for i, (st, s) in enumerate(zip(steps, stats))]
+    naive = _left_to_right(leaves, dense_cutover, cost)
+    if len(leaves) <= 2 or len(leaves) > dp_max_len:
+        return naive, naive.total_flops, False
+    root = _dp_order(leaves, dense_cutover, cost)
+    return root, naive.total_flops, True
+
+
+def plan_metapath(
+    hin,
+    metapath: MetaPath,
+    dense_cutover: float | None = None,
+    dp_max_len: int | None = None,
+) -> EvalPlan:
+    """Compile the metapath's evaluation plan against the bound HIN.
+
+    Memoized per (HIN, metapath name, knob overrides) in a side table
+    on the frozen HIN, so backends and the half-chain fold share one
+    plan per graph instead of re-scanning factor stats."""
+    cache = hin.__dict__.get("_eval_plan_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(hin, "_eval_plan_cache", cache)
+    ck = (metapath.name, dense_cutover, dp_max_len)
+    hit = cache.get(ck)
+    if hit is not None:
+        return hit
+    if metapath.is_symmetric:
+        steps = metapath.half()
+        mode = "half"
+        types = metapath.node_types[: len(steps) + 1]
+    else:
+        steps = metapath.steps
+        mode = "general"
+        types = metapath.node_types
+    stats = [factor_stats(hin, st) for st in steps]
+    labels = tuple(
+        f"{types[i][0].upper()}{types[i + 1][0].upper()}"
+        for i in range(len(steps))
+    )
+    root, naive, dp = plan_chain(
+        stats, steps, dense_cutover=dense_cutover, dp_max_len=dp_max_len,
+        # the half chain folds as sparse COO joins; a general chain
+        # executes as dense GEMMs in every backend — the cost model
+        # must match the executor, not the storage format
+        cost=("sparse" if mode == "half" else "dense"),
+    )
+    plan = EvalPlan(
+        metapath=metapath, mode=mode, root=root, naive_flops=naive,
+        dp=dp, labels=labels,
+    )
+    cache[ck] = plan
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Execution: the chain-evaluation doorway
+# ---------------------------------------------------------------------------
+
+
+def _oriented_coo(hin, st: Step) -> sp.COOMatrix:
+    c = sp.coo_from_block(hin.block(st.relationship))
+    if st.reverse:
+        c = sp.COOMatrix(
+            rows=c.cols, cols=c.rows, weights=c.weights,
+            shape=(c.shape[1], c.shape[0]),
+        )
+    return c
+
+
+def _eval_coo_node(
+    node: PlanNode, steps: Sequence[Step], hin
+) -> sp.COOMatrix:
+    if node.is_leaf:
+        return _oriented_coo(hin, steps[node.lo])
+    a = _eval_coo_node(node.left, steps, hin)
+    b = _eval_coo_node(node.right, steps, hin)
+    return sp.matmul_summed(a, b)
+
+
+def fold_half(
+    hin, metapath: MetaPath, plan: EvalPlan | None = None
+) -> sp.COOMatrix:
+    """Plan-ordered sparse fold of the symmetric half chain → the COO
+    factor C every backend binds. Bit-compatible with the historical
+    left-to-right fold: single-step halves return the raw oriented
+    block (unsummed, exactly as before), multi-step folds coalesce at
+    every product, and integer weights make every association order
+    produce identical coalesced content."""
+    if plan is None:
+        plan = plan_metapath(hin, metapath)
+    if plan.mode != "half":
+        raise ValueError(
+            f"metapath {metapath.name} is not symmetric; "
+            "fold_half requires the half-chain factorization"
+        )
+    return _eval_coo_node(plan.root, plan.steps(), hin)
+
+
+def fold_general(
+    hin, metapath: MetaPath, plan: EvalPlan | None = None
+) -> sp.COOMatrix:
+    """Plan-ordered sparse fold of the FULL chain (general metapaths):
+    the commuting matrix M as coalesced COO."""
+    if plan is None:
+        plan = plan_metapath(hin, metapath)
+    steps = plan.steps()
+    if plan.mode == "half":
+        # M = C·Cᵀ: fold the half, join it with its transpose.
+        c = fold_half(hin, metapath, plan=plan)
+        ct = sp.COOMatrix(
+            rows=c.cols, cols=c.rows, weights=c.weights,
+            shape=(c.shape[1], c.shape[0]),
+        )
+        return sp.matmul_summed(c, ct)
+    return _eval_coo_node(plan.root, steps, hin)
+
+
+def dense_half(hin, metapath: MetaPath, dtype=np.float32) -> np.ndarray:
+    """Dense [N, V] half-chain factor via the plan-ordered sparse fold
+    (the dense [N, P] intermediate of a naive chain product never
+    exists)."""
+    coo = fold_half(hin, metapath).summed()
+    c = np.zeros(coo.shape, dtype=dtype)
+    c[coo.rows, coo.cols] = coo.weights
+    return c
+
+
+def execute_dense_order(order, blocks):
+    """Evaluate a dense block chain in the plan's association order
+    (``order`` from :meth:`EvalPlan.order_tree`: leaf = block index,
+    product = a (left, right) pair). Takes numpy arrays or torch
+    tensors alike."""
+    if isinstance(order, int):
+        return blocks[order]
+    left, right = order
+    return execute_dense_order(left, blocks) @ execute_dense_order(
+        right, blocks
+    )
+
+
+def execute_dense(plan: EvalPlan, blocks):
+    """Dense chain product in plan order (the general-metapath M)."""
+    return execute_dense_order(plan.order_tree(), blocks)
+
+
+def rowsums_fold(blocks):
+    """Row sums of an arbitrary chain by the right-fold — a vector
+    fold is already association-optimal (each step is one GEMV)."""
+    return chain.rowsums_general(blocks)
