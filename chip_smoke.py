@@ -15,16 +15,28 @@ nonzero and no result line is printed):
    (``torch.equal`` on values and indices), at small odd shapes, tie-heavy
    rows, zero-degree targets, wide contractions, and at the main path's
    shapes;
-3. the main path through the port's CLI (``--platform cuda --backend
-   torch``) on synthetic GEXF files written by the port: rank-all at
-   32768 authors x 45000 papers x 384 venues (seed 42, k = 10) checked
-   bit for bit against the numpy f64 oracle's counts, single source with
-   its log's line count, all-pairs at 8192 authors; the kernels' launch
-   counters are zeroed before each run and read after it;
-4. times on the card (CUDA events, median of 7 after 2 warm-ups): each
+3. the main path through the port's CLI (``--platform cuda``) on
+   synthetic GEXF files written by the port: rank-all at 32768 authors x
+   45000 papers x 384 venues (seed 42) with ``--backend torch`` at k = 10
+   (K1) and k = 20 (K4) checked bit for bit against the numpy f64
+   oracle's counts, the same ranking through ``--backend torch-sparse``
+   (K3) byte-identical to the ``torch`` one, single source with its log's
+   line count, all-pairs at 8192 authors; then the dense backend's rect
+   arm (K3) at the smallest author count past K1's candidate budget;
+4. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
+   papers x 64 venues (seed 42), ``torch-sparse`` with tile_rows 8192 and
+   ``--approx`` semantics, ``PathSimDriver.rank_all(k=10)`` with a
+   checkpoint directory: K3 once per row tile, 3 seeded spot rows
+   against host f64 arithmetic from the COO factor, K3 against its plain
+   version on a 1024-row tile, a resumed rerun returning identical
+   arrays, rank-all seconds, author-pairs/s, layer times and busy share;
+5. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), and the rank-all
    wall time as author-pairs/s with its per-layer breakdown.
+
+The kernels' launch counters are zeroed before each main-path run and
+read after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -32,6 +44,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import filecmp
 import json
 import pathlib
 import statistics
@@ -48,6 +61,12 @@ N_AUTHORS, N_PAPERS, N_VENUES, TOP_K, SEED = 32768, 45_000, 384, 10, 42
 # All-pairs runs at 8192 authors: the host copy of a 32768² f32 score
 # matrix would be 4 GB per copy.
 N_AUTHORS_ALL_PAIRS = 8192
+# k of the CLI run that takes the single-pass kernel K4 (k > 16).
+TOP_K_FOLD = 20
+# BASELINE.json config 5 (scripts/scale_config5.py's defaults): APVPA,
+# top-10, approx (its counts pass 2^24 by construction), 8192-row tiles.
+C5_AUTHORS, C5_PAPERS, C5_VENUES, C5_TILE_ROWS = 1_048_576, 5_242_880, 64, 8192
+C5_SPOT_SEED, C5_SPOT_ROWS, C5_ATOL = 7, 3, 1e-6
 
 # Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores
 # (no tensor cores: the kernels must not use TF32) and HBM3 bandwidth.
@@ -146,6 +165,15 @@ def max_abs_err(torch, got, want) -> float:
 # -- phases -----------------------------------------------------------------
 
 
+def gpu_state() -> str:
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def device_and_build(torch, ck):
     phase("device and build")
     name = torch.cuda.get_device_name(0)
@@ -201,6 +229,61 @@ def check_scores(torch, ck, c, d, label):
     return max_abs_err(torch, got, want)
 
 
+def check_rect(torch, ck, c, d, r0, t, k, label, stripe_tiles=None,
+               pad_cols=3):
+    """K3 (stripe candidates and the final top-k) against the plain
+    versions for rows r0 .. r0+t-1 against every column, the last
+    ``pad_cols`` columns as padding (n_true_cols = n - pad_cols)."""
+    n = c.shape[0]
+    n_true = n - pad_cols
+    ids = torch.arange(n, dtype=torch.int32, device=c.device)
+    args = (c[r0:r0 + t], c, d[r0:r0 + t], d, ids[r0:r0 + t], k)
+    cv, cc = ck.topk_rect_candidates(*args, n_true, stripe_tiles)
+    pv, pc = ck.topk_rect_candidates_plain(*args, n_true, stripe_tiles)
+    torch.cuda.synchronize()
+    if not (torch.equal(cv, pv) and torch.equal(cc, pc)):
+        bad = (cv != pv) | (cc != pc)
+        raise AssertionError(
+            f"K3 candidates differ from the plain version ({label}, k={k}, "
+            f"stripe_tiles={stripe_tiles}): {int(bad.sum())} entries"
+        )
+    fv, fc = ck.fused_topk_twopass_rect(*args, n_true_cols=n_true)
+    gv, gc = ck.fused_topk_twopass_rect_plain(*args, n_true_cols=n_true)
+    if not (torch.equal(fv, gv) and torch.equal(fc, gc)):
+        raise AssertionError(
+            f"K3 top-k differs from the plain version ({label}, k={k})"
+        )
+    return max_abs_err(torch, fv, gv)
+
+
+def check_fold(torch, ck, c, d, k, mask_self, label):
+    """K4 against its plain version."""
+    fv, fc = ck.fused_topk(c, d, k=k, mask_self=mask_self)
+    gv, gc = ck.fused_topk_plain(c, d, k=k, mask_self=mask_self)
+    torch.cuda.synchronize()
+    if not (torch.equal(fv, gv) and torch.equal(fc, gc)):
+        bad = (fv != gv) | (fc != gc)
+        raise AssertionError(
+            f"K4 differs from the plain version ({label}, k={k}, "
+            f"mask_self={mask_self}): {int(bad.sum())} entries"
+        )
+    return max_abs_err(torch, fv, gv)
+
+
+def check_k3_k4(torch, ck, c, d, label):
+    """K3 at k in {1, 10, 15} (all rows with the default stripes; an odd
+    row tile with 4-tile stripes) and K4 at k in {1, 16, 17, 40} with the
+    self mask both ways."""
+    n = c.shape[0]
+    r0, t = n // 5, n // 3 + 7
+    for k in (1, 10, 15):
+        check_rect(torch, ck, c, d, 0, n, k, label)
+        check_rect(torch, ck, c, d, r0, t, k, label, stripe_tiles=4)
+    for k in (1, 16, 17, 40):
+        for mask_self in (True, False):
+            check_fold(torch, ck, c, d, k, mask_self, label)
+
+
 def factor(hin, spec, device):
     """Dense f32 half factor and row-sum denominators of ``spec``."""
     import numpy as np
@@ -224,12 +307,18 @@ def kernel_checks(torch, ck, np, synthetic_hin):
             check_topk(torch, ck, c, d, k, mask_self, "APVPA 3001x64")
     check_scores(torch, ck, c, d, "APVPA 3001x64")
     print("K1/K2 narrow (APVPA, n=3001, v=64, k in 1/10/16, both masks): equal")
+    check_k3_k4(torch, ck, c, d, "APVPA 3001x64")
+    print("K3/K4 narrow (APVPA, n=3001, v=64; K3 k in 1/10/15, all rows with "
+          "the default stripes and an odd row tile with 4-tile stripes; K4 k "
+          "in 1/16/17/40, both masks): equal")
 
     cw, dw = factor(hin, "APA", dev)  # v = #papers: 282 K steps of 16
     for mask_self in (True, False):
         check_topk(torch, ck, cw, dw, 10, mask_self, "APA wide")
     check_scores(torch, ck, cw, dw, "APA wide")
     print(f"K1/K2 wide (APA, n=3001, v={cw.shape[1]}): equal")
+    check_k3_k4(torch, ck, cw, dw, "APA wide")
+    print(f"K3/K4 wide (APA, n=3001, v={cw.shape[1]}): equal")
 
     rng = np.random.default_rng(SEED)
     base = rng.integers(0, 3, size=(40, 24))
@@ -242,6 +331,59 @@ def kernel_checks(torch, ck, np, synthetic_hin):
             check_topk(torch, ck, ct, dt, k, mask_self, "ties")
     check_scores(torch, ck, ct, dt, "ties")
     print("K1/K2 tie-heavy rows + zero-degree targets (n=1537): equal")
+    check_k3_k4(torch, ck, ct, dt, "ties")
+    print("K3/K4 tie-heavy rows + zero-degree targets (n=1537): equal")
+
+
+def oracle_rows_match(np, got, ids, d, pairwise_row, k, rows, label):
+    """Check ranking rows bit for bit: the f32 scores renormalized from
+    the f64 oracle's exact integer counts (row sums ``d``,
+    ``pairwise_row(r)``), ordered (desc score, asc column), and within
+    1e-6 of the f64 scores. ``got`` maps a source id to its [(target id,
+    score)] ranking."""
+    d32 = d.astype(np.float32)
+    for row in rows:
+        m = pairwise_row(row)
+        den = d32[row] + d32
+        s32 = np.where(den > 0, np.float32(2.0) * m.astype(np.float32)
+                       / np.where(den > 0, den, np.float32(1.0)),
+                       np.float32(0.0))
+        s32[row] = -np.inf
+        order = np.argsort(-s32, kind="stable")[:k]
+        want = [(ids[j], float(s32[j])) for j in order]
+        if got[ids[row]] != want:
+            raise AssertionError(f"{label}: row {row} differs from the oracle")
+        s64 = np.where(d[row] + d > 0,
+                       2.0 * m / np.maximum(d[row] + d, 1), 0.0)
+        s64[row] = -np.inf
+        np.testing.assert_allclose(
+            [v for _, v in got[ids[row]]], np.sort(s64)[::-1][:k], atol=1e-6,
+        )
+
+
+def read_ranking(path):
+    got: dict[str, list[tuple[str, float]]] = {}
+    with open(path, encoding="utf-8") as f:
+        next(f)
+        for line in f:
+            s, _, t, v = line.rstrip("\n").split("\t")
+            got.setdefault(s, []).append((t, float(v)))
+    return got
+
+
+def counted(torch, ck, launches, fn, label):
+    """Run one main-path step with the launch counters zeroed before it
+    and read after it; adds them to ``launches``."""
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(ck.LAUNCHES)
+    for name, cnt in counts.items():
+        launches[name] += cnt
+    print(f"{label}: {dt:.2f} s, launches {counts}")
+    return out, counts, dt
 
 
 def main_path(torch, ck, np, workdir):
@@ -264,17 +406,10 @@ def main_path(torch, ck, np, workdir):
     launches = {name: 0 for name in ck.LAUNCHES}
 
     def run_cli(argv, label):
-        ck.reset_launches()
-        t0 = time.perf_counter()
-        rc = cli_main(argv)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = dict(ck.LAUNCHES)
+        rc, counts, dt = counted(torch, ck, launches,
+                                 lambda: cli_main(argv), label)
         if rc != 0:
             raise AssertionError(f"{label}: CLI exited {rc}")
-        for name, cnt in counts.items():
-            launches[name] += cnt
-        print(f"{label}: rc 0 in {dt:.2f} s, launches {counts}")
         return counts, dt
 
     hin = synthetic_hin(N_AUTHORS, N_PAPERS, N_VENUES, seed=SEED,
@@ -294,36 +429,45 @@ def main_path(torch, ck, np, workdir):
     # Check rows of the TSV bit for bit: f32 scores renormalized from the
     # numpy f64 oracle's exact integer counts, (desc score, asc column).
     oracle = create_backend("numpy", hin, compile_metapath("APVPA", hin.schema))
-    got: dict[str, list[tuple[str, float]]] = {}
-    with open(ranking, encoding="utf-8") as f:
-        next(f)
-        for line in f:
-            s, _, t, v = line.rstrip("\n").split("\t")
-            got.setdefault(s, []).append((t, float(v)))
+    got = read_ranking(ranking)
     if len(got) != N_AUTHORS:
         raise AssertionError(f"ranking has {len(got)} sources")
     ids = hin.indices["author"].ids
     d = oracle.global_walks()
-    d32 = d.astype(np.float32)
-    for row in (0, 7, 12345, N_AUTHORS - 1):
-        m = oracle.pairwise_row(row)
-        den = d32[row] + d32
-        s32 = np.where(den > 0, np.float32(2.0) * m.astype(np.float32)
-                       / np.where(den > 0, den, np.float32(1.0)),
-                       np.float32(0.0))
-        s32[row] = -np.inf
-        order = np.argsort(-s32, kind="stable")[:TOP_K]
-        want = [(ids[j], float(s32[j])) for j in order]
-        if got[ids[row]] != want:
-            raise AssertionError(f"ranking row {row} differs from the oracle")
-        s64 = np.where(d[row] + d > 0, 2.0 * m / np.maximum(d[row] + d, 1), 0.0)
-        s64[row] = -np.inf
-        np.testing.assert_allclose(
-            [v for _, v in got[ids[row]]], np.sort(s64)[::-1][:TOP_K],
-            atol=1e-6,
-        )
+    oracle_rows_match(np, got, ids, d, oracle.pairwise_row, TOP_K,
+                      (0, 7, 12345, N_AUTHORS - 1), "rank-all k=10")
     print("rank-all rows 0/7/12345/32767: bit-identical to the f32 "
           "renormalization of the f64 oracle's counts")
+
+    sparse_ranking = workdir / "ranking_sparse.tsv"
+    counts, _ = run_cli(
+        ["--dataset", str(gexf), "--platform", "cuda", "--backend",
+         "torch-sparse", "--quiet", "--top-k", str(TOP_K), "--ranking-out",
+         str(sparse_ranking)],
+        f"rank-all torch-sparse k={TOP_K}",
+    )
+    tiles = -(-N_AUTHORS // 4096)  # the backend's default tile_rows
+    if counts["topk_rect_candidates"] != tiles:
+        raise AssertionError(
+            f"torch-sparse launched K3 {counts['topk_rect_candidates']} "
+            f"times for {tiles} row tiles")
+    if not filecmp.cmp(ranking, sparse_ranking, shallow=False):
+        raise AssertionError("torch-sparse ranking differs from torch's")
+    print("torch-sparse ranking: cmp-identical to the torch ranking")
+
+    ranking20 = workdir / "ranking20.tsv"
+    counts, _ = run_cli(
+        common + ["--top-k", str(TOP_K_FOLD), "--ranking-out",
+                  str(ranking20)],
+        f"rank-all k={TOP_K_FOLD}",
+    )
+    if counts["topk_fold"] < 1:
+        raise AssertionError(f"rank-all k={TOP_K_FOLD} did not launch K4")
+    oracle_rows_match(np, read_ranking(ranking20), ids, d,
+                      oracle.pairwise_row, TOP_K_FOLD,
+                      (0, 7, 12345, N_AUTHORS - 1), f"rank-all k={TOP_K_FOLD}")
+    print(f"rank-all k={TOP_K_FOLD} rows 0/7/12345/32767: bit-identical to "
+          "the f32 renormalization of the f64 oracle's counts")
 
     log = workdir / "single.log"
     run_cli(common + ["--source", ids[7], "--output", str(log)],
@@ -355,10 +499,302 @@ def main_path(torch, ck, np, workdir):
         backend.topk(k=TOP_K)
     print("bootstrap at the rank-all shape (StageTimer, s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in timer.summary().items()))
+    dense_rect_arm(torch, ck, np, launches)
     return hin, hin_ap, launches, backend
 
 
-def timings(torch, ck, hin, hin_ap, launches, backend, card):
+def uniform_hin(n_authors, n_papers, n_venues, seed):
+    """A DBLP-shaped graph without the Zipf head: each paper has one
+    author and one venue, both drawn uniformly, so row sums stay far
+    below 2^24 at a few hundred thousand authors (counts stay exact)."""
+    import numpy as np
+
+    from distributed_pathsim_tpu_torch.data.encode import (
+        encoded_hin_from_arrays,
+    )
+
+    rng = np.random.default_rng(seed)
+    papers = np.arange(n_papers, dtype=np.int32)
+    return encoded_hin_from_arrays({
+        "name": f"uniform_a{n_authors}_p{n_papers}_v{n_venues}",
+        "node_types": ["author", "paper", "venue"],
+        "relations": {"author_of": ("author", "paper"),
+                      "submit_at": ("paper", "venue")},
+        "types": {"author": {"size": n_authors}, "paper": {"size": n_papers},
+                  "venue": {"size": n_venues}},
+        "blocks": {
+            "author_of": {
+                "relationship": "author_of", "src_type": "author",
+                "dst_type": "paper",
+                "rows": rng.integers(0, n_authors, n_papers), "cols": papers,
+                "shape": (n_authors, n_papers),
+            },
+            "submit_at": {
+                "relationship": "submit_at", "src_type": "paper",
+                "dst_type": "venue", "rows": papers,
+                "cols": rng.integers(0, n_venues, n_papers),
+                "shape": (n_papers, n_venues),
+            },
+        },
+    })
+
+
+def smallest_past_twopass(ck, k, device) -> int:
+    """The smallest row count whose K1 candidate buffer exceeds its
+    budget on ``device`` (cuda_kernels.candidate_bytes)."""
+    lo, hi = 1, 1 << 22
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ck.twopass_fits(mid, k, device):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def dense_rect_arm(torch, ck, np, launches):
+    """backend.topk on the dense ``torch`` backend just past K1's
+    candidate budget: K3 over row tiles, and K1 not at all."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    phase("dense backend past K1's candidate budget (the rect arm)")
+    dev = torch.device("cuda")
+    n = smallest_past_twopass(ck, TOP_K, dev)
+    hin = uniform_hin(n, 2 * n, 64, SEED)
+    mp = compile_metapath("APVPA", hin.schema)
+    backend = create_backend("torch", hin, mp)
+    (vals, idxs), counts, _ = counted(
+        torch, ck, launches, lambda: backend.topk(k=TOP_K),
+        f"dense topk at n={n} (candidate buffer "
+        f"{ck.candidate_bytes(n, TOP_K)} > budget "
+        f"{ck.candidate_budget_bytes(dev)} bytes) k={TOP_K}",
+    )
+    if counts["topk_rect_candidates"] < 1 or counts["topk_twopass_candidates"]:
+        raise AssertionError(f"the rect arm did not run K3 alone: {counts}")
+    oracle = create_backend("numpy", hin, mp)
+    d = oracle.global_walks()
+    if d.max() >= 2**24:
+        raise AssertionError("the rect-arm graph's row sums pass 2^24")
+    rows = (0, 1, n // 2, n - 1)
+    ids = [str(i) for i in range(n)]
+    got = {ids[r]: [(ids[int(j)], float(v)) for v, j in zip(vals[r], idxs[r])]
+           for r in rows}
+    oracle_rows_match(np, got, ids, d, oracle.pairwise_row, TOP_K, rows,
+                      "dense rect arm")
+    print(f"dense rect arm rows {rows}: bit-identical to the f32 "
+          "renormalization of the f64 oracle's counts")
+
+
+def rect_bound(t, n, v, k, n_stripes):
+    """K3's least time: 2 t n v FLOP (a row tile against every column has
+    no symmetry), or its bytes: both factors and denominators read once,
+    the row ids, the candidates written."""
+    return bound(2.0 * t * n * v,
+                 4.0 * (t * v + n * v + 2 * t + n) + 8.0 * t * n_stripes * k)
+
+
+def tiles_device_s(torch, ck, sparse, cc, dc, n, T, tiles):
+    """Device seconds of every row tile's K3 and pass 2, launched back to
+    back with CUDA events around each (read after one synchronize)."""
+    marks = []
+    for i in range(tiles):
+        i0 = i * T
+        ids = torch.arange(i0, i0 + T, dtype=torch.int32, device=cc.device)
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        cv, cand = ck.topk_rect_candidates(cc[i0:i0 + T], cc, dc[i0:i0 + T],
+                                           dc, ids, TOP_K, n)
+        b.record()
+        sparse.chunked_row_topk(cv.view(T, -1), cand.view(T, -1), TOP_K)
+        c.record()
+        marks.append((a, b, c))
+    torch.cuda.synchronize()
+    return (sum(a.elapsed_time(b) for a, b, _ in marks) / 1e3,
+            sum(b.elapsed_time(c) for _, b, c in marks) / 1e3)
+
+
+def config5(torch, ck, np, launches, workdir, card):
+    """BASELINE config 5 through torch-sparse on the card. Returns K3's
+    numbers at its row tile (the kernels line)."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.driver import PathSimDriver
+    from distributed_pathsim_tpu_torch.ops import sparse
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    phase(f"config 5: {C5_AUTHORS} authors x {C5_PAPERS} papers x "
+          f"{C5_VENUES} venues through torch-sparse")
+    t0 = time.perf_counter()
+    hin = synthetic_hin(C5_AUTHORS, C5_PAPERS, C5_VENUES, seed=SEED)
+    graph_s = time.perf_counter() - t0
+    mp = compile_metapath("APVPA", hin.schema)
+
+    def make():
+        return create_backend("torch-sparse", hin, mp,
+                              tile_rows=C5_TILE_ROWS, exact_counts=False)
+
+    t0 = time.perf_counter()
+    backend = make()
+    init_s = time.perf_counter() - t0
+    n, v = backend.n, backend.tiled.v
+    tiles = backend._n_live_tiles
+    ckdir = str(workdir / "config5_ckpt")
+    (vals, idxs), counts, rank_s = counted(
+        torch, ck, launches,
+        lambda: PathSimDriver(backend).rank_all(k=TOP_K, checkpoint_dir=ckdir),
+        f"config 5 rank_all k={TOP_K}",
+    )
+    if counts["topk_rect_candidates"] != tiles:
+        raise AssertionError(
+            f"K3 launched {counts['topk_rect_candidates']} times for "
+            f"{tiles} row tiles")
+    if backend._run_config(TOP_K)["compute_path"] != "rect":
+        raise AssertionError("config 5 did not run the rect arm")
+    if vals.shape != (n, TOP_K) or not np.isfinite(vals).all():
+        raise AssertionError("config 5 result is not [N, k] finite scores")
+    pairs = float(n) * (n - 1)
+    print(f"config 5 rank-all: {rank_s:.3f} s ({tiles} row tiles of "
+          f"{C5_TILE_ROWS}) -> {pairs / rank_s:.4g} author-pairs/s on "
+          f"{card}; set-up: synthetic graph {graph_s:.1f} s, backend init "
+          f"(host fold + COO tiling) {init_s:.1f} s")
+
+    # Spot rows against host f64 arithmetic from the COO factor.
+    coo = backend._c
+    c64 = np.zeros(coo.shape, dtype=np.float64)
+    np.add.at(c64, (coo.rows, coo.cols), coo.weights)
+    d64 = c64 @ c64.sum(0)
+    rng = np.random.default_rng(C5_SPOT_SEED)
+    spot = [int(r) for r in rng.integers(0, n, size=C5_SPOT_ROWS)]
+    for r in spot:
+        m = c64 @ c64[r]
+        den = d64[r] + d64
+        s64 = np.where(den > 0, 2.0 * m / np.where(den > 0, den, 1.0), 0.0)
+        s64[r] = -np.inf
+        expect = np.sort(s64)[::-1][:TOP_K]
+        np.testing.assert_allclose(vals[r], expect, atol=C5_ATOL,
+                                   err_msg=f"config 5 spot row {r}")
+        np.testing.assert_allclose(s64[idxs[r]], expect, atol=C5_ATOL,
+                                   err_msg=f"config 5 spot row {r} columns")
+    print(f"config 5 spot rows {spot}: within {C5_ATOL} of host f64 "
+          "arithmetic from the COO factor (values and chosen columns)")
+
+    # K3 against its plain version on one 1024-row tile at full N. The
+    # counts pass 2^24 here, so sums in another order round differently:
+    # values within 1e-6, columns equal where the k-th and (k+1)-th
+    # plain values are further apart than that.
+    _, cc, dc = backend._rect_factor
+    r0 = n // 2
+    ids = torch.arange(r0, r0 + 1024, dtype=torch.int32, device=cc.device)
+    tile_args = (cc[r0:r0 + 1024], cc, dc[r0:r0 + 1024], dc, ids)
+    kv, kc = ck.fused_topk_twopass_rect(*tile_args, k=TOP_K, n_true_cols=n)
+    pv, pc = ck.fused_topk_twopass_rect_plain(*tile_args, k=TOP_K + 1,
+                                              n_true_cols=n)
+    c5_err = float((kv.double() - pv[:, :TOP_K].double()).abs().max())
+    clear = (pv[:, TOP_K - 1] - pv[:, TOP_K]) > C5_ATOL
+    same = (torch.sort(kc, 1).values
+            == torch.sort(pc[:, :TOP_K], 1).values).all(1)
+    if c5_err > C5_ATOL or not bool(same[clear].all()):
+        raise AssertionError(
+            f"K3 vs plain at config 5: max |diff| {c5_err}, "
+            f"{int((~same & clear).sum())} rows with other columns")
+    print(f"K3 vs plain, 1024-row tile at N={n}: max |diff| {c5_err:.3g}; "
+          f"columns equal in all {int(clear.sum())} rows whose k-th and "
+          f"(k+1)-th scores differ by more than {C5_ATOL}")
+
+    # A fresh backend on the same checkpoint directory resumes every tile.
+    resumed = make()
+    done = len(CheckpointManager(ckdir).done_keys())
+    (v2, i2), counts, resume_s = counted(
+        torch, ck, {name: 0 for name in ck.LAUNCHES},
+        lambda: PathSimDriver(resumed).rank_all(k=TOP_K, checkpoint_dir=ckdir),
+        "config 5 resumed rank_all",
+    )
+    if done != tiles or any(counts.values()):
+        raise AssertionError(f"resume: {done} of {tiles} units, {counts}")
+    if not (np.array_equal(v2, vals) and np.array_equal(i2, idxs)):
+        raise AssertionError("the resumed rank-all differs")
+    print(f"config 5 resume: all {tiles} row tiles from the checkpoint in "
+          f"{resume_s:.2f} s, identical arrays")
+
+    # Layers: row sums, densify, one row tile's K3, pass 2 and fetch (CUDA
+    # events), and every tile's K3 + pass 2 back to back (CUDA events
+    # around each) against an unprofiled sweep's wall time: the device
+    # busy share. (torch.profiler's tracing slows this sweep's kernels,
+    # so a profile would overstate it.)
+    t0 = time.perf_counter()
+    resumed.global_walks()
+    rowsum_s = time.perf_counter() - t0
+    t = resumed.tiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.dense_device()
+    torch.cuda.synchronize()
+    densify_s = time.perf_counter() - t0
+    t.drop_dense()
+    T = C5_TILE_ROWS
+    row_ids = torch.arange(0, T, dtype=torch.int32, device=cc.device)
+    k3_args = (cc[:T], cc, dc[:T], dc, row_ids, TOP_K, n)
+    k3_ms = time_ms(torch, lambda: ck.topk_rect_candidates(*k3_args))
+    cv, ccand = ck.topk_rect_candidates(*k3_args)
+    pass2_ms = time_ms(torch, lambda: sparse.chunked_row_topk(
+        cv.view(T, -1), ccand.view(T, -1), TOP_K))
+    fv, fi = ck.fused_topk_twopass_rect(*k3_args[:5], k=TOP_K, n_true_cols=n)
+    hv = torch.empty(fv.shape, dtype=fv.dtype, pin_memory=True)
+    hi = torch.empty(fi.shape, dtype=fi.dtype, pin_memory=True)
+    fetch_ms = time_ms(torch, lambda: (hv.copy_(fv, non_blocking=True),
+                                       hi.copy_(fi, non_blocking=True)))
+    state_before = gpu_state()
+    k3_s, pass2_s = tiles_device_s(torch, ck, sparse, cc, dc, n, T, tiles)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.topk_scores(k=TOP_K)  # row sums cached: the sweep alone
+    sweep_s = time.perf_counter() - t0
+    print(f"config 5 layers: row sums ({tiles} tile scatters + GEMVs, one "
+          f"fetch) {rowsum_s * 1e3:.1f} ms, densify of C "
+          f"{densify_s * 1e3:.1f} ms, K3 {k3_s:.3f} s over all {tiles} tiles "
+          f"(tile 0 {k3_ms:.3f} ms), pass 2 {pass2_s:.3f} s (tile 0 "
+          f"{pass2_ms:.3f} ms), fetch {fetch_ms:.4f} ms a tile; sweep "
+          f"{sweep_s:.3f} s, device busy share "
+          f"{(k3_s + pass2_s) / sweep_s:.3f} (sm clock, power, temperature "
+          f"before: {state_before}; after: {gpu_state()})")
+
+    # K3's times at this row tile: kernel, plain version, library.
+    k3_plain_ms = time_ms(torch, lambda: ck.fused_topk_twopass_rect_plain(
+        *k3_args[:5], k=TOP_K, n_true_cols=n), reps=3, warmup=1)
+
+    def lib_rect():
+        # matmul + normalize + torch.topk, 1024 rows at a time (one
+        # [8192, 1M] f32 block and its temporaries would not fit)
+        cols = torch.arange(n, device=cc.device)
+        out = []
+        for q in range(0, T, 1024):
+            m = torch.matmul(cc[q:q + 1024], cc[:n].T)
+            den = dc[q:q + 1024, None] + dc[None, :n]
+            m = torch.where(den > 0, m.mul_(2.0).div_(den), 0.0)
+            m.masked_fill_(cols[None, :] == row_ids[q:q + 1024, None],
+                           float("-inf"))
+            out.append(torch.topk(m, TOP_K, dim=1))
+        return out
+
+    k3_lib_ms = time_ms(torch, lib_rect, reps=3, warmup=1)
+    n_st = cv.shape[1]
+    k3_bound, k3_by = rect_bound(T, cc.shape[0], v, TOP_K, n_st)
+    print(f"K3 topk_rect_candidates {T}x{cc.shape[0]}x{v} k={TOP_K} "
+          f"({n_st} stripes): {k3_ms:.3f} ms (bound {k3_bound:.3f} ms by "
+          f"{k3_by} at 2TNV FLOP: "
+          f"{2.0 * T * cc.shape[0] * v / k3_ms / 1e9:.1f} TFLOP/s); K3 + "
+          f"pass 2 per tile {k3_ms + pass2_ms:.3f} ms; plain "
+          f"{k3_plain_ms:.3f} ms; library (matmul+normalize+topk, 1024-row "
+          f"chunks) {k3_lib_ms:.3f} ms")
+    return {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": k3_lib_ms, "c5_err": c5_err}
+
+
+def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
     """Phase 2 at the main path's shapes + phase 4 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
@@ -370,10 +806,15 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card):
     err_k1 = check_topk(torch, ck, c, d, TOP_K, True, "rank-all shape")
     ca, da = factor(hin_ap, "APVPA", dev)
     err_k2 = check_scores(torch, ck, ca, da, "all-pairs shape")
-    print(f"K1 at {n}x{v} k={TOP_K} and K2 at {ca.shape[0]}x{ca.shape[1]}: "
-          "equal to the plain versions")
+    err_k3 = check_rect(torch, ck, c, d, 0, 4096, TOP_K, "rank-all shape",
+                        pad_cols=0)
+    err_k4 = check_fold(torch, ck, c, d, TOP_K_FOLD, True, "rank-all shape")
+    print(f"K1 at {n}x{v} k={TOP_K}, K2 at {ca.shape[0]}x{ca.shape[1]}, K3 "
+          f"at a 4096-row tile of it, K4 at k={TOP_K_FOLD}: equal to the "
+          "plain versions")
 
-    phase("times (CUDA events, median of 7)")
+    phase("times (CUDA events, median of 7; K3's are in the config 5 "
+          "phase)")
     k1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates(c, d, TOP_K, True))
     cv, cc = ck.topk_twopass_candidates(c, d, TOP_K, True)
     pass2_ms = time_ms(torch, lambda: ck.sparse.chunked_row_topk(
@@ -416,6 +857,26 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card):
     print(f"K2 fused_scores {na}x{va}: {k2_ms:.3f} ms (bound {k2_bound:.3f} "
           f"ms by {k2_by} at N(N+1)V FLOP); plain {k2_plain_ms:.3f} ms; library "
           f"(matmul+normalize) {k2_lib_ms:.3f} ms")
+
+    k4_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD))
+    k4_plain_ms = time_ms(torch, lambda: ck.fused_topk_plain(
+        c, d, TOP_K_FOLD), reps=5)
+
+    def lib_fold():
+        m = torch.matmul(c, c.T)
+        den = d[:, None] + d[None, :]
+        s = torch.where(den > 0, (2.0 * m) / den, 0.0)
+        s.fill_diagonal_(float("-inf"))
+        return torch.topk(s, TOP_K_FOLD, dim=1)
+
+    k4_lib_ms = time_ms(torch, lib_fold, reps=5)
+    k4_bound, k4_by = bound(scores_flops(n, v),
+                            4.0 * (n * v + n) + 8.0 * n * TOP_K_FOLD)
+    print(f"K4 topk_fold {n}x{v} k={TOP_K_FOLD}: {k4_ms:.3f} ms (bound "
+          f"{k4_bound:.3f} ms by {k4_by} at N(N+1)V FLOP; the kernel does "
+          f"2N^2V FLOP at {2.0 * n * n * v / k4_ms / 1e9:.1f} TFLOP/s); "
+          f"plain {k4_plain_ms:.3f} ms; library (matmul+normalize+topk) "
+          f"{k4_lib_ms:.3f} ms")
 
     # Rank-all end to end on a built backend (bench.py's measurement:
     # backend.topk including the host fetch), plus its layers.
@@ -465,6 +926,18 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card):
               "distributed_pathsim_tpu/ops/pallas_kernels.py:119",
               ["_scores_kernel", "_scores_kernel_kt"],
               k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms, err_k2),
+        {**entry("topk_rect_candidates",
+                 "distributed_pathsim_tpu_torch/csrc/topk_rect.cu",
+                 "distributed_pathsim_tpu/ops/pallas_kernels.py:707",
+                 ["_topk2_rect_kernel", "_topk2_rect_kernel_kt"],
+                 k3["ms"], k3["plain_ms"], k3["bound_ms"], k3["bound_by"],
+                 k3["library_ms"], err_k3),
+         "config5_max_abs_err": k3["c5_err"]},
+        entry("topk_fold",
+              "distributed_pathsim_tpu_torch/csrc/topk_fold.cu",
+              "distributed_pathsim_tpu/ops/pallas_kernels.py:192",
+              ["_topk_kernel", "_topk_kernel_kt"],
+              k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms, err_k4),
     ]
 
 
@@ -492,7 +965,8 @@ def main() -> int:
         hin, hin_ap, launches, backend = main_path(
             torch, ck, np, pathlib.Path(tmp)
         )
-    kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi)
+        k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
+    kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

@@ -5,7 +5,9 @@ is folded on the host as COO (ops/planner.py), shipped to the device as
 O(nnz) index arrays and scatter-built there; row sums, the diagonal and
 pairwise rows are GEMVs/GEMMs against it; rank-all and all-pairs run on
 the hand-written CUDA kernels (ops/cuda_kernels.py), or on their plain
-torch versions when the device is the CPU. Asymmetric chains run as a
+torch versions when the device is the CPU. Rank-all picks its kernel as
+the JAX package does: K1 while its candidate buffer fits, then K3 over
+row tiles, then the single-pass K4 (k > 16, no self mask, or f64). Asymmetric chains run as a
 plan-ordered ``torch.matmul`` chain.
 
 f32 throughout, exact for integer path counts below 2²⁴ (asserted, not
@@ -37,10 +39,15 @@ class TorchDenseBackend(PathSimBackend):
     """Dense chain on one device: CUDA unless ``device`` says the CPU."""
 
     def __init__(self, hin, metapath, dtype=torch.float32, device=None,
-                 **options):
+                 exact_counts: bool = True, **options):
+        """``exact_counts=False`` waives the f32 2^24 exact-integer guard
+        (the CLI's ``--approx``) for graphs whose path counts exceed it:
+        scores are scale-invariant ratios in C, so f32 costs only ~1e-6
+        relative rounding, and rankings may swap near-exact ties."""
         self.device = resolve_device(device)
         super().__init__(hin, metapath, **options)
         self.dtype = dtype
+        self.exact_counts = exact_counts
         if self.device.type == "cuda":
             ck.check_true_f32()
         self._symmetric = metapath.is_symmetric
@@ -83,7 +90,8 @@ class TorchDenseBackend(PathSimBackend):
         return self._half_cache
 
     def _check_exact(self, rowsums: np.ndarray) -> None:
-        chain.check_exact_counts(rowsums.max(initial=0.0), self.dtype)
+        if self.exact_counts:
+            chain.check_exact_counts(rowsums.max(initial=0.0), self.dtype)
 
     def _fetch_rowsums(self, rowsums: torch.Tensor) -> None:
         """Host copy of the row sums + the exact-count guard, once per
@@ -176,26 +184,53 @@ class TorchDenseBackend(PathSimBackend):
 
     def topk(self, k: int = 10, mask_self: bool = True,
              variant: str = "rowsum"):
-        """Per-source top-k (values f32, indices int64) from K1 + pass
-        2 on the card, ordered (descending score, ascending column)."""
+        """Per-source top-k (values f32, indices int64), ordered
+        (descending score, ascending column), fully on the device. The
+        JAX package's dispatch: K1 + pass 2 while k <= 16 and its
+        candidate buffer fits; past the buffer, with the self mask and
+        f32, row tiles through K3 (:meth:`_topk_rect_stream`); otherwise
+        the single-pass K4. Both score variants ride the same kernels:
+        only the denominator vector differs."""
         if not self._symmetric:
             raise ValueError("topk fast path requires a symmetric metapath")
-        if k > ck.CAND_MAX:
-            raise NotImplementedError(
-                f"top-k with k > {ck.CAND_MAX} needs the single-pass fold "
-                "kernel fused_topk (B4), which is not ported yet"
-            )
         c, rowsums = self._half()
-        n_rows = c.shape[0]
-        if not ck.twopass_fits(n_rows, k, self.device):
-            raise NotImplementedError(
-                f"the two-pass candidate buffer for {n_rows} rows "
-                f"({ck.candidate_bytes(n_rows, k)} bytes) exceeds the "
-                f"budget on {self.device}; row-tiled rank-all needs "
-                "fused_topk_twopass_rect (B2), which is not ported yet"
-            )
         d = self._denominator_device(c, rowsums, variant)
+        n_rows = c.shape[0]
+        if k <= ck.CAND_MAX and ck.twopass_fits(n_rows, k, self.device):
+            vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self)
+        elif (
+            mask_self  # K3 always excludes the self pair
+            and self.dtype == torch.float32
+            and ck.rect_supported(c.shape[1], k)
+        ):
+            vals, idxs = self._topk_rect_stream(c, d, k)
+        else:
+            vals, idxs = ck.fused_topk(c, d, k=k, mask_self=mask_self)
         self._fetch_rowsums(rowsums)
-        vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self)
         n = self.n_sources
         return vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
+
+    # Row-tile height of the rect arm (halved until K3's candidate
+    # buffer fits its budget).
+    _RECT_TILE_ROWS = 8192
+
+    def _topk_rect_stream(self, c, d, k: int):
+        """Per-source top-k past K1's candidate budget: each row tile
+        against the whole column range through K3 + pass 2. Results stay
+        on the device ([N, k] is small); the caller fetches once."""
+        n = c.shape[0]
+        tile_rows = self._RECT_TILE_ROWS
+        while tile_rows > 256 and not ck.rect_fits(n, tile_rows, k,
+                                                   self.device):
+            tile_rows //= 2
+        cc, dc = ck.rect_pad_factor(c, d)
+        ids = torch.arange(n, dtype=torch.int32, device=c.device)
+        outs = [
+            ck.fused_topk_twopass_rect(
+                cc[i0:i0 + tile_rows], cc, dc[i0:i0 + tile_rows], dc,
+                ids[i0:i0 + tile_rows], k=k, n_true_cols=n,
+            )
+            for i0 in range(0, n, tile_rows)
+        ]
+        return (torch.cat([v for v, _ in outs]),
+                torch.cat([i for _, i in outs]))

@@ -1,0 +1,594 @@
+"""Streaming sparse backend on torch (BASELINE.json config 5 path).
+
+The port of the JAX package's ``jax-sparse`` backend, for a COO factor.
+The half-chain factor C is folded sparsely on the host
+(ops/planner.py); the device holds row tiles of C, densified on demand
+(ops/sparse.TiledHalfChain), or the whole dense C when it fits
+:attr:`TorchSparseBackend._DENSE_C_DEVICE_BUDGET`. Rank-all
+(:meth:`TorchSparseBackend.topk_scores`) streams row tiles: each row
+tile's top-k against every column, never more than one row tile's
+candidates on the device, only the [tile, k] winners fetched, each
+completed tile checkpointable.
+
+A row tile takes one of three arms, as in the JAX package: K3 + pass 2
+(ops/cuda_kernels.fused_topk_twopass_rect) on the card for f32, k < 16
+and a candidate buffer within budget; the scanned fold (a loop of tile
+GEMMs + sorts over the device-resident dense C) otherwise; the per-tile
+fold over the LRU of densified tiles when the dense C is over budget.
+``compute_path`` in the checkpoint identity records which arm ran.
+
+Past the f32 exact-integer range (row sums ≥ 2^24) with
+``exact_counts=True`` the f32 pass runs as a candidate prefilter and an
+exact f64 host rescore (with a per-row soundness certificate and a
+full-row fallback) reduces the candidates to the exact top-k.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from ..ops import chain, planner
+from ..ops import cuda_kernels as ck
+from ..ops import sparse as sp
+from ..ops.metapath import MetaPath
+from ..utils.device import resolve_device
+from .base import PathSimBackend, register_backend
+
+# Refuse to densify all-pairs outputs beyond this many entries (16k×16k
+# f64 ≈ 2 GB); larger graphs must use the streaming top-k path.
+_DENSE_M_MAX_ENTRIES = 1 << 28
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+@register_backend("torch-sparse")
+class TorchSparseBackend(PathSimBackend):
+    # Dense C on the device enables the scanned pass and K3 (one column
+    # sweep per row tile instead of n_tiles² tile dispatches). The JAX
+    # package allows a quarter of a 16 GB v5e (4 GB); a quarter of an
+    # 80 GB H100 is 20 GB: ~80M authors at V = 64 in f32.
+    _DENSE_C_DEVICE_BUDGET = 20 << 30
+    # The JAX package's tuning registry's untuned tile height (its
+    # scatter-pad floor, 1, is TiledHalfChain's).
+    _TILE_ROWS = 4096
+    # In-flight row tiles: one fetching, one computing, one queued.
+    _PIPELINE_DEPTH = 3
+
+    def __init__(
+        self,
+        hin,
+        metapath: MetaPath,
+        tile_rows: int | None = None,
+        dtype=torch.float32,
+        device=None,
+        exact_counts: bool = True,
+        dense_c_budget_bytes: int | None = None,
+        rect_kernel: bool | None = None,
+        factor_format: str | None = None,
+        **options,
+    ):
+        """``exact_counts=True`` (default) delivers exact integer counts
+        and bit-exact-vs-f64 scores at any scale: below 2^24 the f32
+        pass is already exact; past it the two-phase rescore takes over
+        (see :meth:`_exact_topk_rescore`). ``exact_counts=False`` (the
+        CLI's ``--approx``) waives that: scores are scale-invariant in
+        C, so f32 rounding costs only ~√V·2⁻²⁴ relative; rankings may
+        swap near-exact ties.
+
+        ``rect_kernel``: None runs K3 on the card and the scanned fold on
+        the CPU (as the JAX package does on its CPU); True forces K3's
+        arm (its plain version on the CPU); False forces the fold."""
+        self.device = resolve_device(device)
+        super().__init__(hin, metapath, **options)
+        if not metapath.is_symmetric:
+            raise ValueError("torch-sparse requires a symmetric metapath")
+        if factor_format not in (None, "coo"):
+            raise NotImplementedError(
+                f"factor_format {factor_format!r} is not ported: torch-sparse "
+                "holds a COO factor; the packed layouts of the JAX "
+                "package's ops/packed.py are not ported yet"
+            )
+        if self.device.type == "cuda":
+            ck.check_true_f32()
+        self.exact_counts = exact_counts
+        self._dtype = dtype
+        self._dense_c_budget = (
+            self._DENSE_C_DEVICE_BUDGET
+            if dense_c_budget_bytes is None
+            else int(dense_c_budget_bytes)
+        )
+        self._rect_kernel = rect_kernel
+        self._tile_rows_req = (
+            self._TILE_ROWS if tile_rows is None else int(tile_rows)
+        )
+        self._factor_format = "coo"
+        self._bind_factor(planner.fold_half(hin, metapath, plan=self.plan))
+
+    def _bind_factor(self, factor: sp.COOMatrix) -> None:
+        """Bind the half-chain factor: overflow-mode detection, tiling,
+        cache reset."""
+        self.n = self.hin.type_size(self.metapath.source_type)
+        tile_rows_eff = min(self._tile_rows_req, max(int(factor.shape[0]), 8))
+        self._c = factor
+        # Overflow detection (cheap bound, then the tight per-row check):
+        # the outcome is a MODE, not a refusal. d_i >= M[i,j] >= every
+        # partial sum (non-negative data), so max rowsum < 2^24 proves
+        # the whole f32 pipeline exact; past it the rescore restores it.
+        self._exact_rescore = False
+        self._host_rowsums = None
+        if self.exact_counts and chain._is_float32(self._dtype):
+            colsum = np.zeros(factor.shape[1], dtype=np.float64)
+            np.add.at(colsum, factor.cols, factor.weights)
+            if float((colsum**2).sum()) >= chain.F32_EXACT_INT_MAX:
+                rs = np.zeros(factor.shape[0], dtype=np.float64)
+                np.add.at(rs, factor.rows, factor.weights * colsum[factor.cols])
+                rs = rs[: self.n]
+                if rs.max(initial=0.0) >= chain.F32_EXACT_INT_MAX:
+                    self._exact_rescore = True
+                    self._host_rowsums = rs
+        self.tiled = sp.TiledHalfChain(
+            factor,
+            tile_rows=tile_rows_eff,
+            dtype=self._dtype,
+            device=self.device,
+            # in rescore mode the f32 tiles are a prefilter by design;
+            # the tiled guard would refuse what the rescore phase fixes
+            exact_counts=self.exact_counts and not self._exact_rescore,
+        )
+        self._rect_factor = None
+        self._rowsums: np.ndarray | None = None
+        self._diag: np.ndarray | None = None
+        self._m: np.ndarray | None = None
+        self._c_sum = None
+        self._indptr = None
+
+    @property
+    def _n_live_tiles(self) -> int:
+        return -(-self.n // self.tiled.tile_rows)
+
+    def _use_rect_kernel(self, k: int) -> bool:
+        """K3 serves the f32 streaming regime (k < 16) within its
+        candidate budget (shrink ``tile_rows`` to stay inside it at
+        larger N); on the CPU only when ``rect_kernel=True`` (its plain
+        version — the tests)."""
+        fits = (
+            chain._is_float32(self.tiled.dtype)
+            and ck.rect_supported(self.tiled.v, k)
+            and ck.rect_fits(self.n, self.tiled.tile_rows, k, self.device)
+        )
+        if self._rect_kernel is not None:
+            return self._rect_kernel and fits
+        return fits and self.device.type == "cuda"
+
+    # -- primitives ------------------------------------------------------
+
+    def global_walks(self) -> np.ndarray:
+        if self._rowsums is None:
+            # rescore mode: the device f32 GEMV rounds past 2^24; the
+            # host f64 accumulation (integers < 2^53) is exact and was
+            # already computed by the overflow detector.
+            self._rowsums = (
+                self._host_rowsums if self._exact_rescore
+                else self.tiled.rowsums()[: self.n]
+            )
+        return self._rowsums
+
+    def commuting_matrix(self) -> np.ndarray:
+        if self._m is None:
+            if self.n * self.n > _DENSE_M_MAX_ENTRIES:
+                raise MemoryError(
+                    f"dense M would be {self.n}x{self.n}; use topk_scores()"
+                )
+            if self._exact_rescore:
+                c = self._densify_rows_f64(np.arange(self.n))
+                self._m = c @ c.T
+                return self._m
+            t = self.tiled
+            tr = t.tile_rows
+            m = np.zeros((t.n_tiles * tr, t.n_tiles * tr))
+            for i in range(self._n_live_tiles):
+                for j in range(i, self._n_live_tiles):
+                    tile = t.m_tile(i, j).cpu().double().numpy()
+                    m[i * tr:(i + 1) * tr, j * tr:(j + 1) * tr] = tile
+                    if j != i:
+                        m[j * tr:(j + 1) * tr, i * tr:(i + 1) * tr] = tile.T
+            self._m = m[: self.n, : self.n]
+        return self._m
+
+    def pairwise_row(self, source_index: int) -> np.ndarray:
+        if self._exact_rescore:
+            return self.pairwise_row_exact(source_index)
+        t = self.tiled
+        ti, off = divmod(source_index, t.tile_rows)
+        src_tile = t.tile(ti)
+        out = np.zeros(t.n_tiles * t.tile_rows, dtype=np.float64)
+        for j in range(self._n_live_tiles):
+            tile = sp.tile_outer(src_tile[off:off + 1], t.tile(j))
+            out[j * t.tile_rows:(j + 1) * t.tile_rows] = (
+                tile[0].cpu().double().numpy()
+            )
+        return out[: self.n]
+
+    def pairwise_rows(self, rows) -> np.ndarray:
+        """Batched M[rows, :]: the source factor rows gathered into one
+        dense [B, V] device block and swept across the column tiles.
+        Under the exact-count guard every f32 tile product is an exact
+        integer, so this agrees bit for bit with the per-row sweep; in
+        exact-rescore mode each row takes the exact f64 host path."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if self._exact_rescore:
+            return np.stack([self.pairwise_row_exact(int(r)) for r in rows])
+        t = self.tiled
+        src = torch.as_tensor(self._densify_rows_f64(rows),
+                              device=self.device).to(t.dtype)
+        out = np.zeros((rows.shape[0], t.n_tiles * t.tile_rows))
+        for j in range(self._n_live_tiles):
+            tile = sp.tile_outer(src, t.tile(j))
+            out[:, j * t.tile_rows:(j + 1) * t.tile_rows] = (
+                tile.cpu().double().numpy()
+            )
+        return out[:, : self.n]
+
+    def diag_walks(self) -> np.ndarray:
+        """diag(M)[i] = Σ_v C[i,v]² — the textbook-PathSim denominator,
+        straight from the summed COO (O(nnz), no dense C, no M)."""
+        if self._diag is None:
+            s = self._c.summed()
+            self._diag = np.bincount(
+                s.rows, weights=s.weights**2, minlength=self.n
+            ).astype(np.float64)
+        return self._diag
+
+    # -- streaming rank-all ------------------------------------------------
+
+    def _compute_path(self, k: int) -> str:
+        scanned = self.tiled.dense_bytes() <= self._dense_c_budget
+        if scanned and self._use_rect_kernel(k):
+            return "rect"
+        return "scan-fold" if scanned else "tile-fold"
+
+    def _run_config(self, k: int, variant: str = "rowsum") -> dict:
+        """Checkpoint identity: graph fingerprint + tiling + k + score
+        variant + compute path. A reused directory from a different run
+        must fail, not resume."""
+        c = self._c
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(c.rows, dtype=np.int64).tobytes())
+        h.update(np.ascontiguousarray(c.cols, dtype=np.int64).tobytes())
+        h.update(np.ascontiguousarray(c.weights, dtype=np.float64).tobytes())
+        return {
+            "n": int(self.n),
+            "v": int(c.shape[1]),
+            "nnz": int(c.rows.shape[0]),
+            "factor_format": self._factor_format,
+            "digest": h.hexdigest()[:16],
+            "tile_rows": int(self.tiled.tile_rows),
+            "k": int(k),
+            "metapath": self.metapath.name,
+            "dtype": _dtype_name(self.tiled.dtype),
+            "exact_counts": bool(self.exact_counts),
+            "variant": variant,
+            # The active arm is identity too: K3's f32 sums and the
+            # folds' may round differently past 2^24, so a run started
+            # on one arm must not resume on another and mix numerics
+            # across row tiles.
+            "compute_path": self._compute_path(k),
+            # Bump whenever the numeric regime or the resume protocol of
+            # the saved units changes.
+            "format": "stream-topk-v2",
+        }
+
+    def topk_scores(self, k: int = 10, variant: str = "rowsum",
+                    checkpoint_dir: str | None = None):
+        """Streaming per-source top-k: (values f64 [N, k], indices int64
+        [N, k]), self pairs excluded. In exact-rescore mode (counts past
+        2^24, ``exact_counts=True``) the f32 pass runs widened to k_cand
+        candidates per row and the exact host phase reduces them to the
+        true top-k — bit-exact vs f64 arithmetic, certified per row."""
+        if not self._exact_rescore:
+            return self._topk_scores_f32(k, variant, checkpoint_dir)
+        # k+5 keeps k=10 inside K3's k < 16 gate (the candidate set is
+        # certified per row afterwards, so the margin affects fallback
+        # cost, never correctness)
+        k_cand = min(max(k + 5, (3 * k) // 2), max(self.n - 1, 1))
+        cv, ci = self._topk_scores_f32(k_cand, variant, checkpoint_dir)
+        return self._exact_topk_rescore(k, cv, ci, variant)
+
+    def _topk_scores_f32(self, k: int = 10, variant: str = "rowsum",
+                         checkpoint_dir: str | None = None):
+        """The full sweep over row tiles: each tile's [tile, k] winners
+        come back to the host, nothing larger. ``checkpoint_dir``:
+        persist each completed row tile and resume on restart (tiles are
+        independent units)."""
+        ckpt = None
+        if checkpoint_dir is not None:
+            from ..utils.checkpoint import CheckpointManager
+
+            ckpt = CheckpointManager(
+                checkpoint_dir,
+                config=self._run_config(k, variant),
+                config_defaults={"dtype": "float32", "exact_counts": True,
+                                 "variant": "rowsum",
+                                 "factor_format": "coo"},
+            )
+        t = self.tiled
+        denoms = self._denoms_device_padded(variant)
+        vals, idxs = self._empty_result(k)
+        scanned = t.dense_bytes() <= self._dense_c_budget
+
+        # Software pipeline over row tiles: the device runs tile i+1
+        # while the host waits for tile i's copy into pinned memory, and
+        # results still land (and checkpoint) in tile order.
+        pending: list[tuple] = []
+
+        def drain_one():
+            i_, i0_, rows_, hv, hi, done = pending.pop(0)
+            if done is not None:
+                done.synchronize()
+            vals[i0_:i0_ + rows_] = hv[:rows_].double().numpy()
+            idxs[i0_:i0_ + rows_] = hi[:rows_].long().numpy()
+            if ckpt is not None:
+                ckpt.save_unit(
+                    f"topk{k}_rowtile_{i_}",
+                    vals=vals[i0_:i0_ + rows_],
+                    idxs=idxs[i0_:i0_ + rows_],
+                )
+
+        for i in range(self._n_live_tiles):
+            i0 = i * t.tile_rows
+            rows_here = min(t.tile_rows, self.n - i0)
+            key = f"topk{k}_rowtile_{i}"
+            if ckpt is not None and ckpt.is_done(key):
+                unit = ckpt.load_unit(key)
+                vals[i0:i0 + rows_here] = unit["vals"]
+                idxs[i0:i0 + rows_here] = unit["idxs"]
+                continue
+            best_v, best_i = self._topk_row_tile(i, i0, k, variant, denoms,
+                                                 scanned)
+            pending.append((i, i0, rows_here, *_fetch_async(best_v, best_i)))
+            while len(pending) >= self._PIPELINE_DEPTH:
+                drain_one()
+        while pending:
+            drain_one()
+        return vals, idxs
+
+    def _topk_row_tile(self, i: int, i0: int, k: int, variant: str,
+                       denoms, scanned: bool):
+        """One row tile's top-k on the device, by the arm
+        :meth:`_compute_path` names. Stateless with respect to the sweep
+        (the K3 factor cache is rebuilt idempotently)."""
+        t = self.tiled
+        d_all = denoms()
+        if scanned and self._use_rect_kernel(k):
+            # K3 + pass 2 against the whole column range. The factor is
+            # made kernel-ready once and cached per variant: its
+            # denominators are the variant's.
+            if self._rect_factor is None or self._rect_factor[0] != variant:
+                self._rect_factor = (
+                    variant, *ck.rect_pad_factor(t.dense_device(), d_all)
+                )
+                # K3 only reads the kernel-ready copy: holding the dense
+                # C too would double the factor's device residency
+                t.drop_dense()
+            _, cc, dc = self._rect_factor
+            tr = t.tile_rows
+            row_ids = torch.arange(i0, i0 + tr, dtype=torch.int32,
+                                   device=cc.device)
+            return ck.fused_topk_twopass_rect(
+                cc[i0:i0 + tr], cc, dc[i0:i0 + tr], dc, row_ids,
+                k=k, n_true_cols=self.n,
+            )
+        if scanned:
+            return sp.stream_row_tile_topk(
+                t.dense_device(), d_all, i0, k=k, n_true=self.n,
+                tile_rows=t.tile_rows,
+            )
+        ci = t.tile(i)
+        di = d_all[i0:i0 + t.tile_rows]
+        best_v = torch.full((t.tile_rows, k), float("-inf"), dtype=t.dtype,
+                            device=self.device)
+        best_i = torch.zeros((t.tile_rows, k), dtype=torch.int32,
+                             device=self.device)
+        for j in range(self._n_live_tiles):
+            j0 = j * t.tile_rows
+            best_v, best_i = sp.stream_merge_topk(
+                ci, t.tile(j), di, d_all[j0:j0 + t.tile_rows],
+                best_v, best_i, i0, j0, k=k, n_true=self.n,
+            )
+        return best_v, best_i
+
+    def _denoms_device_padded(self, variant: str = "rowsum"):
+        """Lazy padded denominator vector on the device: a run resuming
+        entirely from checkpoint never touches the graph."""
+        if variant not in ("rowsum", "diagonal"):
+            raise ValueError(f"unknown PathSim variant {variant!r}")
+        t = self.tiled
+        d_dev = None
+
+        def denoms_device():
+            nonlocal d_dev
+            if d_dev is None:
+                d_pad = np.zeros(t.n_tiles * t.tile_rows)
+                d_pad[: self.n] = (
+                    self.global_walks() if variant == "rowsum"
+                    else self.diag_walks()
+                )
+                d_dev = torch.as_tensor(d_pad, device=self.device).to(t.dtype)
+            return d_dev
+
+        return denoms_device
+
+    def _empty_result(self, k: int):
+        return (
+            np.full((self.n, k), -np.inf),
+            np.zeros((self.n, k), dtype=np.int64),
+        )
+
+    # ------------------------------------------------------------------
+    # Exact-counts phase (counts past 2^24): f64 host rescoring of the
+    # f32 pass's candidates. Selection stays on the device in f32;
+    # exactness costs one O(N·k_cand·V) host einsum over integers < 2^53
+    # (exact in f64), not f64 in the hot loop.
+    # ------------------------------------------------------------------
+
+    def _csr_factor(self):
+        """(coalesced row-major COO, indptr) for the rescore helpers.
+        The factor is not assumed sorted or duplicate-free: a single-step
+        half chain (APA) is the raw adjacency block."""
+        if self._c_sum is None:
+            self._c_sum = self._c.summed()
+            self._indptr = np.searchsorted(
+                self._c_sum.rows, np.arange(self.n + 1)
+            )
+        return self._c_sum, self._indptr
+
+    def _densify_rows_f64(self, rows: np.ndarray) -> np.ndarray:
+        """Dense f64 [len(rows), V] gather of arbitrary factor rows."""
+        s, indptr = self._csr_factor()
+        rows = np.asarray(rows, dtype=np.int64)
+        starts = indptr[rows]
+        counts = indptr[rows + 1] - starts
+        total = int(counts.sum())
+        out = np.zeros((rows.shape[0], self.tiled.v), dtype=np.float64)
+        if total:
+            ridx = np.repeat(np.arange(rows.shape[0]), counts)
+            cum = np.concatenate([[0], np.cumsum(counts)])
+            flat = np.repeat(starts, counts) + (
+                np.arange(total) - np.repeat(cum[:-1], counts)
+            )
+            out[ridx, s.cols[flat]] = s.weights[flat]
+        return out
+
+    def _f32_score_relerr_bound(self) -> float:
+        """Rigorous relative-error bound on a score from the f32 pass:
+        the GEMM's error ≤ (V+2)u·m for non-negative data, plus input
+        casts, the denominator GEMV and the final divide — (2V+16)u
+        covers every path, doubled for defense. u = 2^-24."""
+        return (2.0 * self.tiled.v + 16.0) * 2.0**-24 * 2.0
+
+    def _exact_topk_rescore(self, k: int, cand_vals: np.ndarray,
+                            cand_idxs: np.ndarray, variant: str):
+        """Reduce the f32 pass's [N, k_cand] candidates to the exact
+        top-k: gather candidate factor rows dense (f64), one einsum for
+        the pairwise walks, exact normalize, (−score, column) selection —
+        the oracle's tie-break. Soundness certificate per row: any
+        non-candidate j has f32 score ≤ the last kept candidate's, so
+        its true score is ≤ that·(1+ε); if the exact k-th candidate
+        beats that bound (or every non-self column is a candidate, or
+        the last f32 score is exactly 0 — zero scores are error-free for
+        integer data), the candidate set provably holds the true top-k.
+        Rows that fail the certificate get a full exact row sweep."""
+        d = np.asarray(
+            self.global_walks() if variant == "rowsum" else self.diag_walks(),
+            dtype=np.float64,
+        )
+        n, v = self.n, self.tiled.v
+        k_cand = cand_idxs.shape[1]
+        kk = min(k, k_cand)
+        eps = self._f32_score_relerr_bound()
+        out_v = np.full((n, k), -np.inf)
+        out_i = np.zeros((n, k), dtype=np.int64)
+        chunk = max(64, int((256 << 20) // max(k_cand * v * 8, 1)))
+        flagged: list[np.ndarray] = []
+        all_cands = n - 1 <= k_cand
+        for i0 in range(0, n, chunk):
+            i1 = min(i0 + chunk, n)
+            rows = np.arange(i0, i1)
+            ci = self._densify_rows_f64(rows)
+            cid = np.asarray(cand_idxs[i0:i1], dtype=np.int64)
+            valid = np.isfinite(cand_vals[i0:i1])
+            safe_id = np.where(valid, cid, 0)
+            cj = self._densify_rows_f64(safe_id.ravel()).reshape(
+                i1 - i0, k_cand, v
+            )
+            m = np.einsum("tv,tcv->tc", ci, cj)
+            den = d[rows][:, None] + d[safe_id]
+            sc = np.where(den > 0, 2.0 * m / np.where(den > 0, den, 1.0), 0.0)
+            sc = np.where(valid, sc, -np.inf)
+            order = np.lexsort((safe_id, -sc), axis=-1)[:, :kk]
+            out_v[i0:i1, :kk] = np.take_along_axis(sc, order, axis=1)
+            out_i[i0:i1, :kk] = np.take_along_axis(safe_id, order, axis=1)
+            if not all_cands:
+                last_f32 = np.asarray(cand_vals[i0:i1, -1], dtype=np.float64)
+                kth = out_v[i0:i1, kk - 1]
+                sound = (last_f32 == 0.0) | (kth > last_f32 * (1.0 + eps))
+                if not sound.all():
+                    flagged.append(rows[~sound])
+        # how often the certificate failed (scale runs report it)
+        self._last_fallback_rows = int(sum(f.shape[0] for f in flagged))
+        if flagged:
+            self._exact_full_rows(np.concatenate(flagged), d, k, out_v, out_i)
+        return out_v, out_i
+
+    def _exact_full_rows(self, rows: np.ndarray, d: np.ndarray, k: int,
+                         out_v: np.ndarray, out_i: np.ndarray) -> None:
+        """Exact f64 scores of ``rows`` against every column, top-k with
+        the (−score, ascending column) tie-break — the uncertifiable-row
+        fallback, needed exactly when score ties span the candidate
+        boundary. Both axes are chunked: the score block never exceeds
+        ~256 MB however many rows were flagged."""
+        n = self.n
+        col_chunk = max(256, int((64 << 20) // max(self.tiled.v * 8, 1)))
+        row_chunk = max(64, int((256 << 20) // max(col_chunk * 8, 1)))
+        for r0 in range(0, rows.shape[0], row_chunk):
+            rblk = rows[r0:r0 + row_chunk]
+            ci = self._densify_rows_f64(rblk)
+            di = d[rblk]
+            best_v = np.full((rblk.shape[0], 0), -np.inf)
+            best_c = np.zeros((rblk.shape[0], 0), dtype=np.int64)
+            for j0 in range(0, n, col_chunk):
+                j1 = min(j0 + col_chunk, n)
+                cj = self._densify_rows_f64(np.arange(j0, j1))
+                m = ci @ cj.T
+                den = di[:, None] + d[j0:j1][None, :]
+                sc = np.where(den > 0, 2.0 * m / np.where(den > 0, den, 1.0),
+                              0.0)
+                cols = np.broadcast_to(np.arange(j0, j1), sc.shape).copy()
+                sc = np.where(cols == rblk[:, None], -np.inf, sc)  # self
+                kk = min(k, sc.shape[1])
+                o = np.lexsort((cols, -sc), axis=-1)[:, :kk]
+                merged_v = np.concatenate(
+                    [best_v, np.take_along_axis(sc, o, axis=1)], axis=1
+                )
+                merged_c = np.concatenate(
+                    [best_c, np.take_along_axis(cols, o, axis=1)], axis=1
+                )
+                o = np.lexsort((merged_c, -merged_v), axis=-1)[:, :k]
+                best_v = np.take_along_axis(merged_v, o, axis=1)
+                best_c = np.take_along_axis(merged_c, o, axis=1)
+            kk = best_v.shape[1]
+            out_v[rblk, :kk] = best_v
+            out_i[rblk, :kk] = best_c
+
+    def pairwise_row_exact(self, source_index: int) -> np.ndarray:
+        """M[source, :] with exact f64 host arithmetic — the rescore-mode
+        counterpart of :meth:`pairwise_row`."""
+        ci = self._densify_rows_f64(np.array([source_index]))[0]
+        out = np.zeros(self.n, dtype=np.float64)
+        chunk = max(256, int((128 << 20) // max(self.tiled.v * 8, 1)))
+        for j0 in range(0, self.n, chunk):
+            j1 = min(j0 + chunk, self.n)
+            out[j0:j1] = self._densify_rows_f64(np.arange(j0, j1)) @ ci
+        return out
+
+
+def _fetch_async(vals: torch.Tensor, idxs: torch.Tensor):
+    """Start the host copy of a row tile's result: on the card into
+    pinned buffers without blocking the host, with an event to wait on;
+    on the CPU the tensors already are host tensors. Returns (host
+    values, host indices, event or None)."""
+    if vals.device.type != "cuda":
+        return vals, idxs, None
+    hv = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+    hi = torch.empty(idxs.shape, dtype=idxs.dtype, pin_memory=True)
+    with torch.cuda.device(vals.device):
+        hv.copy_(vals, non_blocking=True)
+        hi.copy_(idxs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    return hv, hi, done

@@ -37,8 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend",
         default="torch",
         choices=available_backends(),
-        help="execution backend: torch (the device path) or numpy (the "
-        "host f64 oracle)",
+        help="execution backend: torch (the dense device path), "
+        "torch-sparse (the streaming row-tiled device path, for graphs "
+        "whose score matrix cannot exist) or numpy (the host f64 oracle)",
     )
     p.add_argument("--metapath", default="APVPA", help="metapath spec, e.g. APVPA")
     p.add_argument("--variant", default="rowsum", choices=list(VARIANTS))
@@ -67,6 +68,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --top-k and no --source: write every node's top-k "
         "ranking as TSV here",
     )
+    p.add_argument(
+        "--checkpoint-dir",
+        default=None,
+        help="torch-sparse: resumable ranking state (completed row tiles "
+        "are skipped on restart)",
+    )
+    p.add_argument(
+        "--tile-rows",
+        type=int,
+        default=None,
+        help="torch-sparse: rows per streaming tile (memory/throughput "
+        "trade-off for the million-author regime)",
+    )
+    p.add_argument(
+        "--approx",
+        action="store_true",
+        help="torch / torch-sparse: waive the f32 exact-integer-count "
+        "guard for graphs whose path counts exceed 2^24 (scores stay "
+        "within the 1e-5 gate; only the guard is waived)",
+    )
     return p
 
 
@@ -84,18 +105,30 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _run(args) -> int:
-    if args.ranking_out:
-        # --ranking-out belongs to the all-sources ranking mode (--top-k
-        # with no source); refuse bad combinations up front.
+    if args.ranking_out or args.checkpoint_dir:
+        # Both flags belong to the all-sources ranking mode (--top-k with
+        # no source); refuse bad combinations up front — the source
+        # conflict first, since no --top-k value fixes that one.
         if args.source or args.source_id:
             raise ValueError(
-                "--ranking-out ranks ALL sources and cannot be combined "
-                "with --source/--source-id"
+                "--ranking-out/--checkpoint-dir rank ALL sources and "
+                "cannot be combined with --source/--source-id"
             )
         if not args.top_k:
             raise ValueError(
-                "--ranking-out requires --top-k (the all-sources ranking mode)"
+                "--ranking-out/--checkpoint-dir requires --top-k "
+                "(the all-sources ranking mode)"
             )
+    if args.tile_rows is not None and args.backend != "torch-sparse":
+        raise ValueError(
+            "--tile-rows tunes the streaming tiled path and requires "
+            "--backend torch-sparse"
+        )
+    if args.approx and args.backend not in ("torch", "torch-sparse"):
+        raise ValueError(
+            "--approx waives the f32 exact-count guard of the device "
+            "backends (torch, torch-sparse); the numpy oracle is f64-exact"
+        )
     platform = resolve_device(args.platform).type  # before any load
     if platform == "cuda":
         cuda_kernels.true_f32()
@@ -111,6 +144,8 @@ def _run(args) -> int:
         top_k=args.top_k,
         loader=args.loader,
         platform=platform,
+        tile_rows=args.tile_rows,
+        approx=args.approx,
         echo=not args.quiet,
     )
     logger = RunLogger(output_path=config.output, echo=config.echo)
@@ -151,7 +186,9 @@ def _run_modes(args, config, logger: RunLogger) -> int:
     if args.top_k and not (args.source or args.source_id):
         # No source = rank every node, the batched form of the
         # reference's whole program.
-        vals, idxs = driver.rank_all(k=args.top_k)
+        vals, idxs = driver.rank_all(
+            k=args.top_k, checkpoint_dir=args.checkpoint_dir
+        )
         print(f"Ranked top-{args.top_k} for all {vals.shape[0]} sources")
         if args.ranking_out:
             driver.write_ranking(args.ranking_out, vals, idxs)

@@ -22,5 +22,7 @@ class RunConfig:
     all_pairs: bool = False
     top_k: int = 0
     loader: str = "python"  # GEXF loader (the native one is not ported)
-    platform: str = "cuda"  # device of the torch backend: cuda | cpu
+    platform: str = "cuda"  # device of the device backends: cuda | cpu
+    tile_rows: int | None = None  # torch-sparse: rows per streaming tile
+    approx: bool = False  # device backends: waive the f32 2^24 count guard
     echo: bool = True

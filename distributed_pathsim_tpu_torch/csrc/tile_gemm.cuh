@@ -1,8 +1,10 @@
 // Shared score-tile machinery of the PathSim kernels (sm_90a).
 //
-// Both kernels compute tiles of S = (2 * C * C^T) / (d_i + d_j), 0 where
-// d_i + d_j == 0, from the half-chain factor C [n, v] (row-major f32) and
-// its denominators d [n]. One block owns one [BM x BN] output tile and
+// Every kernel computes tiles of S = (2 * A * B^T) / (d_i + d_j), 0 where
+// d_i + d_j == 0, from row factors A [na, v] and column factors B [nb, v]
+// (row-major f32; A == B for the square kernels, where both are the
+// half-chain factor C) and their denominators. One block owns one
+// [BM x BN] output tile and
 // loops over the contraction axis v inside the block, staging [BK]-wide
 // slices of the row tile and the column tile in shared memory. That one
 // loop covers both the un-tiled Pallas kernels and their K-tiled
@@ -41,8 +43,10 @@ struct TileSmem {
     float b[BK][BN + 1];
 };
 
-__device__ __forceinline__ void stage_load(const float* __restrict__ c,
-                                           int n, int v, int row0,
+__device__ __forceinline__ void stage_load(const float* __restrict__ a,
+                                           int na,
+                                           const float* __restrict__ b,
+                                           int nb, int v, int row0,
                                            int col0, int k0,
                                            float (&ra)[LOADS],
                                            float (&rb)[LOADS]) {
@@ -52,19 +56,19 @@ __device__ __forceinline__ void stage_load(const float* __restrict__ c,
         const int r = e / BK;
         const int gk = k0 + e % BK;
         const bool k_ok = gk < v;
-        ra[q] = (k_ok && row0 + r < n)
-                    ? c[(long long)(row0 + r) * v + gk] : 0.0f;
-        rb[q] = (k_ok && col0 + r < n)
-                    ? c[(long long)(col0 + r) * v + gk] : 0.0f;
+        ra[q] = (k_ok && row0 + r < na)
+                    ? a[(long long)(row0 + r) * v + gk] : 0.0f;
+        rb[q] = (k_ok && col0 + r < nb)
+                    ? b[(long long)(col0 + r) * v + gk] : 0.0f;
     }
 }
 
-// acc[r][c] = sum_k C[row0 + ty + 16 r, k] * C[col0 + tx + 16 c, k],
-// with rows/columns past n reading as zero.
-__device__ __forceinline__ void tile_product(const float* __restrict__ c,
-                                             int n, int v, int row0,
-                                             int col0, TileSmem& sm,
-                                             float (&acc)[TM][TN]) {
+// acc[r][c] = sum_k A[row0 + ty + 16 r, k] * B[col0 + tx + 16 c, k],
+// with rows of A past na and rows of B past nb reading as zero.
+__device__ __forceinline__ void tile_product_rect(
+    const float* __restrict__ a, int na, const float* __restrict__ b,
+    int nb, int v, int row0, int col0, TileSmem& sm,
+    float (&acc)[TM][TN]) {
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
 #pragma unroll
@@ -73,7 +77,7 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ c,
         for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
 
     float ra[LOADS], rb[LOADS];
-    stage_load(c, n, v, row0, col0, 0, ra, rb);
+    stage_load(a, na, b, nb, v, row0, col0, 0, ra, rb);
     for (int k0 = 0; k0 < v; k0 += BK) {
         __syncthreads();  // every reader of the previous slice is done
 #pragma unroll
@@ -84,21 +88,30 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ c,
         }
         __syncthreads();
         if (k0 + BK < v)  // next slice's loads fly while this one computes
-            stage_load(c, n, v, row0, col0, k0 + BK, ra, rb);
+            stage_load(a, na, b, nb, v, row0, col0, k0 + BK, ra, rb);
 #pragma unroll
         for (int kk = 0; kk < BK; ++kk) {
-            float a[TM], b[TN];
+            float x[TM], y[TN];
 #pragma unroll
-            for (int r = 0; r < TM; ++r) a[r] = sm.a[kk][ty + 16 * r];
+            for (int r = 0; r < TM; ++r) x[r] = sm.a[kk][ty + 16 * r];
 #pragma unroll
-            for (int j = 0; j < TN; ++j) b[j] = sm.b[kk][tx + 16 * j];
+            for (int j = 0; j < TN; ++j) y[j] = sm.b[kk][tx + 16 * j];
 #pragma unroll
             for (int r = 0; r < TM; ++r)
 #pragma unroll
                 for (int j = 0; j < TN; ++j)
-                    acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
+                    acc[r][j] = fmaf(x[r], y[j], acc[r][j]);
         }
     }
+}
+
+// The square form: acc[r][c] = sum_k C[row0 + ty + 16 r, k] *
+// C[col0 + tx + 16 c, k], with rows/columns past n reading as zero.
+__device__ __forceinline__ void tile_product(const float* __restrict__ c,
+                                             int n, int v, int row0,
+                                             int col0, TileSmem& sm,
+                                             float (&acc)[TM][TN]) {
+    tile_product_rect(c, n, c, n, v, row0, col0, sm, acc);
 }
 
 // The pallas_kernels.py _normalize form, verbatim: (2 m) / denom with a

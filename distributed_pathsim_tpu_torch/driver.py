@@ -119,17 +119,29 @@ class PathSimDriver:
         extrapolates to ~24 h of joins (SURVEY.md §6)."""
         return self.backend.all_pairs_scores(variant=self.variant)
 
-    def rank_all(self, k: int = 10):
+    def rank_all(self, k: int = 10, checkpoint_dir: str | None = None):
         """Per-source top-k ranking for EVERY node: (values [N, k] f64,
         indices [N, k] int64), self-pairs excluded.
 
         This is the batched generalization of the reference's whole
         program (one source against all targets, ``DPathSim_APVPA.py:
         28-68``) to all sources at once. Dispatch, best first: the
-        backend's on-device top-k (torch: the two-pass CUDA kernel),
-        else the dense score matrix + stable argsort (any backend).
+        streaming row-tiled top-k (torch-sparse; checkpoint/resume,
+        never materializes N×N), the backend's on-device top-k (torch:
+        the CUDA top-k kernels), else the dense score matrix + stable
+        argsort (any backend).
         """
         b = self.backend
+        if hasattr(b, "topk_scores"):
+            vals, idxs = b.topk_scores(
+                k=k, variant=self.variant, checkpoint_dir=checkpoint_dir
+            )
+            return np.asarray(vals, dtype=np.float64), np.asarray(idxs)
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "checkpointed ranking requires a streaming backend "
+                "(torch-sparse)"
+            )
         if hasattr(b, "topk") and b.metapath.is_symmetric:
             vals, idxs = b.topk(k=k, mask_self=True, variant=self.variant)
             return (

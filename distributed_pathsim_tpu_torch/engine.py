@@ -57,9 +57,16 @@ def build_backend(
 
 
 def backend_options(config: RunConfig) -> dict:
-    """Backend constructor kwargs from a RunConfig: the torch backend
-    takes the device named by ``platform``; the numpy oracle runs on the
-    host whatever the platform."""
-    if config.backend == "torch":
-        return {"device": config.platform}
-    return {}
+    """Backend constructor kwargs from a RunConfig: the device backends
+    (torch, torch-sparse) take the device named by ``platform`` and
+    ``approx`` as ``exact_counts=False``; torch-sparse takes
+    ``tile_rows``. The numpy oracle runs on the host whatever the
+    platform."""
+    if config.backend not in ("torch", "torch-sparse"):
+        return {}
+    options = {"device": config.platform}
+    if config.approx:
+        options["exact_counts"] = False
+    if config.backend == "torch-sparse" and config.tile_rows is not None:
+        options["tile_rows"] = config.tile_rows
+    return options

@@ -1,5 +1,5 @@
-"""Sparse half-chain machinery: host COO folding + the two-pass top-k's
-second pass.
+"""Sparse half-chain machinery: host COO folding, the two-pass top-k's
+second pass, and the device half of the streaming sparse tier.
 
 The *structure* of the half-chain product — which (source, venue)-style
 pairs exist — is a sort/searchsorted join on the host (O(nnz log nnz),
@@ -9,8 +9,14 @@ distributed hash join with one precomputed join reused by every query,
 and it never builds a P×V or N×N dense intermediate.
 
 :func:`chunked_row_topk` is the exact hierarchical top-k that reduces
-the CUDA candidate kernel's per-tile winners to each row's final top-k.
-"""
+the CUDA candidate kernels' winners to each row's final top-k.
+
+The device half (``densify_tile`` down to :class:`TiledHalfChain`) is the
+torch counterpart of the JAX package's static-shaped scatter + tile
+GEMMs: row tiles of C densified on demand from the host COO, tile
+products in true f32, and the fold of score tiles into running per-row
+top-k lists (a Python loop over column tiles stands in for
+``lax.scan``)."""
 
 from __future__ import annotations
 
@@ -133,3 +139,210 @@ def chunked_row_topk(s: torch.Tensor, cols: torch.Tensor, k: int,
     cand_c = c3.reshape(t, n_chunks * kk)
     v, p = _stable_topk(cand_v, min(k, cand_v.shape[1]))
     return v, torch.gather(cand_c, 1, p)
+
+
+# ---------------------------------------------------------------------------
+# Device side: scatter + tile GEMMs
+# ---------------------------------------------------------------------------
+
+
+def densify_tile(rows, cols, weights, n_rows: int, n_cols: int):
+    """Scatter a (padded) COO slice into a dense [n_rows, n_cols] tile
+    on ``weights``' device. Duplicates accumulate; padding entries must
+    carry weight 0 (they scatter harmlessly)."""
+    out = torch.zeros((n_rows, n_cols), dtype=weights.dtype,
+                      device=weights.device)
+    return out.index_put_((rows, cols), weights, accumulate=True)
+
+
+def tile_outer(c_tile_i, c_tile_j):
+    """One [Ti, Tj] tile of M = C Cᵀ (true f32 on the card: the entry
+    points turn TF32 off)."""
+    return torch.matmul(c_tile_i, c_tile_j.T)
+
+
+def tile_rowsums(c_tile, colsum_total):
+    return torch.matmul(c_tile, colsum_total)
+
+
+def stream_merge_topk(ci, cj, di, dj, best_v, best_i, i0: int, j0: int,
+                      k: int, n_true: int):
+    """Fold one [Ti, Tj] score tile into the running per-row top-k on the
+    device: GEMM, normalize, mask (self pairs + padding columns >=
+    n_true), hierarchical per-tile top-k, merge with the carried [Ti, k]
+    best. Only the final [Ti, k] result ever reaches the host. One
+    definition serves the per-tile and the scanned row-tile paths, so
+    their numerics and tie-breaks agree."""
+    m = torch.matmul(ci, cj.T)
+    denom = di[:, None] + dj[None, :]
+    s = torch.where(denom > 0, (2.0 * m) / denom, 0.0)
+    rows = i0 + torch.arange(s.shape[0], device=s.device)[:, None]
+    cols = (j0 + torch.arange(s.shape[1], device=s.device,
+                              dtype=torch.int32))[None, :]
+    s = s.masked_fill((cols >= n_true) | (rows == cols), float("-inf"))
+    tile_v, tile_i = chunked_row_topk(s, cols.expand(s.shape), k)
+    merged_v = torch.cat([best_v, tile_v], dim=1)
+    merged_i = torch.cat([best_i, tile_i], dim=1)
+    v, p = _stable_topk(merged_v, k)
+    return v, torch.gather(merged_i, 1, p)
+
+
+def stream_row_tile_topk(c_all, d_all, i0: int, k: int, n_true: int,
+                         tile_rows: int):
+    """One row tile's top-k: the shared fold over every column tile of
+    the device-resident dense C (rows padded to whole tiles), in column
+    order. The general-dtype / over-budget arm beside K3."""
+    ci = c_all[i0:i0 + tile_rows]
+    di = d_all[i0:i0 + tile_rows]
+    best_v = torch.full((tile_rows, k), float("-inf"), dtype=c_all.dtype,
+                        device=c_all.device)
+    best_i = torch.zeros((tile_rows, k), dtype=torch.int32,
+                         device=c_all.device)
+    for j0 in range(0, c_all.shape[0], tile_rows):
+        best_v, best_i = stream_merge_topk(
+            ci, c_all[j0:j0 + tile_rows], di, d_all[j0:j0 + tile_rows],
+            best_v, best_i, i0, j0, k, n_true,
+        )
+    return best_v, best_i
+
+
+class TiledHalfChain:
+    """Row-tiled dense view of a sparse half-chain factor C [N, V].
+
+    C is kept as row-sorted COO on the host (for the exact host paths)
+    and, uploaded once, on the device; tiles of ``tile_rows`` rows are
+    densified there on demand from slices of it and kept in a bounded
+    LRU, so a sweep over the tiles moves no data from the host. V (the
+    contracted width, e.g. #venues) is one dense axis: it is orders of
+    magnitude smaller than N in every target configuration.
+    """
+
+    def __init__(self, c: COOMatrix, tile_rows: int = 4096,
+                 dtype=torch.float32, device="cpu",
+                 exact_counts: bool = True):
+        from . import chain
+
+        self.n, self.v = c.shape
+        self.tile_rows = int(tile_rows)
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.n_tiles = (self.n + self.tile_rows - 1) // self.tile_rows
+        order = np.argsort(c.rows, kind="stable")
+        self._rows = c.rows[order]
+        self._cols = c.cols[order]
+        self._weights = c.weights[order]
+        bounds = np.arange(self.n_tiles + 1) * self.tile_rows
+        self._tile_start = np.searchsorted(self._rows, bounds[:-1], side="left")
+        self._tile_stop = np.searchsorted(self._rows, bounds[1:], side="left")
+        tile_nnz = self._tile_stop - self._tile_start
+        max_nnz = int(tile_nnz.max()) if self.n_tiles else 0
+        # Every tile's scatter is padded to one power-of-two length, as in
+        # the JAX package (whose tuning registry's untuned floor is 1),
+        # where the pad is the compiled scatter's shape: the scatter's
+        # shapes stay fixed for the backend's life (what a CUDA graph
+        # capture needs). Pad entries carry weight 0 and land on distinct
+        # cells: index_put_'s accumulate sums duplicates of one index
+        # serially, and a million pad entries on one cell cost tens of ms
+        # a tile.
+        self._max_nnz = 1 << (max_nnz - 1).bit_length() if max_nnz else 0
+        # Bounded LRU of densified tiles: at most 256 MB of C tiles on the
+        # device, so a streaming pass over a huge N never accumulates the
+        # whole dense C.
+        tile_bytes = self.tile_rows * self.v * torch.finfo(dtype).bits // 8
+        self._max_cached = max(2, (256 << 20) // max(tile_bytes, 1))
+        self._cache: dict[int, torch.Tensor] = {}  # insertion-ordered → LRU
+        self._dense_c = None
+        self._coo_dev = None
+        # Exact global column totals, accumulated in f64 on the host:
+        # the row sums are C @ colsum_total and must stay integer-exact.
+        colsum = np.zeros(self.v, dtype=np.float64)
+        np.add.at(colsum, self._cols, self._weights)
+        self.colsum_total = colsum
+        # f32 carries exact integers only to 2^24; refuse loudly. Cheap
+        # bound first: c[i,v] <= colsum[v] gives rowsum_i <= Σ_v
+        # colsum[v]². ``exact_counts=False`` waives the guard (PathSim
+        # scores are invariant under C → αC, so f32 loses only rounding:
+        # ~√V·2⁻²⁴ relative, ~1e-6 at V = 64), the million-author regime.
+        if exact_counts and chain._is_float32(dtype):
+            if float((colsum**2).sum()) >= chain.F32_EXACT_INT_MAX:
+                self._check_exact_rowsums(dtype)
+
+    def _check_exact_rowsums(self, dtype) -> None:
+        """Tight per-row check, only run when the cheap bound trips."""
+        from . import chain
+
+        rs = np.zeros(self.n, dtype=np.float64)
+        np.add.at(rs, self._rows, self._weights * self.colsum_total[self._cols])
+        chain.check_exact_counts(rs.max(initial=0.0), dtype)
+
+    def _device_coo(self):
+        """(rows, cols, weights) of the sorted COO on the device, uploaded
+        once (int64 indices, weights in the working dtype), and the
+        scatter pad's cells (rows, cols)."""
+        if self._coo_dev is None:
+            pad = torch.arange(self._max_nnz, device=self.device)
+            self._coo_dev = (
+                torch.as_tensor(self._rows, dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(self._cols, dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(self._weights, device=self.device).to(
+                    self.dtype),
+                (pad // self.v) % self.tile_rows,
+                pad % self.v,
+            )
+        return self._coo_dev
+
+    def tile(self, i: int) -> torch.Tensor:
+        """Dense [tile_rows, V] tile i of C on the device (padded rows
+        are zero)."""
+        if i in self._cache:
+            self._cache[i] = self._cache.pop(i)  # refresh LRU position
+            return self._cache[i]
+        s, e = int(self._tile_start[i]), int(self._tile_stop[i])
+        rows_d, cols_d, w_d, pad_rows, pad_cols = self._device_coo()
+        rows = pad_rows.clone()
+        cols = pad_cols.clone()
+        w = torch.zeros(self._max_nnz, dtype=self.dtype, device=self.device)
+        rows[:e - s] = rows_d[s:e] - i * self.tile_rows
+        cols[:e - s] = cols_d[s:e]
+        w[:e - s] = w_d[s:e]
+        t = densify_tile(rows, cols, w, n_rows=self.tile_rows, n_cols=self.v)
+        while len(self._cache) >= self._max_cached:
+            self._cache.pop(next(iter(self._cache)))  # evict LRU
+        self._cache[i] = t
+        return t
+
+    def dense_bytes(self) -> int:
+        """Device bytes of the full padded dense C [n_tiles·tile_rows, V]."""
+        return (self.n_tiles * self.tile_rows * self.v
+                * torch.finfo(self.dtype).bits // 8)
+
+    def dense_device(self) -> torch.Tensor:
+        """The whole dense C on the device, scatter-assembled once from
+        the COO factor (O(nnz) transfer). Outside the tile LRU's budget:
+        callers gate on :meth:`dense_bytes` (268 MB at 1M authors, V =
+        64, f32)."""
+        if self._dense_c is None:
+            self._dense_c = densify_tile(
+                *self._device_coo()[:3],
+                n_rows=self.n_tiles * self.tile_rows, n_cols=self.v,
+            )
+        return self._dense_c
+
+    def drop_dense(self) -> None:
+        """Release the cached dense C (a caller that holds its own copy
+        in kernel form needs no second one); the next
+        :meth:`dense_device` rebuilds it from the COO."""
+        self._dense_c = None
+
+    def rowsums(self) -> np.ndarray:
+        """C @ colsum_total, one tile GEMV at a time, fetched once."""
+        total = torch.as_tensor(self.colsum_total, device=self.device).to(
+            self.dtype)
+        out = torch.cat([tile_rowsums(self.tile(i), total)
+                         for i in range(self.n_tiles)])
+        return out[: self.n].cpu().double().numpy()
+
+    def m_tile(self, i: int, j: int) -> torch.Tensor:
+        return tile_outer(self.tile(i), self.tile(j))

@@ -18,7 +18,7 @@ def graphs():
 
 
 def test_registry():
-    assert available_backends() == ["numpy", "torch"]
+    assert available_backends() == ["numpy", "torch", "torch-sparse"]
 
 
 @pytest.mark.parametrize("spec", ["APVPA", "APA", "APTPA"])

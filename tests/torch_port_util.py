@@ -194,3 +194,78 @@ def run_both_clis(gexf, extra, capsys, out_j=(), out_t=()):
                        "--platform", "cpu", *extra, *out_t])
     t = capsys.readouterr()
     return (rc_j, j.out, j.err), (rc_t, t.out, t.err)
+
+
+# -- streaming tier (tests/test_torch_sparse_tier*.py, dense dispatch) ------
+
+
+def overflow_hins(counts):
+    """(JAX-package HIN, port HIN) whose APVPA half factor equals
+    ``counts`` ([A, V] integer paper multiplicities: each (a, v) pair
+    gets its own single-author, single-venue papers) — counts past 2^24
+    without a large graph."""
+    from distributed_pathsim_tpu.data.encode import (
+        AdjacencyBlock,
+        EncodedHIN,
+        TypeIndex,
+    )
+    from distributed_pathsim_tpu.data.schema import HINSchema
+
+    counts = np.asarray(counts, dtype=np.int64)
+    n_a, n_v = counts.shape
+    schema = HINSchema(
+        node_types=("author", "paper", "venue"),
+        relations={"author_of": ("author", "paper"),
+                   "submit_at": ("paper", "venue")},
+    )
+
+    def _idx(t, size):
+        return TypeIndex(node_type=t, ids=(), labels=(), index_of={},
+                         size_override=size)
+
+    a_i, v_i = np.nonzero(counts)
+    reps = counts[a_i, v_i]
+    n_p = int(reps.sum())
+    papers = np.arange(n_p, dtype=np.int32)
+    jhin = EncodedHIN(
+        schema=schema,
+        indices={"author": _idx("author", n_a), "paper": _idx("paper", n_p),
+                 "venue": _idx("venue", n_v)},
+        blocks={
+            "author_of": AdjacencyBlock(
+                relationship="author_of", src_type="author", dst_type="paper",
+                rows=np.repeat(a_i, reps).astype(np.int32), cols=papers,
+                shape=(n_a, n_p),
+            ),
+            "submit_at": AdjacencyBlock(
+                relationship="submit_at", src_type="paper", dst_type="venue",
+                rows=papers, cols=np.repeat(v_i, reps).astype(np.int32),
+                shape=(n_p, n_v),
+            ),
+        },
+    )
+    return jhin, port_hin(jhin)
+
+
+def f64_oracle_topk(c, k):
+    """Exact f64 scores of the factor ``c`` and their (−score, ascending
+    column) top-k, self pairs excluded: (values, columns, row sums)."""
+    c = np.asarray(c, dtype=np.float64)
+    m = c @ c.T
+    d = m.sum(axis=1)
+    den = d[:, None] + d[None, :]
+    s = np.where(den > 0, 2.0 * m / np.where(den > 0, den, 1.0), 0.0)
+    np.fill_diagonal(s, -np.inf)
+    cols = np.broadcast_to(np.arange(c.shape[0]), s.shape)
+    o = np.lexsort((cols, -s), axis=-1)[:, :k]
+    return np.take_along_axis(s, o, axis=1), o, d
+
+
+def metapaths(graphs, spec="APVPA"):
+    """The compiled metapath of ``spec`` in both packages."""
+    from distributed_pathsim_tpu.ops import metapath as jmeta
+    from distributed_pathsim_tpu_torch.ops import metapath as tmeta
+
+    jhin, thin = graphs
+    return (jmeta.compile_metapath(spec, jhin.schema),
+            tmeta.compile_metapath(spec, thin.schema))
