@@ -13,8 +13,10 @@ nonzero and no result line is printed):
    compiled in parallel) and the compiler's register/spill report;
 2. every kernel against its plain torch version, zero tolerance
    (``torch.equal`` on values and indices), at small odd shapes, tie-heavy
-   rows, zero-degree targets, wide contractions, and at the main path's
-   shapes;
+   rows, zero-degree targets, wide contractions, a factor with 1-, 2- and
+   3-limb rows (K3 and K4 multiply u8 limbs on the int8 tensor cores), K4
+   past the k its lists keep in shared memory, and at the main path's
+   shapes; a CUDA factor that is not integer counts must raise;
 3. the main path through the port's CLI (``--platform cuda``) on
    synthetic GEXF files written by the port: rank-all at 32768 authors x
    45000 papers x 384 venues (seed 42) with ``--backend torch`` at k = 10
@@ -29,7 +31,10 @@ nonzero and no result line is printed):
    checkpoint directory: K3 once per row tile, 3 seeded spot rows
    against host f64 arithmetic from the COO factor, K3 against its plain
    version on a 1024-row tile, a resumed rerun returning identical
-   arrays, rank-all seconds, author-pairs/s, layer times and busy share;
+   arrays, rank-all seconds, author-pairs/s, layer times and busy share,
+   how many (row block, column subtile) pairs needed 1, 2, 3, 4, 6 or 9
+   limb products, and K3's time at tile 0 (the Zipf head) and at a
+   middle tile;
 5. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), and the rank-all
@@ -68,8 +73,10 @@ TOP_K_FOLD = 20
 C5_AUTHORS, C5_PAPERS, C5_VENUES, C5_TILE_ROWS = 1_048_576, 5_242_880, 64, 8192
 C5_SPOT_SEED, C5_SPOT_ROWS, C5_ATOL = 7, 3, 1e-6
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores
-# (no tensor cores: the kernels must not use TF32) and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet): u8 x u8 on the int8 tensor
+# cores (K3 and K4 multiply exact u8 limbs there; never TF32), f32 on the
+# CUDA cores (K1 and K2; the bound K3 and K4 had before), HBM3 bandwidth.
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -147,10 +154,22 @@ def scores_flops(n: int, v: int) -> float:
     return float(n) * (n + 1) * v
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound(ops: float, nbytes: float,
+          peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """The least time (ms) for ``ops`` operations at ``peak`` per second
+    and ``nbytes`` at the HBM rate, and which of the two bounds it."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def u8_square_ops(counts, v):
+    """u8 operations of the symmetric score function on the int8 tensor
+    cores: the n (n + 1) / 2 upper-triangle pairs (i, j), each l_i l_j
+    limb products of 2 v operations."""
+    s1 = float(counts.sum())
+    s2 = float((counts * counts).sum())
+    return v * (s1 * s1 + s2)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -270,18 +289,43 @@ def check_fold(torch, ck, c, d, k, mask_self, label):
     return max_abs_err(torch, fv, gv)
 
 
-def check_k3_k4(torch, ck, c, d, label):
+def check_k3_k4(torch, ck, c, d, label, masks=(True, False)):
     """K3 at k in {1, 10, 15} (all rows with the default stripes; an odd
-    row tile with 4-tile stripes) and K4 at k in {1, 16, 17, 40} with the
-    self mask both ways."""
+    row tile with 4-tile stripes) and K4 at k in {1, 16, 17, 40} and one
+    past the k its lists keep in shared memory, with the self mask each
+    of ``masks`` ways."""
     n = c.shape[0]
     r0, t = n // 5, n // 3 + 7
     for k in (1, 10, 15):
         check_rect(torch, ck, c, d, 0, n, k, label)
         check_rect(torch, ck, c, d, r0, t, k, label, stripe_tiles=4)
-    for k in (1, 16, 17, 40):
-        for mask_self in (True, False):
+    for k in (1, 16, 17, 40, ck.FOLD_SMEM_K_MAX + 1):
+        for mask_self in masks:
             check_fold(torch, ck, c, d, k, mask_self, label)
+
+
+def multilimb_factor(torch, np, device, n=1500, v=96, seed=5):
+    """An integer factor with 1-, 2- and 3-limb rows whose path counts
+    between distinct rows stay below 2^24 (so the plain f32 product is
+    exact there; a 3-limb row's own count is past it, so the checks mask
+    the self pair): random 0..3 entries, and 12 rows with one entry of
+    300-850 (2 limbs) or past 65536 (3 limbs), each in its own column,
+    where every other row holds at most 1. Some tile pairs are narrow
+    (one s32 sum) and some not (the f64 fold): 65536^2 · 96 >= 2^31."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 4, (n, v)).astype(np.float64)
+    c[rng.random((n, v)) < 0.5] = 0
+    big_cols = rng.choice(v, 12, replace=False)
+    c[:, big_cols] = np.minimum(c[:, big_cols], 1)
+    rows = rng.choice(n, 12, replace=False)
+    for i, (r, col) in enumerate(zip(rows, big_cols)):
+        c[r, col] = (65536 + 17 * i) if i < 4 else (300 + 50 * i)
+    d = c @ c.sum(0)
+    m = c @ c.T
+    np.fill_diagonal(m, 0)
+    assert m.max() < 2**24
+    return (torch.tensor(c, dtype=torch.float32, device=device),
+            torch.tensor(d, dtype=torch.float32, device=device))
 
 
 def factor(hin, spec, device):
@@ -311,6 +355,21 @@ def kernel_checks(torch, ck, np, synthetic_hin):
     print("K3/K4 narrow (APVPA, n=3001, v=64; K3 k in 1/10/15, all rows with "
           "the default stripes and an odd row tile with 4-tile stripes; K4 k "
           "in 1/16/17/40, both masks): equal")
+
+    cm, dm = multilimb_factor(torch, np, dev)
+    counts = ck.split_limbs(cm).counts.long()
+    check_k3_k4(torch, ck, cm, dm, "multi-limb", masks=(True,))
+    print(f"K3/K4 multi-limb factor (n={cm.shape[0]}, v={cm.shape[1]}, rows "
+          f"of 1/2/3 limbs: {[int((counts == i).sum()) for i in (1, 2, 3)]};"
+          f" K4 also at k={ck.FOLD_SMEM_K_MAX + 1}, lists in device "
+          "memory): equal")
+    bad = torch.full((4, 4), 0.5, device=dev)
+    try:
+        ck.fused_topk(bad, torch.ones(4, device=dev), k=2)
+    except ValueError as exc:
+        print(f"a CUDA factor holding 0.5 raises ValueError: {exc}")
+    else:
+        raise AssertionError("K4 took a factor holding 0.5")
 
     cw, dw = factor(hin, "APA", dev)  # v = #papers: 282 K steps of 16
     for mask_self in (True, False):
@@ -586,15 +645,50 @@ def dense_rect_arm(torch, ck, np, launches):
           "renormalization of the f64 oracle's counts")
 
 
-def rect_bound(t, n, v, k, n_stripes):
-    """K3's least time: 2 t n v FLOP (a row tile against every column has
-    no symmetry), or its bytes: both factors and denominators read once,
-    the row ids, the candidates written."""
-    return bound(2.0 * t * n * v,
-                 4.0 * (t * v + n * v + 2 * t + n) + 8.0 * t * n_stripes * k)
+def rect_bounds(rows, cols, t, n, v, k, n_stripes):
+    """K3's least times on this tile's data. At the int8 tensor cores'
+    rate: 2 v u8 operations for each of the l_i l_j limb products of
+    every (row, column) pair (a row tile against every column has no
+    symmetry), or the bytes: both factors' limb planes and denominators
+    read once, the row ids, the candidates written. Beside it, the f32
+    CUDA-core bound of 2 t n v FLOP the kernel had before."""
+    ops = 2.0 * v * float(rows.counts.long().sum()) * float(
+        cols.counts.long().sum())
+    out = 8.0 * t * n_stripes * k
+    int8 = bound(ops, rows.planes.numel() + cols.planes.numel()
+                 + 4.0 * (2 * t + n) + out, PEAK_INT8_OPS)
+    f32 = bound(2.0 * t * n * v,
+                4.0 * (t * v + n * v + 2 * t + n) + out)
+    return int8, f32
 
 
-def tiles_device_s(torch, ck, sparse, cc, dc, n, T, tiles):
+def products_histogram(torch, lim, v_pad):
+    """How many (128-row block, 64-column subtile) pairs of a rank-all
+    over the factor ``lim`` need 1, 2, 3, 4, 6 or 9 limb products, and
+    how many of them fold through f64 (v_pad · largest row entry ·
+    largest column entry >= 2^31) rather than one s32 sum."""
+    rb = torch.nn.functional.pad(lim.rmax.long(), (0, -lim.rmax.shape[0] % 128))
+    rb = rb.view(-1, 128).amax(1)
+    sub = lim.sub.long()
+
+    def limbs(m):
+        return 1 + (m >= 256).long() + (m >= 65536).long()
+
+    lr, lc = limbs(rb), limbs(sub)
+    hist = {}
+    for a in (1, 2, 3):
+        for b in (1, 2, 3):
+            pairs = int((lr == a).sum()) * int((lc == b).sum())
+            hist[a * b] = hist.get(a * b, 0) + pairs
+    # pairs past the s32 bound: for each row block, the subtiles whose
+    # largest entry reaches (2^31 - 1) // (v_pad · its largest) + 1
+    cut = torch.div(2**31 - 1, v_pad * rb.clamp(min=1), rounding_mode="floor") + 1
+    sub_sorted = torch.sort(sub).values
+    wide = int((sub.numel() - torch.searchsorted(sub_sorted, cut)).sum())
+    return {p: c for p, c in sorted(hist.items()) if c}, wide
+
+
+def tiles_device_s(torch, ck, sparse, cc, dc, lim, n, T, tiles):
     """Device seconds of every row tile's K3 and pass 2, launched back to
     back with CUDA events around each (read after one synchronize)."""
     marks = []
@@ -604,7 +698,8 @@ def tiles_device_s(torch, ck, sparse, cc, dc, n, T, tiles):
         a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         a.record()
         cv, cand = ck.topk_rect_candidates(cc[i0:i0 + T], cc, dc[i0:i0 + T],
-                                           dc, ids, TOP_K, n)
+                                           dc, ids, TOP_K, n,
+                                           limbs=(lim.rows(i0, i0 + T), lim))
         b.record()
         sparse.chunked_row_topk(cv.view(T, -1), cand.view(T, -1), TOP_K)
         c.record()
@@ -686,7 +781,7 @@ def config5(torch, ck, np, launches, workdir, card):
     # counts pass 2^24 here, so sums in another order round differently:
     # values within 1e-6, columns equal where the k-th and (k+1)-th
     # plain values are further apart than that.
-    _, cc, dc = backend._rect_factor
+    _, cc, dc, lim = backend._rect_factor
     r0 = n // 2
     ids = torch.arange(r0, r0 + 1024, dtype=torch.int32, device=cc.device)
     tile_args = (cc[r0:r0 + 1024], cc, dc[r0:r0 + 1024], dc, ids)
@@ -736,19 +831,34 @@ def config5(torch, ck, np, launches, workdir, card):
     densify_s = time.perf_counter() - t0
     t.drop_dense()
     T = C5_TILE_ROWS
-    row_ids = torch.arange(0, T, dtype=torch.int32, device=cc.device)
-    k3_args = (cc[:T], cc, dc[:T], dc, row_ids, TOP_K, n)
-    k3_ms = time_ms(torch, lambda: ck.topk_rect_candidates(*k3_args))
-    cv, ccand = ck.topk_rect_candidates(*k3_args)
+
+    def k3_tile(i0):
+        ids = torch.arange(i0, i0 + T, dtype=torch.int32, device=cc.device)
+        return ((cc[i0:i0 + T], cc, dc[i0:i0 + T], dc, ids, TOP_K, n),
+                (lim.rows(i0, i0 + T), lim))
+
+    # K3 at tile 0 (the Zipf head, where the multi-limb rows lie) and at
+    # a middle tile (the tail's tie-heavy rows)
+    mid = (tiles // 2) * T
+    k3_args0, k3_limbs0 = k3_tile(0)
+    k3_args, k3_limbs = k3_tile(mid)
+    row_ids = k3_args[4]
+    k3_ms0 = time_ms(torch, lambda: ck.topk_rect_candidates(
+        *k3_args0, limbs=k3_limbs0))
+    k3_ms = time_ms(torch, lambda: ck.topk_rect_candidates(
+        *k3_args, limbs=k3_limbs))
+    cv, ccand = ck.topk_rect_candidates(*k3_args, limbs=k3_limbs)
     pass2_ms = time_ms(torch, lambda: sparse.chunked_row_topk(
         cv.view(T, -1), ccand.view(T, -1), TOP_K))
-    fv, fi = ck.fused_topk_twopass_rect(*k3_args[:5], k=TOP_K, n_true_cols=n)
+    fv, fi = ck.fused_topk_twopass_rect(*k3_args[:5], k=TOP_K, n_true_cols=n,
+                                        limbs=k3_limbs)
     hv = torch.empty(fv.shape, dtype=fv.dtype, pin_memory=True)
     hi = torch.empty(fi.shape, dtype=fi.dtype, pin_memory=True)
     fetch_ms = time_ms(torch, lambda: (hv.copy_(fv, non_blocking=True),
                                        hi.copy_(fi, non_blocking=True)))
     state_before = gpu_state()
-    k3_s, pass2_s = tiles_device_s(torch, ck, sparse, cc, dc, n, T, tiles)
+    k3_s, pass2_s = tiles_device_s(torch, ck, sparse, cc, dc, lim, n, T,
+                                   tiles)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     resumed.topk_scores(k=TOP_K)  # row sums cached: the sweep alone
@@ -756,7 +866,8 @@ def config5(torch, ck, np, launches, workdir, card):
     print(f"config 5 layers: row sums ({tiles} tile scatters + GEMVs, one "
           f"fetch) {rowsum_s * 1e3:.1f} ms, densify of C "
           f"{densify_s * 1e3:.1f} ms, K3 {k3_s:.3f} s over all {tiles} tiles "
-          f"(tile 0 {k3_ms:.3f} ms), pass 2 {pass2_s:.3f} s (tile 0 "
+          f"(tile 0 {k3_ms0:.3f} ms, middle tile {k3_ms:.3f} ms), pass 2 "
+          f"{pass2_s:.3f} s (middle tile "
           f"{pass2_ms:.3f} ms), fetch {fetch_ms:.4f} ms a tile; sweep "
           f"{sweep_s:.3f} s, device busy share "
           f"{(k3_s + pass2_s) / sweep_s:.3f} (sm clock, power, temperature "
@@ -771,27 +882,40 @@ def config5(torch, ck, np, launches, workdir, card):
         # [8192, 1M] f32 block and its temporaries would not fit)
         cols = torch.arange(n, device=cc.device)
         out = []
-        for q in range(0, T, 1024):
+        for q in range(mid, mid + T, 1024):
             m = torch.matmul(cc[q:q + 1024], cc[:n].T)
             den = dc[q:q + 1024, None] + dc[None, :n]
             m = torch.where(den > 0, m.mul_(2.0).div_(den), 0.0)
-            m.masked_fill_(cols[None, :] == row_ids[q:q + 1024, None],
-                           float("-inf"))
+            m.masked_fill_(cols[None, :] == row_ids[q - mid:q - mid + 1024,
+                                                    None], float("-inf"))
             out.append(torch.topk(m, TOP_K, dim=1))
         return out
 
     k3_lib_ms = time_ms(torch, lib_rect, reps=3, warmup=1)
     n_st = cv.shape[1]
-    k3_bound, k3_by = rect_bound(T, cc.shape[0], v, TOP_K, n_st)
+    (k3_bound, k3_by), (k3_f32, _) = rect_bounds(
+        k3_limbs[0], lim, T, cc.shape[0], v, TOP_K, n_st)
+    (k3_bound0, _), _ = rect_bounds(k3_limbs0[0], lim, T, cc.shape[0], v,
+                                    TOP_K, n_st)
+    hist, wide = products_histogram(torch, lim, lim.planes.shape[2])
+    wide_tiles = [i for i in range(tiles)
+                  if ck._needs_wide(lim.rows(i * T, (i + 1) * T), lim)]
+    print(f"config 5 limb products per (128-row block, 64-column subtile) "
+          f"pair of the rank-all: {hist} (products: pairs); {wide} pairs "
+          "fold through f64, the rest sum in one s32 accumulator; row "
+          f"tiles whose row sums leave M unbounded below 2^31 (K3's "
+          f"instance with the f64 fold): {wide_tiles}")
     print(f"K3 topk_rect_candidates {T}x{cc.shape[0]}x{v} k={TOP_K} "
-          f"({n_st} stripes): {k3_ms:.3f} ms (bound {k3_bound:.3f} ms by "
-          f"{k3_by} at 2TNV FLOP: "
-          f"{2.0 * T * cc.shape[0] * v / k3_ms / 1e9:.1f} TFLOP/s); K3 + "
-          f"pass 2 per tile {k3_ms + pass2_ms:.3f} ms; plain "
+          f"({n_st} stripes): middle tile (rows {mid}..) {k3_ms:.3f} ms, "
+          f"tile 0 {k3_ms0:.3f} ms (int8 tensor-core bound {k3_bound:.3f} / "
+          f"{k3_bound0:.3f} ms by {k3_by}; f32 CUDA-core bound {k3_f32:.3f} "
+          f"ms); K3 + pass 2 per tile {k3_ms + pass2_ms:.3f} ms; plain "
           f"{k3_plain_ms:.3f} ms; library (matmul+normalize+topk, 1024-row "
           f"chunks) {k3_lib_ms:.3f} ms")
-    return {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-            "bound_by": k3_by, "library_ms": k3_lib_ms, "c5_err": c5_err}
+    return {"ms": k3_ms, "ms_tile0": k3_ms0, "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound, "bound_by": k3_by, "bound_f32_ms": k3_f32,
+            "bound_int8_ms": k3_bound, "library_ms": k3_lib_ms,
+            "c5_err": c5_err}
 
 
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
@@ -834,6 +958,12 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
     n_ct = -(-n // ck.TILE)
     k1_bound, k1_by = bound(scores_flops(n, v),
                             4.0 * (n * v + n) + 8.0 * n * n_ct * TOP_K)
+    # the bounds on the int8 tensor cores, where K1 and K2 go next: the
+    # limb products this factor needs, its planes read once
+    lim = ck.split_limbs(c)
+    int8_square = u8_square_ops(lim.counts.long(), v)
+    k1_int8, _ = bound(int8_square, lim.planes.numel() + 4.0 * n
+                       + 8.0 * n * n_ct * TOP_K, PEAK_INT8_OPS)
 
     na, va = ca.shape
     k2_ms = time_ms(torch, lambda: ck.fused_scores(ca, da))
@@ -847,6 +977,10 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
     k2_lib_ms = time_ms(torch, lib_scores)
     k2_bound, k2_by = bound(scores_flops(na, va),
                             4.0 * (na * va + na) + 4.0 * na * na)
+    lim_a = ck.split_limbs(ca)
+    k2_int8, _ = bound(u8_square_ops(lim_a.counts.long(), va),
+                       lim_a.planes.numel() + 4.0 * na + 4.0 * na * na,
+                       PEAK_INT8_OPS)
     print(f"K1 topk_twopass_candidates {n}x{v} k={TOP_K}: {k1_ms:.3f} ms "
           f"(bound {k1_bound:.3f} ms by {k1_by} at N(N+1)V FLOP; the "
           f"kernel does 2N^2V FLOP at "
@@ -858,7 +992,11 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
           f"ms by {k2_by} at N(N+1)V FLOP); plain {k2_plain_ms:.3f} ms; library "
           f"(matmul+normalize) {k2_lib_ms:.3f} ms")
 
-    k4_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD))
+    # the kernel on the split factor; the wrapper's call on the f32
+    # factor adds the split (as the dense backend runs it, once a call)
+    k4_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD,
+                                                  limbs=lim))
+    k4_call_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD))
     k4_plain_ms = time_ms(torch, lambda: ck.fused_topk_plain(
         c, d, TOP_K_FOLD), reps=5)
 
@@ -870,13 +1008,20 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
         return torch.topk(s, TOP_K_FOLD, dim=1)
 
     k4_lib_ms = time_ms(torch, lib_fold, reps=5)
-    k4_bound, k4_by = bound(scores_flops(n, v),
-                            4.0 * (n * v + n) + 8.0 * n * TOP_K_FOLD)
-    print(f"K4 topk_fold {n}x{v} k={TOP_K_FOLD}: {k4_ms:.3f} ms (bound "
-          f"{k4_bound:.3f} ms by {k4_by} at N(N+1)V FLOP; the kernel does "
-          f"2N^2V FLOP at {2.0 * n * n * v / k4_ms / 1e9:.1f} TFLOP/s); "
-          f"plain {k4_plain_ms:.3f} ms; library (matmul+normalize+topk) "
-          f"{k4_lib_ms:.3f} ms")
+    k4_bound, k4_by = bound(int8_square, lim.planes.numel() + 4.0 * n
+                            + 8.0 * n * TOP_K_FOLD, PEAK_INT8_OPS)
+    k4_f32, _ = bound(scores_flops(n, v),
+                      4.0 * (n * v + n) + 8.0 * n * TOP_K_FOLD)
+    print(f"K4 topk_fold {n}x{v} k={TOP_K_FOLD}: {k4_ms:.3f} ms on the "
+          f"split factor, {k4_call_ms:.3f} ms with the split (int8 "
+          f"tensor-core bound {k4_bound:.3f} ms by {k4_by} for the limb "
+          f"products of the N(N+1)/2 pairs; f32 CUDA-core bound "
+          f"{k4_f32:.3f} ms; the kernel does every tile, "
+          f"{2.0 * n * n * v / k4_ms / 1e12:.1f} TOP/s of one-limb "
+          f"products); plain {k4_plain_ms:.3f} ms; library "
+          f"(matmul+normalize+topk) {k4_lib_ms:.3f} ms")
+    print(f"int8 tensor-core bounds of K1 and K2 (their next port): K1 "
+          f"{k1_int8:.3f} ms, K2 {k2_int8:.3f} ms")
 
     # Rank-all end to end on a built backend (bench.py's measurement:
     # backend.topk including the host fetch), plus its layers.
@@ -906,13 +1051,14 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
           f"scatter-build of C {scatter_s * 1e3:.2f} ms, K1 {k1_ms:.3f} ms, "
           f"pass 2 {pass2_ms:.3f} ms, fetch {fetch_ms:.3f} ms")
 
-    def entry(name, source, replaces, pallas, ms, plain, bnd, by, lib, err):
+    def entry(name, source, replaces, pallas, ms, plain, bnd, by, lib, err,
+              f32, int8):
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_kernels": pallas,
             "launches": launches[name], "ok": True, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib,
+            "library_ms": lib, "bound_f32_ms": f32, "bound_int8_ms": int8,
         }
 
     return [
@@ -920,24 +1066,28 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
               "distributed_pathsim_tpu_torch/csrc/topk_twopass.cu",
               "distributed_pathsim_tpu/ops/pallas_kernels.py:545",
               ["_topk2_kernel", "_topk2_kernel_kt"],
-              k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms, err_k1),
+              k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms, err_k1,
+              k1_bound, k1_int8),
         entry("fused_scores",
               "distributed_pathsim_tpu_torch/csrc/fused_scores.cu",
               "distributed_pathsim_tpu/ops/pallas_kernels.py:119",
               ["_scores_kernel", "_scores_kernel_kt"],
-              k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms, err_k2),
+              k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms, err_k2,
+              k2_bound, k2_int8),
         {**entry("topk_rect_candidates",
                  "distributed_pathsim_tpu_torch/csrc/topk_rect.cu",
                  "distributed_pathsim_tpu/ops/pallas_kernels.py:707",
                  ["_topk2_rect_kernel", "_topk2_rect_kernel_kt"],
                  k3["ms"], k3["plain_ms"], k3["bound_ms"], k3["bound_by"],
-                 k3["library_ms"], err_k3),
-         "config5_max_abs_err": k3["c5_err"]},
+                 k3["library_ms"], err_k3, k3["bound_f32_ms"],
+                 k3["bound_int8_ms"]),
+         "ms_tile0": k3["ms_tile0"], "config5_max_abs_err": k3["c5_err"]},
         entry("topk_fold",
               "distributed_pathsim_tpu_torch/csrc/topk_fold.cu",
               "distributed_pathsim_tpu/ops/pallas_kernels.py:192",
               ["_topk_kernel", "_topk_kernel_kt"],
-              k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms, err_k4),
+              k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms, err_k4,
+              k4_f32, k4_bound),
     ]
 
 

@@ -223,12 +223,14 @@ class TorchDenseBackend(PathSimBackend):
         while tile_rows > 256 and not ck.rect_fits(n, tile_rows, k,
                                                    self.device):
             tile_rows //= 2
-        cc, dc = ck.rect_pad_factor(c, d)
+        cc, dc, limbs = ck.rect_pad_factor(c, d)
         ids = torch.arange(n, dtype=torch.int32, device=c.device)
         outs = [
             ck.fused_topk_twopass_rect(
                 cc[i0:i0 + tile_rows], cc, dc[i0:i0 + tile_rows], dc,
                 ids[i0:i0 + tile_rows], k=k, n_true_cols=n,
+                limbs=None if limbs is None else (
+                    limbs.rows(i0, i0 + tile_rows), limbs),
             )
             for i0 in range(0, n, tile_rows)
         ]

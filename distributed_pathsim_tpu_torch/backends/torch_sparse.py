@@ -366,8 +366,8 @@ class TorchSparseBackend(PathSimBackend):
         d_all = denoms()
         if scanned and self._use_rect_kernel(k):
             # K3 + pass 2 against the whole column range. The factor is
-            # made kernel-ready once and cached per variant: its
-            # denominators are the variant's.
+            # made kernel-ready (f32, and its u8 limbs on the card) once
+            # and cached per variant: its denominators are the variant's.
             if self._rect_factor is None or self._rect_factor[0] != variant:
                 self._rect_factor = (
                     variant, *ck.rect_pad_factor(t.dense_device(), d_all)
@@ -375,13 +375,15 @@ class TorchSparseBackend(PathSimBackend):
                 # K3 only reads the kernel-ready copy: holding the dense
                 # C too would double the factor's device residency
                 t.drop_dense()
-            _, cc, dc = self._rect_factor
+            _, cc, dc, limbs = self._rect_factor
             tr = t.tile_rows
             row_ids = torch.arange(i0, i0 + tr, dtype=torch.int32,
                                    device=cc.device)
             return ck.fused_topk_twopass_rect(
                 cc[i0:i0 + tr], cc, dc[i0:i0 + tr], dc, row_ids,
                 k=k, n_true_cols=self.n,
+                limbs=None if limbs is None else (
+                    limbs.rows(i0, i0 + tr), limbs),
             )
         if scanned:
             return sp.stream_row_tile_topk(

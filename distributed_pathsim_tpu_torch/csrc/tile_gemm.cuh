@@ -1,9 +1,12 @@
-// Shared score-tile machinery of the PathSim kernels (sm_90a).
+// Score-tile machinery of K1 and K2 (sm_90a): the f32 CUDA-core product.
+// K3 and K4 take their exact product from the int8 tensor cores
+// (u8_tile.cuh) and share only normalize() from here; K1 and K2 move to
+// that machinery in a later change, and this file goes with them.
 //
-// Every kernel computes tiles of S = (2 * A * B^T) / (d_i + d_j), 0 where
-// d_i + d_j == 0, from row factors A [na, v] and column factors B [nb, v]
-// (row-major f32; A == B for the square kernels, where both are the
-// half-chain factor C) and their denominators. One block owns one
+// Every kernel here computes tiles of S = (2 * A * B^T) / (d_i + d_j), 0
+// where d_i + d_j == 0, from row factors A [na, v] and column factors B
+// [nb, v] (row-major f32; A == B for the square kernels, where both are
+// the half-chain factor C) and their denominators. One block owns one
 // [BM x BN] output tile and
 // loops over the contraction axis v inside the block, staging [BK]-wide
 // slices of the row tile and the column tile in shared memory. That one
@@ -14,14 +17,14 @@
 // any order is exact, and the only rounding is the one correctly rounded
 // division in normalize(). This file must be compiled without fast math
 // and with -prec-div=true. It uses CUDA-core FMAs only: TF32 tensor-core
-// paths keep ~10 mantissa bits and would truncate counts above 2048.
+// paths keep ~10 mantissa bits and would truncate counts above 2048 (the
+// integer tensor cores of u8_tile.cuh are exact by construction).
 //
 // Simple by design: a register-blocked shared-memory FMA GEMM with a
-// one-step register prefetch. Left on the table: wgmma/TMA pipelines
-// (not usable here anyway without giving up true f32), exploiting the
-// symmetry of S (only the upper-triangle tiles are needed: half the
-// FLOPs, which is what the kernels' bound counts), and deeper
-// shared-memory pipelining.
+// one-step register prefetch. Left on the table: the u8 limb products
+// on the int8 tensor cores (u8_tile.cuh), exploiting the symmetry of S
+// (only the upper-triangle tiles are needed: half the FLOPs, which is
+// what the kernels' bound counts), and deeper shared-memory pipelining.
 #pragma once
 
 #include <cuda_runtime.h>

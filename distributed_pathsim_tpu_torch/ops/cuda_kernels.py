@@ -26,10 +26,17 @@ compute tiles of S in registers so M never reaches device memory:
 Exactness contract — zero tolerance against the plain versions: path
 counts are integers below 2²⁴, so every f32 sum is exact in any order,
 and the one division is correctly rounded (the kernels are built without
-fast math and with ``-prec-div=true``). TF32 would truncate counts above
-2048, so the kernels use CUDA-core FMAs, the entry points call
-:func:`true_f32` to turn TF32 off for every torch matmul on the card, and
-the backend refuses to run with it on (:func:`check_true_f32`).
+fast math and with ``-prec-div=true``). K1 and K2 compute M on the
+CUDA cores in f32. K3 and K4 compute it on the integer tensor cores,
+exact by construction: :func:`split_limbs` splits the factor into u8
+limbs (raising for anything but integers in ``[0, 2²⁴)``), the u8 × u8
+products and their s32 sums are integer arithmetic, folded into f64
+before they could overflow, and M is converted to f32 once, correctly
+rounded (``csrc/u8_tile.cuh`` has the argument; :func:`limb_product_plain`
+repeats it in torch). Still no TF32: it would truncate counts above 2048,
+so the entry points call :func:`true_f32` to turn it off for every torch
+matmul on the card, and the backend refuses to run with it on
+(:func:`check_true_f32`).
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
@@ -49,22 +56,39 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import sparse
 
-# Tile edge of every kernel (csrc/tile_gemm.cuh BM = BN).
+# Tile edge of K1 and K2 (csrc/tile_gemm.cuh BM = BN), of K3's and K4's
+# row blocks, and the unit of K3's stripes.
 TILE = 128
+# Columns of K3's and K4's subtiles (csrc/u8_tile.cuh BN, wgmma's N).
+SUBTILE = 64
+# The limb planes' width is padded to a multiple of this many bytes
+# (wgmma's u8 depth).
+LIMB_ALIGN = 32
+# Bytes of V summed in one s32 accumulator before the f64 fold
+# (csrc/u8_tile.cuh FOLD_CHUNKS * CHUNK): 255² · 8192 · 3 < 2³¹.
+FOLD_V = 8192
+# Largest k whose lists K4 keeps in shared memory (csrc/topk_fold.cu
+# SMEM_K_MAX); past it they live in the output.
+FOLD_SMEM_K_MAX = 137
 # Two-pass top-k bound: k rounds of extraction per tile (K1), one list
 # slot per lane of a half-warp (K3). k > CAND_MAX is the single-pass fold
 # kernel's job (K4).
 CAND_MAX = 16
 # Grid rows are blockIdx.y (at most 65535 row tiles).
 _MAX_ROWS = 65535 * TILE
-# Blocks K3's grid aims for when it sets its stripe width: about four
-# waves of an H100's 132 SMs (rect_stripe_tiles).
-RECT_TARGET_BLOCKS = 512
+# (row block, stripe) units K3's grid aims for when it sets its stripe
+# width (rect_stripe_tiles): about two per block slot of an H100 (132
+# SMs, two blocks each), which the card's in-order block dispatch still
+# balances, with stripes as wide as that allows (a row's list restarts
+# per stripe).
+RECT_TARGET_UNITS = 512
 # Rows of one score block in the plain rect version (it never holds more
 # than about 2^27 scores at once).
 _PLAIN_BLOCK_SCORES = 1 << 27
@@ -80,6 +104,7 @@ NVCC_FLAGS = (
 # Kernel name → (source, C entry point, ctypes argtypes).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 KERNELS = {
     "topk_twopass_candidates": (
         "topk_twopass.cu", "pathsim_topk_candidates",
@@ -91,11 +116,12 @@ KERNELS = {
     ),
     "topk_rect_candidates": (
         "topk_rect.cu", "pathsim_topk_rect",
-        [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _I, _L, _P, _P, _I, _P, _I, _L, _P, _I, _I, _I, _I, _I,
+         _P, _P, _P, _P, _I, _P, _P, _P],
     ),
     "topk_fold": (
         "topk_fold.cu", "pathsim_topk_fold",
-        [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _I, _L, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     ),
 }
 
@@ -254,6 +280,144 @@ def _check_kernel_input(c: torch.Tensor, d: torch.Tensor) -> None:
     n, v = c.shape
     if n > _MAX_ROWS or v >= 2**31:
         raise ValueError(f"factor {n}x{v} exceeds the kernels' grid limits")
+
+
+# -- u8 limbs (K3 and K4) ----------------------------------------------------
+
+
+class Limbs(NamedTuple):
+    """A factor split into u8 limbs, c = l0 + 256·l1 + 65536·l2, as K3 and
+    K4 read it: ``planes`` u8 [L, n, v_pad] (L the most limbs any entry
+    needs, v_pad a multiple of :data:`LIMB_ALIGN`, zero padded; a slice
+    of rows may leave the planes apart by more than n · v_pad),
+    ``counts`` u8 [n] (the limbs each row needs, at least 1), ``rmax``
+    int32 [n] (each row's largest entry), ``sub`` int32 [ceil(n /
+    SUBTILE)] (the largest entry of each 64-row tile: the kernels'
+    column subtiles), and on the host ``host_rsum`` / ``host_rmax``
+    (each row's sum and largest entry, int64 numpy) to pick a launch's
+    kernel instance without waiting for the card (:func:`_needs_wide`)."""
+
+    planes: torch.Tensor
+    counts: torch.Tensor
+    rmax: torch.Tensor
+    sub: torch.Tensor
+    host_rsum: np.ndarray
+    host_rmax: np.ndarray
+
+    def rows(self, r0: int, r1: int) -> "Limbs":
+        """The limbs of rows r0 .. r1-1, sharing the planes' memory."""
+        rmax = self.rmax[r0:r1]
+        return Limbs(self.planes[:, r0:r1], self.counts[r0:r1], rmax,
+                     _tile_max(rmax, SUBTILE), self.host_rsum[r0:r1],
+                     self.host_rmax[r0:r1])
+
+
+def _tile_max(values: torch.Tensor, rows: int) -> torch.Tensor:
+    """The largest of each ``rows``-row tile of ``values``, int32."""
+    n = values.shape[0]
+    pad = torch.nn.functional.pad(values.to(torch.int32), (0, -n % rows))
+    return pad.view(-1, rows).amax(1).contiguous()
+
+
+def split_limbs(c: torch.Tensor) -> Limbs:
+    """Split a factor of integer path counts into the u8 limb planes K3
+    and K4 multiply on the tensor cores (:class:`Limbs`). Raises
+    ValueError unless every entry is an integer in [0, 2²⁴): NaN, ±inf,
+    negatives, fractions and anything from 2²⁴ up (an f32 holds every
+    integer below it, and three limbs do)."""
+    if c.dim() != 2:
+        raise ValueError(f"split_limbs takes a 2-D factor, got {tuple(c.shape)}")
+    bad = ~torch.isfinite(c) | (c < 0) | (c >= 2**24) | (c != torch.floor(c))
+    if bool(bad.any()):
+        raise ValueError(
+            "the tensor-core kernels take integer path counts in [0, 2^24); "
+            f"{int(bad.sum())} entries are not"
+        )
+    n, v = c.shape
+    ci = c.to(torch.int32)
+    row_max = (ci.amax(1) if v else torch.zeros(n, dtype=torch.int32,
+                                                 device=c.device))
+    counts = (1 + (row_max >= 256).int() + (row_max >= 65536).int()).to(
+        torch.uint8)
+    n_planes = int(counts.max()) if n else 1
+    v_pad = max(LIMB_ALIGN, -(-v // LIMB_ALIGN) * LIMB_ALIGN)
+    planes = torch.zeros((n_planes, n, v_pad), dtype=torch.uint8,
+                         device=c.device)
+    for p in range(n_planes):
+        planes[p, :, :v] = ((ci >> (8 * p)) & 255).to(torch.uint8)
+    return Limbs(planes, counts, row_max, _tile_max(row_max, SUBTILE),
+                 ci.sum(1, dtype=torch.int64).cpu().numpy(),
+                 row_max.long().cpu().numpy())
+
+
+def limb_product_plain(rows: Limbs, cols: Limbs) -> torch.Tensor:
+    """M = A Bᵀ in f32 by the kernels' arithmetic, in torch: the u8 limb
+    products that share a shift 8·(p+q), summed in (emulated) s32 over at
+    most :data:`FOLD_V` bytes of V, folded into an f64 sum, then one
+    correctly rounded conversion to f32. For the tests: it shows the
+    integer path is exact, and equals the plain f32 product wherever M
+    stays below 2²⁴."""
+    a, b = rows.planes.long(), cols.planes.long()
+    n_r, n_c, v_pad = a.shape[0], b.shape[0], a.shape[2]
+    wide = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float64,
+                       device=a.device)
+    for s in range(n_r + n_c - 1):
+        for g0 in range(0, v_pad, FOLD_V):
+            acc = sum(a[p, :, g0:g0 + FOLD_V] @ b[s - p, :, g0:g0 + FOLD_V].T
+                      for p in range(max(0, s - n_c + 1), min(s, n_r - 1) + 1))
+            if bool((acc >= 2**31).any()):
+                raise OverflowError("an s32 accumulator would overflow")
+            wide += acc.double() * float(1 << (8 * s))
+    return wide.to(torch.float32)
+
+
+def _needs_wide(rows: Limbs, cols: Limbs) -> bool:
+    """Whether some M of rows × cols may reach 2³¹, so the launch takes the
+    kernel instance with the f64 fold (``csrc/u8_tile.cuh``). M_ij is at
+    most (row sum of row i) · (largest entry of column row j), and the
+    other way round; the largest of either bound below 2³¹ clears every
+    pair for one s32 accumulator. Host arithmetic only: no wait for the
+    card."""
+    if not (len(rows.host_rsum) and len(cols.host_rsum)):
+        return False
+    a = int(rows.host_rsum.max()) * int(cols.host_rmax.max())
+    b = int(cols.host_rsum.max()) * int(rows.host_rmax.max())
+    return min(a, b) >= 2**31
+
+
+def _row_blocks(limbs: Limbs):
+    """Per TILE-row block: its largest entry (int32), and the launch
+    order of the blocks, those with the most limbs first (stable)."""
+    rb = _tile_max(limbs.rmax, TILE)
+    n_limbs = 1 + (rb >= 256).int() + (rb >= 65536).int()
+    order = torch.sort(-n_limbs, stable=True).indices.to(torch.int32)
+    return rb, order.contiguous()
+
+
+def _subtile_min(d: torch.Tensor, n_sub: int) -> torch.Tensor:
+    """The least denominator of each of the n_sub SUBTILE-column
+    subtiles a kernel walks, 0 where a subtile reaches past d (the
+    kernels' coarse prefilter bound, csrc/topk_list.cuh)."""
+    pad = torch.nn.functional.pad(d, (0, n_sub * SUBTILE - d.shape[0]))
+    return pad.view(n_sub, SUBTILE).amin(1).contiguous()
+
+
+def _check_limbs(limbs: Limbs, n: int, v: int, device) -> None:
+    planes = limbs.planes
+    if planes.dtype != torch.uint8 or planes.dim() != 3:
+        raise ValueError("limb planes must be u8 [L, n, v_pad]")
+    l, rows, v_pad = planes.shape
+    if (rows != n or v_pad < v or v_pad % LIMB_ALIGN or not 1 <= l <= 3
+            or planes.stride(2) != 1 or planes.stride(1) != v_pad
+            or limbs.counts.shape != (n,) or limbs.rmax.shape != (n,)
+            or len(limbs.host_rsum) != n or len(limbs.host_rmax) != n
+            or limbs.sub.shape != (-(-n // SUBTILE),)
+            or limbs.sub.dtype != torch.int32):
+        raise ValueError(
+            f"limbs {tuple(planes.shape)} do not match a {n}x{v} factor"
+        )
+    if planes.device != device or limbs.sub.device != device:
+        raise ValueError(f"limbs on {planes.device}, factor on {device}")
 
 
 # -- plain versions ---------------------------------------------------------
@@ -464,11 +628,15 @@ def fused_scores(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
                          n_true_cols: int | None = None,
-                         stripe_tiles: int | None = None):
+                         stripe_tiles: int | None = None,
+                         limbs: tuple[Limbs, Limbs] | None = None):
     """Launch K3: each row's top-k per stripe of ``stripe_tiles * TILE``
     columns (default :func:`rect_stripe_tiles`), values f32 and global
     columns int32, [T, n_stripes, k]. ``row_ids`` is int32 [T] on the
-    card."""
+    card. ``limbs`` is (row limbs, column limbs) of the two factors when
+    the caller has split them already (:func:`rect_pad_factor`);
+    otherwise both are split here, raising ValueError for entries that
+    are not integers in [0, 2²⁴)."""
     _check_rect(c_rows, c_cols, d_rows, d_cols, row_ids)
     _check_kernel_input(c_rows, d_rows)
     _check_kernel_input(c_cols, d_cols)
@@ -489,22 +657,36 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
     vals = torch.empty((t, n_st, k), dtype=torch.float32, device=c_rows.device)
     cols = torch.empty((t, n_st, k), dtype=torch.int32, device=c_rows.device)
     if t and n:
+        lr, lc = limbs if limbs is not None else (split_limbs(c_rows),
+                                                  split_limbs(c_cols))
+        _check_limbs(lr, t, v, c_rows.device)
+        _check_limbs(lc, n, v, c_rows.device)
+        if lr.planes.shape[2] != lc.planes.shape[2]:
+            raise ValueError("row and column limbs differ in width")
+        rb, order = _row_blocks(lr)
+        d_min = _subtile_min(d_cols, 2 * -(-n // TILE))
         _launch(
-            "topk_rect_candidates", c_rows.device, c_rows.data_ptr(),
-            d_rows.data_ptr(), row_ids.data_ptr(), t, c_cols.data_ptr(),
-            d_cols.data_ptr(), n, n_true, v, k, stripe_tiles,
+            "topk_rect_candidates", c_rows.device,
+            lr.planes.data_ptr(), lr.planes.shape[0], lr.planes.stride(0),
+            d_rows.data_ptr(), row_ids.data_ptr(), t,
+            lc.planes.data_ptr(), lc.planes.shape[0], lc.planes.stride(0),
+            d_cols.data_ptr(), n, n_true, lr.planes.shape[2], k,
+            stripe_tiles, rb.data_ptr(), order.data_ptr(),
+            lc.sub.data_ptr(), d_min.data_ptr(), int(_needs_wide(lr, lc)),
             vals.data_ptr(), cols.data_ptr(),
         )
     return vals, cols
 
 
 def fused_topk_twopass_rect(c_rows, c_cols, d_rows, d_cols, row_ids,
-                            k: int = 10, n_true_cols: int | None = None):
+                            k: int = 10, n_true_cols: int | None = None,
+                            limbs: tuple[Limbs, Limbs] | None = None):
     """Exact per-row top-k of the [T, N] score block of a row tile
     against every column, self pairs and columns >= ``n_true_cols``
     excluded, never materialized on the card: K3 writes stripe
     candidates, pass 2 (stable sorts) reduces them. Returns (values f32
-    [T, k], columns int64 [T, k])."""
+    [T, k], columns int64 [T, k]). ``limbs``: as for
+    :func:`topk_rect_candidates` (unused on the CPU)."""
     _check_rect(c_rows, c_cols, d_rows, d_cols, row_ids)
     if not rect_supported(c_rows.shape[1], k):
         raise ValueError(f"fused_topk_twopass_rect requires k<{CAND_MAX}")
@@ -514,18 +696,20 @@ def fused_topk_twopass_rect(c_rows, c_cols, d_rows, d_cols, row_ids,
             n_true_cols=n_true_cols,
         )
     vals, cols = topk_rect_candidates(c_rows, c_cols, d_rows, d_cols,
-                                      row_ids, k, n_true_cols)
+                                      row_ids, k, n_true_cols, limbs=limbs)
     t = c_rows.shape[0]
     fv, fc = sparse.chunked_row_topk(vals.view(t, -1), cols.view(t, -1), k)
     return fv, fc.long()
 
 
 def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
-               mask_self: bool = True):
+               mask_self: bool = True, limbs: Limbs | None = None):
     """Single-pass per-row top-k for any k (K4 on the card): values f32
     [N, k], columns int64 [N, k], ordered (descending score, ascending
     column); a row with fewer than k finite scores gets distinct
-    ascending -inf columns."""
+    ascending -inf columns. ``limbs``: the factor already split
+    (:func:`split_limbs`); otherwise it is split here, raising
+    ValueError for entries that are not integers in [0, 2²⁴)."""
     _check_factor(c, d)
     if k < 1:
         raise ValueError("fused_topk needs k >= 1")
@@ -533,14 +717,24 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
         return fused_topk_plain(c, d, k=k, mask_self=mask_self)
     _check_kernel_input(c, d)
     n, v = c.shape
-    if max(n, k) >= 2**31 - TILE:
+    if max(n, k) >= 2**31 - TILE or n * k >= 2**31:
         raise ValueError(f"fused_topk with n={n}, k={k} exceeds the "
                          "kernel's int32 column range")
-    vals = torch.empty((n, k), dtype=torch.float32, device=c.device)
-    idxs = torch.empty((n, k), dtype=torch.int32, device=c.device)
+    # one buffer: K4 finds a row's columns n * k slots after its values
+    buf = torch.empty(2 * n * k, dtype=torch.int32, device=c.device)
+    vals = buf[:n * k].view(torch.float32).view(n, k)
+    idxs = buf[n * k:].view(n, k)
     if n:
-        _launch("topk_fold", c.device, c.data_ptr(), d.data_ptr(), n, v, k,
-                int(mask_self), vals.data_ptr(), idxs.data_ptr())
+        lim = split_limbs(c) if limbs is None else limbs
+        _check_limbs(lim, n, v, c.device)
+        rb, order = _row_blocks(lim)
+        d_min = _subtile_min(d, 2 * -(-max(n, k) // TILE))
+        _launch("topk_fold", c.device, lim.planes.data_ptr(),
+                lim.planes.shape[0], lim.planes.stride(0),
+                lim.planes.shape[2], d.data_ptr(), n, k, int(mask_self),
+                rb.data_ptr(), order.data_ptr(), lim.sub.data_ptr(),
+                d_min.data_ptr(), int(_needs_wide(lim, lim)),
+                vals.data_ptr(), idxs.data_ptr())
     return vals, idxs.long()
 
 
@@ -579,15 +773,17 @@ def rect_supported(v: int, k: int) -> bool:
 
 
 def rect_stripe_tiles(t: int, n: int) -> int:
-    """Column tiles per K3 stripe for a [t, n] block. A row's list
-    restarts at every stripe, and its insertions grow only with the log
-    of the stripe's width, so stripes are made as wide as still gives
-    the grid :data:`RECT_TARGET_BLOCKS` blocks: 1024 tiles (131072
-    columns) at t = 8192, n = 1M, where that measured fastest; 8 sets of
-    k candidates a row for pass 2."""
+    """Column tiles per K3 stripe for a [t, n] block: one K3 block owns
+    one (128-row block, stripe) unit, and stripes are made as narrow as
+    gives about :data:`RECT_TARGET_UNITS` units. Many units let the card
+    balance them (the multi-limb row blocks are launched first); a row's
+    list restarts per stripe, at a cost growing only with the log of the
+    stripe's width, and pass 2 reduces one set of k candidates per
+    stripe. At t = 8192, n = 1M: 8 stripes of 1024 tiles (131072
+    columns)."""
     n_ct = max(1, -(-n // TILE))
     row_blocks = max(1, -(-t // TILE))
-    n_stripes = min(n_ct, -(-RECT_TARGET_BLOCKS // row_blocks))
+    n_stripes = min(n_ct, -(-RECT_TARGET_UNITS // row_blocks))
     return -(-n_ct // n_stripes)
 
 
@@ -611,8 +807,11 @@ def rect_fits(n_cols: int, tile_rows: int, k: int, device) -> bool:
 
 def rect_pad_factor(c: torch.Tensor, d: torch.Tensor):
     """The factor and denominators as K3 takes them, made once per pass
-    so that no row-tile launch copies them again: contiguous float32.
-    Unlike the TPU kernel's, K3 masks its ragged edges itself, so
-    nothing is padded."""
-    return (c.to(torch.float32).contiguous(),
-            d.to(torch.float32).contiguous())
+    so that no row-tile launch splits them again: contiguous float32,
+    and on the card the factor's u8 limbs (:func:`split_limbs`; a row
+    tile's are ``limbs.rows(i0, i1)``), None on the CPU, where the plain
+    version takes any f32. Unlike the TPU kernel's, K3 masks its ragged
+    edges itself, so nothing is padded."""
+    cc = c.to(torch.float32).contiguous()
+    limbs = split_limbs(cc) if cc.device.type == "cuda" else None
+    return cc, d.to(torch.float32).contiguous(), limbs

@@ -99,16 +99,18 @@ def test_dense_topk_above_16_routes_fold(monkeypatch, k):
 def test_rect_gates():
     assert ck.rect_supported(64, 10) and ck.rect_supported(4096, 15)
     assert not ck.rect_supported(64, 16) and not ck.rect_supported(64, 0)
-    # stripes as wide as still gives 512 blocks: at the config-5 tile
-    # (8192 x 1M) 8 stripes of 1024 tiles, 8 sets of k candidates a row
+    # stripes as wide as still gives 512 (row block, stripe) units: at
+    # the config-5 tile (8192 x 1M) 8 stripes of 1024 tiles, 8 sets of k
+    # candidates a row
     assert ck.rect_stripe_tiles(8192, 1 << 20) == 1024
     assert ck.rect_candidate_bytes(1 << 20, 8192, 10) == 8192 * 8 * 10 * 8
     assert ck.rect_stripe_tiles(4096, 32768) == 16  # 16 stripes x 32 rows
     assert ck.rect_stripe_tiles(256, 1000) == 1  # small: a stripe a tile
     assert ck.rect_fits(1 << 24, 1 << 20, 15, "cpu")  # no buffer on the CPU
     c = torch.ones((5, 3), dtype=torch.float64)
-    cc, dc = ck.rect_pad_factor(c, c.sum(1))
+    cc, dc, limbs = ck.rect_pad_factor(c, c.sum(1))
     assert cc.dtype == dc.dtype == torch.float32 and cc.shape == (5, 3)
+    assert limbs is None  # the CPU's plain version takes any f32
     ids = torch.arange(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="k<16"):
         ck.fused_topk_twopass_rect(cc, cc, dc, dc, ids, k=16)
