@@ -10,12 +10,15 @@ nonzero and no result line is printed):
 
 1. device and build: the card's name and power limit, the nvcc build of
    every kernel in ``distributed_pathsim_tpu_torch/csrc`` (all sources
-   compiled in parallel) and the compiler's register/spill report;
+   compiled in parallel) and the compiler's registers and spill bytes for
+   each kernel instance;
 2. every kernel against its plain torch version, zero tolerance
    (``torch.equal`` on values and indices), at small odd shapes, tie-heavy
    rows, zero-degree targets, wide contractions, a factor with 1-, 2- and
-   3-limb rows (K3 and K4 multiply u8 limbs on the int8 tensor cores), K4
-   past the k its lists keep in shared memory, and at the main path's
+   3-limb rows (all four kernels multiply u8 limbs on the int8 tensor
+   cores; K2 there also against the correctly rounded exact scores, since
+   a 3-limb row's own count is past 2^24), K1 at several stripe widths,
+   K4 past the k its lists keep in shared memory, and at the main path's
    shapes; a CUDA factor that is not integer counts must raise;
 3. the main path through the port's CLI (``--platform cuda``) on
    synthetic GEXF files written by the port: rank-all at 32768 authors x
@@ -37,8 +40,9 @@ nonzero and no result line is printed):
    middle tile;
 5. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
-   calls, the least time the card could take (bound), and the rank-all
-   wall time as author-pairs/s with its per-layer breakdown.
+   calls, the least time the card could take (bound), K1 at several
+   stripe widths, and the rank-all wall time as author-pairs/s with its
+   per-layer breakdown.
 
 The kernels' launch counters are zeroed before each main-path run and
 read after it.
@@ -74,13 +78,15 @@ C5_AUTHORS, C5_PAPERS, C5_VENUES, C5_TILE_ROWS = 1_048_576, 5_242_880, 64, 8192
 C5_SPOT_SEED, C5_SPOT_ROWS, C5_ATOL = 7, 3, 1e-6
 
 # Published H100 SXM peaks (NVIDIA data sheet): u8 x u8 on the int8 tensor
-# cores (K3 and K4 multiply exact u8 limbs there; never TF32), f32 on the
-# CUDA cores (K1 and K2; the bound K3 and K4 had before), HBM3 bandwidth.
+# cores (all four kernels multiply exact u8 limbs there; never TF32), f32
+# on the CUDA cores (the bound the kernels had before), HBM3 bandwidth.
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 REPS, WARMUP = 7, 2
+# K1's stripe widths timed beside the default (column tiles of 128).
+STRIPE_SWEEP = (8, 32, 64)
 
 
 def phase(name: str) -> None:
@@ -208,25 +214,61 @@ def device_and_build(torch, ck):
     reports = ck.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'already built'})")
-    for kname, text in reports.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {kname}: {line.strip()}")
-    return name, smi
+    instances = {kname: kernel_instances(text)
+                 for kname, text in reports.items()}
+    for kname, insts in instances.items():
+        for inst, (regs, spill) in insts.items():
+            print(f"  {kname}: {inst}: {regs} registers, {spill} bytes "
+                  "spill stores + loads")
+    return name, smi, instances
 
 
-def check_topk(torch, ck, c, d, k, mask_self, label):
-    """K1 (candidates and final top-k) against the plain versions."""
-    cv, cc = ck.topk_twopass_candidates(c, d, k, mask_self)
-    pv, pc = ck.topk_twopass_candidates_plain(c, d, k, mask_self)
+def kernel_instances(report: str) -> dict:
+    """Each kernel instance's registers and spill bytes (stores + loads)
+    from nvcc's ``-Xptxas -v`` report, keyed by the instance's name with
+    its template flags (``topk_fold_kernel<1,0>``)."""
+    import re
+
+    out, current, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (_Z\w+)", line)
+        if m:
+            name = re.search(r"pathsim\d+(\w+?)I", m.group(1))
+            flags = re.findall(r"Lb([01])E", m.group(1))
+            current = (f"{name.group(1) if name else m.group(1)}"
+                       f"<{','.join(flags)}>")
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            out[current] = (int(m.group(1)), spill)
+            current = None
+    return out
+
+
+def check_topk(torch, ck, c, d, k, mask_self, label, stripe_tiles=None,
+               limbs=None):
+    """K1 (stripe candidates and the final top-k) against the plain
+    versions; ``limbs`` the factor split beforehand, as the backend hands
+    it over."""
+    cv, cc = ck.topk_twopass_candidates(c, d, k, mask_self, limbs=limbs,
+                                        stripe_tiles=stripe_tiles)
+    pv, pc = ck.topk_twopass_candidates_plain(c, d, k, mask_self,
+                                              stripe_tiles=stripe_tiles)
     torch.cuda.synchronize()
     if not (torch.equal(cv, pv) and torch.equal(cc, pc)):
         bad = (cv != pv) | (cc != pc)
         raise AssertionError(
             f"K1 candidates differ from the plain version ({label}, k={k}, "
-            f"mask_self={mask_self}): {int(bad.sum())} entries"
+            f"mask_self={mask_self}, stripe_tiles={stripe_tiles}): "
+            f"{int(bad.sum())} entries"
         )
-    fv, fc = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self)
+    fv, fc = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self,
+                                   limbs=limbs)
     gv, gc = ck.fused_topk_twopass_plain(c, d, k=k, mask_self=mask_self)
     if not (torch.equal(fv, gv) and torch.equal(fc, gc)):
         raise AssertionError(
@@ -236,14 +278,24 @@ def check_topk(torch, ck, c, d, k, mask_self, label):
     return max_abs_err(torch, fv, gv)
 
 
-def check_scores(torch, ck, c, d, label):
-    got = ck.fused_scores(c, d)
+def check_scores(torch, ck, c, d, label, limbs=None):
+    """K2 against the correctly rounded scores of the exact integer
+    counts everywhere (f64 sums of integer products are exact below
+    2^53), and equal to the plain version wherever the counts are exact
+    in f32 (below 2^24: every entry of an exact-count factor)."""
+    got = ck.fused_scores(c, d, limbs=limbs)
     want = ck.fused_scores_plain(c, d)
+    m = c.double() @ c.double().T
+    den = d[:, None] + d[None, :]
+    exact = torch.where(den > 0, (2.0 * m.float()) / den, 0.0)
+    f32_exact = m < 2**24
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        diff = (got - want).abs().max()
+    if not (torch.equal(got, exact)
+            and torch.equal(got[f32_exact], want[f32_exact])):
+        diff = (got - exact).abs().max()
         raise AssertionError(
-            f"K2 differs from the plain version ({label}): max |diff| {diff}"
+            f"K2 differs from the exact scores or the plain version "
+            f"({label}): max |diff| {diff}"
         )
     return max_abs_err(torch, got, want)
 
@@ -349,27 +401,49 @@ def kernel_checks(torch, ck, np, synthetic_hin):
     for k in (1, 10, 16):
         for mask_self in (True, False):
             check_topk(torch, ck, c, d, k, mask_self, "APVPA 3001x64")
+    for stripe_tiles in (1, 3):
+        check_topk(torch, ck, c, d, 10, True, "APVPA 3001x64", stripe_tiles)
     check_scores(torch, ck, c, d, "APVPA 3001x64")
-    print("K1/K2 narrow (APVPA, n=3001, v=64, k in 1/10/16, both masks): equal")
+    print("K1/K2 narrow (APVPA, n=3001, v=64, k in 1/10/16, both masks; K1 "
+          "also with stripes of 1 and 3 tiles besides the default "
+          f"{ck.twopass_stripe_tiles(c.shape[0])}): equal")
     check_k3_k4(torch, ck, c, d, "APVPA 3001x64")
     print("K3/K4 narrow (APVPA, n=3001, v=64; K3 k in 1/10/15, all rows with "
           "the default stripes and an odd row tile with 4-tile stripes; K4 k "
           "in 1/16/17/40, both masks): equal")
 
     cm, dm = multilimb_factor(torch, np, dev)
-    counts = ck.split_limbs(cm).counts.long()
+    lim = ck.split_limbs(cm)
+    counts = lim.counts.long()
+    if not ck._needs_wide(lim, lim):
+        raise AssertionError("the multi-limb factor does not take the "
+                             "kernels' wide instances")
+    for k in (1, 10, 16):
+        check_topk(torch, ck, cm, dm, k, True, "multi-limb", limbs=lim)
+    check_topk(torch, ck, cm, dm, 10, True, "multi-limb", stripe_tiles=1)
+    check_scores(torch, ck, cm, dm, "multi-limb", limbs=lim)
+    check_scores(torch, ck, cm, dm, "multi-limb")
     check_k3_k4(torch, ck, cm, dm, "multi-limb", masks=(True,))
-    print(f"K3/K4 multi-limb factor (n={cm.shape[0]}, v={cm.shape[1]}, rows "
-          f"of 1/2/3 limbs: {[int((counts == i).sum()) for i in (1, 2, 3)]};"
-          f" K4 also at k={ck.FOLD_SMEM_K_MAX + 1}, lists in device "
-          "memory): equal")
+    print(f"K1/K2/K3/K4 multi-limb factor, wide instances (n={cm.shape[0]}, "
+          f"v={cm.shape[1]}, rows of 1/2/3 limbs: "
+          f"{[int((counts == i).sum()) for i in (1, 2, 3)]}; K1 k in "
+          "1/10/16 and 1-tile stripes, self masked; K2 also equal to the "
+          "correctly rounded exact scores on the diagonal, past 2^24; K4 "
+          f"also at k={ck.FOLD_SMEM_K_MAX + 1}, lists in device memory): "
+          "equal")
     bad = torch.full((4, 4), 0.5, device=dev)
-    try:
-        ck.fused_topk(bad, torch.ones(4, device=dev), k=2)
-    except ValueError as exc:
-        print(f"a CUDA factor holding 0.5 raises ValueError: {exc}")
-    else:
-        raise AssertionError("K4 took a factor holding 0.5")
+    one = torch.ones(4, device=dev)
+    for label, call in (
+            ("K1", lambda: ck.fused_topk_twopass(bad, one, k=2)),
+            ("K2", lambda: ck.fused_scores(bad, one)),
+            ("K4", lambda: ck.fused_topk(bad, one, k=2))):
+        try:
+            call()
+        except ValueError as exc:
+            print(f"{label}: a CUDA factor holding 0.5 raises ValueError: "
+                  f"{exc}")
+        else:
+            raise AssertionError(f"{label} took a factor holding 0.5")
 
     cw, dw = factor(hin, "APA", dev)  # v = #papers: 282 K steps of 16
     for mask_self in (True, False):
@@ -918,7 +992,19 @@ def config5(torch, ck, np, launches, workdir, card):
             "c5_err": c5_err}
 
 
-def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
+def square_bounds(lim, n, v, out_bytes):
+    """A square kernel's least times on this factor: at the int8 tensor
+    cores, the limb products of the N(N+1)/2 pairs of the symmetric S (2 v
+    u8 operations each) against the limb planes and denominators read once
+    and ``out_bytes`` written; beside it, the f32 CUDA-core bound of the
+    N(N+1)V FLOP against the f32 factor read once."""
+    int8 = bound(u8_square_ops(lim.counts.long(), v),
+                 lim.planes.numel() + 4.0 * n + out_bytes, PEAK_INT8_OPS)
+    f32 = bound(scores_flops(n, v), 4.0 * (n * v + n) + out_bytes)
+    return int8, f32
+
+
+def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     """Phase 2 at the main path's shapes + phase 4 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
@@ -927,9 +1013,12 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
     dev = torch.device("cuda")
     c, d = factor(hin, "APVPA", dev)
     n, v = c.shape
-    err_k1 = check_topk(torch, ck, c, d, TOP_K, True, "rank-all shape")
+    lim = ck.split_limbs(c)
+    err_k1 = check_topk(torch, ck, c, d, TOP_K, True, "rank-all shape",
+                        limbs=lim)
     ca, da = factor(hin_ap, "APVPA", dev)
-    err_k2 = check_scores(torch, ck, ca, da, "all-pairs shape")
+    lim_a = ck.split_limbs(ca)
+    err_k2 = check_scores(torch, ck, ca, da, "all-pairs shape", limbs=lim_a)
     err_k3 = check_rect(torch, ck, c, d, 0, 4096, TOP_K, "rank-all shape",
                         pad_cols=0)
     err_k4 = check_fold(torch, ck, c, d, TOP_K_FOLD, True, "rank-all shape")
@@ -939,13 +1028,27 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
 
     phase("times (CUDA events, median of 7; K3's are in the config 5 "
           "phase)")
-    k1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates(c, d, TOP_K, True))
-    cv, cc = ck.topk_twopass_candidates(c, d, TOP_K, True)
+    # K1 and K2 on the split factor, as the dense backend calls them (it
+    # splits C once per graph)
+    k1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates(
+        c, d, TOP_K, True, limbs=lim))
+    cv, cc = ck.topk_twopass_candidates(c, d, TOP_K, True, limbs=lim)
+    n_st = cv.shape[1]
     pass2_ms = time_ms(torch, lambda: ck.sparse.chunked_row_topk(
         cv.view(n, -1), cc.view(n, -1), TOP_K))
-    k1_total_ms = time_ms(torch, lambda: ck.fused_topk_twopass(c, d, TOP_K))
+    k1_total_ms = time_ms(torch, lambda: ck.fused_topk_twopass(
+        c, d, TOP_K, limbs=lim))
     k1_plain_ms = time_ms(torch, lambda: ck.fused_topk_twopass_plain(
         c, d, TOP_K), reps=5)
+    sweep = {}
+    for tiles in STRIPE_SWEEP:
+        sv, sc = ck.topk_twopass_candidates(c, d, TOP_K, True, limbs=lim,
+                                            stripe_tiles=tiles)
+        sweep[tiles * ck.TILE] = (
+            time_ms(torch, lambda: ck.topk_twopass_candidates(
+                c, d, TOP_K, True, limbs=lim, stripe_tiles=tiles)),
+            time_ms(torch, lambda: ck.sparse.chunked_row_topk(
+                sv.view(n, -1), sc.view(n, -1), TOP_K)))
 
     def lib_topk():
         m = torch.matmul(c, c.T)
@@ -955,18 +1058,11 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
         return torch.topk(s, TOP_K, dim=1)
 
     k1_lib_ms = time_ms(torch, lib_topk, reps=5)
-    n_ct = -(-n // ck.TILE)
-    k1_bound, k1_by = bound(scores_flops(n, v),
-                            4.0 * (n * v + n) + 8.0 * n * n_ct * TOP_K)
-    # the bounds on the int8 tensor cores, where K1 and K2 go next: the
-    # limb products this factor needs, its planes read once
-    lim = ck.split_limbs(c)
-    int8_square = u8_square_ops(lim.counts.long(), v)
-    k1_int8, _ = bound(int8_square, lim.planes.numel() + 4.0 * n
-                       + 8.0 * n * n_ct * TOP_K, PEAK_INT8_OPS)
+    k1_cand_bytes = 8.0 * n * n_st * TOP_K
+    (k1_bound, k1_by), (k1_f32, _) = square_bounds(lim, n, v, k1_cand_bytes)
 
     na, va = ca.shape
-    k2_ms = time_ms(torch, lambda: ck.fused_scores(ca, da))
+    k2_ms = time_ms(torch, lambda: ck.fused_scores(ca, da, limbs=lim_a))
     k2_plain_ms = time_ms(torch, lambda: ck.fused_scores_plain(ca, da))
 
     def lib_scores():
@@ -975,25 +1071,10 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
         return torch.where(den > 0, (2.0 * m) / den, 0.0)
 
     k2_lib_ms = time_ms(torch, lib_scores)
-    k2_bound, k2_by = bound(scores_flops(na, va),
-                            4.0 * (na * va + na) + 4.0 * na * na)
-    lim_a = ck.split_limbs(ca)
-    k2_int8, _ = bound(u8_square_ops(lim_a.counts.long(), va),
-                       lim_a.planes.numel() + 4.0 * na + 4.0 * na * na,
-                       PEAK_INT8_OPS)
-    print(f"K1 topk_twopass_candidates {n}x{v} k={TOP_K}: {k1_ms:.3f} ms "
-          f"(bound {k1_bound:.3f} ms by {k1_by} at N(N+1)V FLOP; the "
-          f"kernel does 2N^2V FLOP at "
-          f"{2.0 * n * n * v / k1_ms / 1e9:.1f} TFLOP/s); pass 2 "
-          f"{pass2_ms:.3f} ms; K1+pass 2 {k1_total_ms:.3f} ms; plain "
-          f"{k1_plain_ms:.3f} ms; library (matmul+normalize+topk) "
-          f"{k1_lib_ms:.3f} ms")
-    print(f"K2 fused_scores {na}x{va}: {k2_ms:.3f} ms (bound {k2_bound:.3f} "
-          f"ms by {k2_by} at N(N+1)V FLOP); plain {k2_plain_ms:.3f} ms; library "
-          f"(matmul+normalize) {k2_lib_ms:.3f} ms")
+    (k2_bound, k2_by), (k2_f32, _) = square_bounds(lim_a, na, va,
+                                                   4.0 * na * na)
 
-    # the kernel on the split factor; the wrapper's call on the f32
-    # factor adds the split (as the dense backend runs it, once a call)
+    # K4 on the split factor, and with the split made in the call
     k4_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD,
                                                   limbs=lim))
     k4_call_ms = time_ms(torch, lambda: ck.fused_topk(c, d, TOP_K_FOLD))
@@ -1008,10 +1089,27 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
         return torch.topk(s, TOP_K_FOLD, dim=1)
 
     k4_lib_ms = time_ms(torch, lib_fold, reps=5)
-    k4_bound, k4_by = bound(int8_square, lim.planes.numel() + 4.0 * n
-                            + 8.0 * n * TOP_K_FOLD, PEAK_INT8_OPS)
-    k4_f32, _ = bound(scores_flops(n, v),
-                      4.0 * (n * v + n) + 8.0 * n * TOP_K_FOLD)
+    (k4_bound, k4_by), (k4_f32, _) = square_bounds(lim, n, v,
+                                                   8.0 * n * TOP_K_FOLD)
+    spill = {name: {inst: sp for inst, (_, sp) in insts.items()}
+             for name, insts in instances.items()}
+    print(f"K1 topk_twopass_candidates {n}x{v} k={TOP_K} ({n_st} stripes of "
+          f"{ck.twopass_stripe_tiles(n) * ck.TILE} columns): {k1_ms:.3f} ms on "
+          f"the split factor (int8 tensor-core bound {k1_bound:.3f} ms by "
+          f"{k1_by} with {k1_cand_bytes / 1e6:.1f} MB of candidates; f32 "
+          f"CUDA-core bound {k1_f32:.3f} ms); pass 2 {pass2_ms:.3f} ms; "
+          f"K1+pass 2 {k1_total_ms:.3f} ms against K4's {k4_ms:.3f} ms at "
+          f"k={TOP_K_FOLD}; plain {k1_plain_ms:.3f} ms; library "
+          f"(matmul+normalize+topk) {k1_lib_ms:.3f} ms; spill bytes "
+          f"{spill.get('topk_twopass_candidates')}")
+    print("K1 by stripe width (columns: K1 ms, pass 2 ms): "
+          + ", ".join(f"{w}: {a:.3f}, {b:.3f}" for w, (a, b) in sweep.items()))
+    print(f"K2 fused_scores {na}x{va}: {k2_ms:.3f} ms on the split factor "
+          f"(int8 tensor-core bound {k2_bound:.3f} ms by {k2_by}: "
+          f"{4.0 * na * na / 1e6:.0f} MB of scores written; f32 CUDA-core "
+          f"bound {k2_f32:.3f} ms); plain {k2_plain_ms:.3f} ms; library "
+          f"(matmul+normalize) {k2_lib_ms:.3f} ms; spill bytes "
+          f"{spill.get('fused_scores')}")
     print(f"K4 topk_fold {n}x{v} k={TOP_K_FOLD}: {k4_ms:.3f} ms on the "
           f"split factor, {k4_call_ms:.3f} ms with the split (int8 "
           f"tensor-core bound {k4_bound:.3f} ms by {k4_by} for the limb "
@@ -1020,8 +1118,6 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
           f"{2.0 * n * n * v / k4_ms / 1e12:.1f} TOP/s of one-limb "
           f"products); plain {k4_plain_ms:.3f} ms; library "
           f"(matmul+normalize+topk) {k4_lib_ms:.3f} ms")
-    print(f"int8 tensor-core bounds of K1 and K2 (their next port): K1 "
-          f"{k1_int8:.3f} ms, K2 {k2_int8:.3f} ms")
 
     # Rank-all end to end on a built backend (bench.py's measurement:
     # backend.topk including the host fetch), plus its layers.
@@ -1035,10 +1131,14 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
     cb, rb = backend._half()
     torch.cuda.synchronize()
     scatter_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lb = backend._limbs(cb)
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t0) * 1e3
     rank_times = wall_s(torch, lambda: backend.topk(k=TOP_K))
     rank_s = statistics.median(rank_times)
     busy = device_busy_share(torch, lambda: backend.topk(k=TOP_K))
-    fv, fi = ck.fused_topk_twopass(cb, rb, TOP_K)
+    fv, fi = ck.fused_topk_twopass(cb, rb, TOP_K, limbs=lb)
     fetch_ms = time_ms(torch, lambda: (fv.cpu(), fi.cpu()))
     pairs = float(n) * (n - 1)
     print(f"rank-all backend.topk: {rank_s * 1e3:.3f} ms median of 5 "
@@ -1048,8 +1148,9 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
           + ("not measured (no device time in the profile)" if busy is None
              else f"{busy:.3f}"))
     print(f"layers: host fold {fold_s * 1e3:.1f} ms (nnz {coo.rows.size}), "
-          f"scatter-build of C {scatter_s * 1e3:.2f} ms, K1 {k1_ms:.3f} ms, "
-          f"pass 2 {pass2_ms:.3f} ms, fetch {fetch_ms:.3f} ms")
+          f"scatter-build of C {scatter_s * 1e3:.2f} ms, limb split (once "
+          f"per graph) {split_ms:.2f} ms, K1 {k1_ms:.3f} ms, pass 2 "
+          f"{pass2_ms:.3f} ms, fetch {fetch_ms:.3f} ms")
 
     def entry(name, source, replaces, pallas, ms, plain, bnd, by, lib, err,
               f32, int8):
@@ -1059,21 +1160,24 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3):
             "launches": launches[name], "ok": True, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib, "bound_f32_ms": f32, "bound_int8_ms": int8,
+            "spill_bytes": spill.get(name),
         }
 
     return [
-        entry("topk_twopass_candidates",
-              "distributed_pathsim_tpu_torch/csrc/topk_twopass.cu",
-              "distributed_pathsim_tpu/ops/pallas_kernels.py:545",
-              ["_topk2_kernel", "_topk2_kernel_kt"],
-              k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms, err_k1,
-              k1_bound, k1_int8),
+        {**entry("topk_twopass_candidates",
+                 "distributed_pathsim_tpu_torch/csrc/topk_twopass.cu",
+                 "distributed_pathsim_tpu/ops/pallas_kernels.py:545",
+                 ["_topk2_kernel", "_topk2_kernel_kt"],
+                 k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms, err_k1,
+                 k1_f32, k1_bound),
+         "pass2_ms": pass2_ms, "with_pass2_ms": k1_total_ms,
+         "ms_by_stripe_columns": {w: a for w, (a, _) in sweep.items()}},
         entry("fused_scores",
               "distributed_pathsim_tpu_torch/csrc/fused_scores.cu",
               "distributed_pathsim_tpu/ops/pallas_kernels.py:119",
               ["_scores_kernel", "_scores_kernel_kt"],
               k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms, err_k2,
-              k2_bound, k2_int8),
+              k2_f32, k2_bound),
         {**entry("topk_rect_candidates",
                  "distributed_pathsim_tpu_torch/csrc/topk_rect.cu",
                  "distributed_pathsim_tpu/ops/pallas_kernels.py:707",
@@ -1109,14 +1213,15 @@ def main() -> int:
         return 2
     ck.true_f32()
 
-    name, smi = device_and_build(torch, ck)
+    name, smi, instances = device_and_build(torch, ck)
     kernel_checks(torch, ck, np, synthetic_hin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         hin, hin_ap, launches, backend = main_path(
             torch, ck, np, pathlib.Path(tmp)
         )
         k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
-    kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3)
+    kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
+                      instances)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

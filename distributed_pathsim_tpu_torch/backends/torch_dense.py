@@ -7,8 +7,9 @@ pairwise rows are GEMVs/GEMMs against it; rank-all and all-pairs run on
 the hand-written CUDA kernels (ops/cuda_kernels.py), or on their plain
 torch versions when the device is the CPU. Rank-all picks its kernel as
 the JAX package does: K1 while its candidate buffer fits, then K3 over
-row tiles, then the single-pass K4 (k > 16, no self mask, or f64). Asymmetric chains run as a
-plan-ordered ``torch.matmul`` chain.
+row tiles, then the single-pass K4 (k > 16, no self mask, or f64). The
+kernels multiply C's u8 limbs, split once per graph and handed to every
+launch. Asymmetric chains run as a plan-ordered ``torch.matmul`` chain.
 
 f32 throughout, exact for integer path counts below 2²⁴ (asserted, not
 assumed: the row sums are checked against the guard). On the card every
@@ -75,6 +76,7 @@ class TorchDenseBackend(PathSimBackend):
         self._m = None
         self._rowsums = None
         self._half_cache = None
+        self._limbs_cache = None
 
     def _half(self):
         """(C, rowsums) on the device for a symmetric chain, built once:
@@ -87,7 +89,17 @@ class TorchDenseBackend(PathSimBackend):
             # integer adds are exact in any order
             c.index_put_((rows, cols), weights, accumulate=True)
             self._half_cache = (c, chain.rowsums_from_half(c))
+            self._limbs_cache = None
         return self._half_cache
+
+    def _limbs(self, c):
+        """C's u8 limbs as the kernels read them (None on the CPU), split
+        once per graph beside C (:func:`cuda_kernels.kernel_limbs`) at the
+        first kernel call that needs them, so no rank-all or all-pairs
+        call pays the split."""
+        if self._limbs_cache is None:  # stays None on the CPU, at no cost
+            self._limbs_cache = ck.kernel_limbs(c)
+        return self._limbs_cache
 
     def _check_exact(self, rowsums: np.ndarray) -> None:
         if self.exact_counts:
@@ -178,7 +190,7 @@ class TorchDenseBackend(PathSimBackend):
         c, rowsums = self._half()
         d = self._denominator_device(c, rowsums, variant)
         self._fetch_rowsums(rowsums)
-        scores = ck.fused_scores(c, d)
+        scores = ck.fused_scores(c, d, limbs=self._limbs(c))
         n = self.n_sources
         return scores[:n, :n].cpu().numpy()
 
@@ -195,17 +207,20 @@ class TorchDenseBackend(PathSimBackend):
             raise ValueError("topk fast path requires a symmetric metapath")
         c, rowsums = self._half()
         d = self._denominator_device(c, rowsums, variant)
+        limbs = self._limbs(c)
         n_rows = c.shape[0]
         if k <= ck.CAND_MAX and ck.twopass_fits(n_rows, k, self.device):
-            vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self)
+            vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self,
+                                               limbs=limbs)
         elif (
             mask_self  # K3 always excludes the self pair
             and self.dtype == torch.float32
             and ck.rect_supported(c.shape[1], k)
         ):
-            vals, idxs = self._topk_rect_stream(c, d, k)
+            vals, idxs = self._topk_rect_stream(c, d, k, limbs)
         else:
-            vals, idxs = ck.fused_topk(c, d, k=k, mask_self=mask_self)
+            vals, idxs = ck.fused_topk(c, d, k=k, mask_self=mask_self,
+                                       limbs=limbs)
         self._fetch_rowsums(rowsums)
         n = self.n_sources
         return vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
@@ -214,16 +229,18 @@ class TorchDenseBackend(PathSimBackend):
     # buffer fits its budget).
     _RECT_TILE_ROWS = 8192
 
-    def _topk_rect_stream(self, c, d, k: int):
+    def _topk_rect_stream(self, c, d, k: int, limbs):
         """Per-source top-k past K1's candidate budget: each row tile
-        against the whole column range through K3 + pass 2. Results stay
-        on the device ([N, k] is small); the caller fetches once."""
+        against the whole column range through K3 + pass 2, on C's
+        cached ``limbs`` (rect_pad_factor pads nothing, so they fit the
+        contiguous f32 factor it hands K3). Results stay on the device
+        ([N, k] is small); the caller fetches once."""
         n = c.shape[0]
         tile_rows = self._RECT_TILE_ROWS
         while tile_rows > 256 and not ck.rect_fits(n, tile_rows, k,
                                                    self.device):
             tile_rows //= 2
-        cc, dc, limbs = ck.rect_pad_factor(c, d)
+        cc, dc, limbs = ck.rect_pad_factor(c, d, limbs)
         ids = torch.arange(n, dtype=torch.int32, device=c.device)
         outs = [
             ck.fused_topk_twopass_rect(

@@ -1,6 +1,7 @@
-// Per-row running top-k lists of K3 and K4 (sm_90a): the consumers' loop
-// of a row block over a range of 64-column subtiles, and the merge of
-// each subtile's scores into a row's sorted best-k.
+// Per-row running top-k lists of K1, K3 and K4 (sm_90a): the consumers'
+// loop of a row block over a range of 64-column subtiles, the merge of
+// each subtile's scores into a row's sorted best-k, and the unit of the
+// two-pass kernels K1 and K3 (a row block against one stripe of columns).
 //
 // Layout (u8_tile.cuh): a consumer thread holds 2 rows of its
 // warpgroup's 64 (warp 16 w + lane / 4, and 8 further), 16 columns of
@@ -32,10 +33,16 @@
 #include <climits>
 #include <math.h>
 
-#include "tile_gemm.cuh"  // normalize(): K1's and K2's correctly rounded division
 #include "u8_tile.cuh"
 
 namespace pathsim {
+
+// The pallas_kernels.py _normalize form, verbatim: (2 m) / denom with a
+// correctly rounded division (built with -prec-div=true and no fast
+// math), 0 where the denominator is not positive.
+__device__ __forceinline__ float normalize(float m, float denom) {
+    return denom > 0.0f ? (2.0f * m) / denom : 0.0f;
+}
 
 // (v, c) ranks before (ov, oc): larger value, or equal value and lower
 // column.
@@ -52,13 +59,19 @@ __device__ __forceinline__ int sub_col(int j) {
     return 8 * (j >> 1) + 2 * (threadIdx.x & 3) + (j & 1);
 }
 
+// normalize(m, den), written out for m == 0 (+0 for any den, without a
+// division: most pairs of a sparse graph share no path, and a zero
+// numerator sends the correctly rounded division down its slow path).
+__device__ __forceinline__ float score_of(float m, float den) {
+    return m != 0.0f ? normalize(m, den) : 0.0f;
+}
+
 // One element's score: -inf for columns >= n_true and for self_col,
-// else normalize(m, den), written out for m == 0 (+0 for any den,
-// without a division).
+// else score_of(m, den).
 __device__ __forceinline__ float score_elem(float m, float den, int gj,
                                             int self_col, int n_true) {
     if (gj >= n_true || gj == self_col) return -INFINITY;
-    return m != 0.0f ? normalize(m, den) : 0.0f;
+    return score_of(m, den);
 }
 
 // Whether an element with f32 path count m and denominator den provably
@@ -350,4 +363,102 @@ __device__ __forceinline__ void consume_rows(const u8::Unit& u,
     }
 }
 
+// Largest k of the two-pass kernels (K1, K3): a row's list has at most
+// this many slots in shared memory.
+constexpr int CAND_K_MAX = 16;
+
+// The unit grid of a two-pass kernel: one block per (128-row block,
+// stripe of stripe_sub column subtiles) unit; the row blocks in the
+// wrapper's order (most limbs first), each block's stripes in a row. The
+// card starts blocks in that order as SMs free up, so the few slow
+// multi-limb units run first and the rest fill in behind them. rb_max
+// (each row block's largest entry) and order span the row blocks,
+// sub_max (each 64-row tile's largest entry) the column factor's
+// n_sub_max subtiles, d_min (each subtile's least column denominator, 0
+// past the columns) the n_sub subtiles walked.
+struct StripeGrid {
+    int stripe_sub, n_stripes, n_sub, n_sub_max;
+    const int* rb_max;
+    const int* order;
+    const int* sub_max;
+    const float* d_min;
+};
+
+// One unit of a two-pass kernel: each of the row block's rows' top-k
+// among the stripe's columns, into vals / cols [t, n_stripes, k] (k <=
+// CAND_K_MAX). The rows' lists live in shared memory after the
+// pipeline. ctx names the column denominators, the columns' end and the
+// self mask; its row0 is set here.
+template <bool WIDE>
+__device__ __forceinline__ void stripe_topk(const CUtensorMap* map_a,
+                                            const CUtensorMap* map_b,
+                                            const float* __restrict__ d_rows,
+                                            int t, Ctx ctx,
+                                            const StripeGrid g, int v_pad,
+                                            int k, float* __restrict__ vals,
+                                            int* __restrict__ cols) {
+    extern __shared__ __align__(1024) uint8_t smem[];
+    const int rb = g.order[blockIdx.x / g.n_stripes];
+    const int stripe = blockIdx.x % g.n_stripes;
+    const int sub0 = stripe * g.stripe_sub;
+    const u8::Unit u{g.sub_max, g.n_sub_max, g.rb_max[rb], sub0,
+                     min(sub0 + g.stripe_sub, g.n_sub), v_pad, WIDE};
+    const int row0 = rb * u8::BM;
+    u8::Pipe pipe;
+    uint8_t* lists = u8::pipe_init(smem, u, map_a, map_b, row0, pipe);
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the producer
+        u8::load_rows(u, pipe);
+        u8::feed_stages(u, pipe, u.stages());
+    }
+
+    Row rows[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int lrow = local_row(h);
+        const int gi = row0 + lrow;
+        Row& r = rows[h];
+        r.valid = gi < t;
+        r.di = r.valid ? d_rows[gi] : 0.0f;
+        r.lv = reinterpret_cast<float*>(lists) + lrow * CAND_K_MAX;
+        r.lc_off = u8::BM * CAND_K_MAX;
+        list_init(r, k);
+    }
+    __syncwarp();
+    ctx.row0 = row0;
+    consume_rows<WIDE>(u, pipe, ctx, g.d_min, rows, k);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const long long gi = row0 + local_row(h);
+        const long long o = (gi * g.n_stripes + stripe) * k;
+        list_store(rows[h], k, vals + o, cols + o);
+    }
+}
+
+// Dynamic shared memory of a two-pass kernel: the pipeline and the lists.
+constexpr int STRIPE_SMEM = u8::PIPE_SMEM + u8::BM * CAND_K_MAX * 8;
+
 }  // namespace pathsim
+
+// Host: the StripeGrid of a two-pass launch over t rows and n columns
+// with stripes of stripe_tiles 128-column tiles (the last may be
+// shorter): ceil(n / 128) * 2 subtiles walked, so every stripe holds at
+// least 128 >= k columns, those past n -inf padding with their own ids.
+// Sets *units to the grid's size.
+static pathsim::StripeGrid pathsim_stripe_grid(int t, int n,
+                                               int stripe_tiles,
+                                               const int* rb_max,
+                                               const int* order,
+                                               const int* sub_max,
+                                               const float* d_min,
+                                               long long* units) {
+    const int per_tile = 128 / pathsim::u8::BN;
+    const int n_ct = (n + 127) / 128;
+    const int n_stripes = (n_ct + stripe_tiles - 1) / stripe_tiles;
+    *units = (long long)((t + pathsim::u8::BM - 1) / pathsim::u8::BM) *
+             n_stripes;
+    return pathsim::StripeGrid{stripe_tiles * per_tile, n_stripes,
+                               n_ct * per_tile,
+                               (n + pathsim::u8::BN - 1) / pathsim::u8::BN,
+                               rb_max, order, sub_max, d_min};
+}

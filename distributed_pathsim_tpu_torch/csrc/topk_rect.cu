@@ -58,8 +58,6 @@
 
 namespace pathsim {
 
-constexpr int RECT_K_MAX = 16;
-
 // WIDE: the instance with the f64 fold, for a row tile whose row sums do
 // not bound every M below 2^31 (u8_tile.cuh); it takes the registers of
 // one block an SM, the common instance leaves room for two.
@@ -70,48 +68,11 @@ topk_rect_kernel(const __grid_constant__ CUtensorMap map_a,
                  const float* __restrict__ d_rows,
                  const int* __restrict__ row_ids, int t,
                  const float* __restrict__ d_cols, int n, int n_true,
-                 int v_pad, int k, int stripe_sub, int n_stripes,
-                 int n_sub, const int* __restrict__ rb_max,
-                 const int* __restrict__ order,
-                 const int* __restrict__ sub_max, int n_sub_max,
-                 const float* __restrict__ d_min, float* __restrict__ vals,
-                 int* __restrict__ cols) {
-    extern __shared__ __align__(1024) uint8_t smem[];
-    const int rb = order[blockIdx.x / n_stripes];
-    const int stripe = blockIdx.x % n_stripes;
-    const int sub0 = stripe * stripe_sub;
-    const u8::Unit u{sub_max, n_sub_max, rb_max[rb], sub0,
-                     min(sub0 + stripe_sub, n_sub), v_pad, WIDE};
-    const int row0 = rb * u8::BM;
-    u8::Pipe pipe;
-    uint8_t* lists = u8::pipe_init(smem, u, &map_a, &map_b, row0, pipe);
-    __syncthreads();
-    if (threadIdx.x == 0) {  // the producer
-        u8::load_rows(u, pipe);
-        u8::feed_stages(u, pipe, u.stages());
-    }
-
-    Row rows[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int lrow = local_row(h);
-        const int gi = row0 + lrow;
-        Row& r = rows[h];
-        r.valid = gi < t;
-        r.di = r.valid ? d_rows[gi] : 0.0f;
-        r.lv = reinterpret_cast<float*>(lists) + lrow * RECT_K_MAX;
-        r.lc_off = u8::BM * RECT_K_MAX;
-        list_init(r, k);
-    }
-    __syncwarp();
-    const Ctx ctx{d_cols, row_ids, n, n_true, row0, true};
-    consume_rows<WIDE>(u, pipe, ctx, d_min, rows, k);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const long long gi = row0 + local_row(h);
-        const long long o = (gi * n_stripes + stripe) * k;
-        list_store(rows[h], k, vals + o, cols + o);
-    }
+                 int v_pad, int k, const StripeGrid g,
+                 float* __restrict__ vals, int* __restrict__ cols) {
+    const Ctx ctx{d_cols, row_ids, n, n_true, 0, true};
+    stripe_topk<WIDE>(&map_a, &map_b, d_rows, t, ctx, g, v_pad, k, vals,
+                      cols);
 }
 
 }  // namespace pathsim
@@ -148,19 +109,16 @@ extern "C" int pathsim_topk_rect(const void* row_planes, int n_row_planes,
         rc = pathsim_limb_map(&map_b, col_planes, n_col_planes, n, v_pad,
                               col_stride, u8::BN);
     if (rc != 0) return rc;
-    const int per_tile = 128 / u8::BN;
-    const int n_ct = (n + 127) / 128;
-    const int n_stripes = (n_ct + stripe_tiles - 1) / stripe_tiles;
-    const int smem = u8::PIPE_SMEM + u8::BM * RECT_K_MAX * 8;
+    long long units;
+    const StripeGrid g = pathsim_stripe_grid(t, n, stripe_tiles, rb_max,
+                                             order, sub_max, d_min, &units);
     const auto kernel = wide ? topk_rect_kernel<true> : topk_rect_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STRIPE_SMEM);
     if (err != cudaSuccess) return (int)err;
-    const long long units =
-        (long long)((t + u8::BM - 1) / u8::BM) * n_stripes;
-    kernel<<<(unsigned)units, u8::THREADS, smem, (cudaStream_t)stream>>>(
-        map_a, map_b, d_rows, row_ids, t, d_cols, n, n_true, v_pad, k,
-        stripe_tiles * per_tile, n_stripes, n_ct * per_tile, rb_max, order,
-        sub_max, (n + u8::BN - 1) / u8::BN, d_min, vals, cols);
+    kernel<<<(unsigned)units, u8::THREADS, STRIPE_SMEM,
+             (cudaStream_t)stream>>>(map_a, map_b, d_rows, row_ids, t,
+                                     d_cols, n, n_true, v_pad, k, g, vals,
+                                     cols);
     return (int)cudaGetLastError();
 }

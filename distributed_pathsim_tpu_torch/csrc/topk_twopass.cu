@@ -2,136 +2,110 @@
 // matrix, for sm_90a.
 //
 // Replaces the Pallas kernels _topk2_kernel and _topk2_kernel_kt of
-// distributed_pathsim_tpu/ops/pallas_kernels.py (fused_topk_twopass).
-// Each block scores one [BM x BN] tile (tile_gemm.cuh), masks columns
-// >= n and, with mask_self, the self pair to -inf, and writes each row's
-// tile-local top-k (values descending, ties to the lowest column) to a
-// candidate buffer laid out [n, n_col_tiles, k]. Pass 2 (a stable
-// hierarchical sort in torch, ops/sparse.chunked_row_topk) reduces the
-// candidates to the final top-k: any global top-k element is in its
-// tile's top-k, so the result is exact, and the candidate order (tile
-// ascending, then column ascending among equal values) makes the stable
-// sort break ties to the lowest global column.
+// distributed_pathsim_tpu/ops/pallas_kernels.py (fused_topk_twopass): the
+// main path's rank-all for k <= 16.
 //
-// Bound on an H100: operations. S is symmetric, so the function needs
-// only the upper-triangle dot products: n (n + 1) v = 4.12e11 f32 FLOP at
-// the rank-all shape (n = 32768, v = 384), 6.15 ms at 67 TFLOP/s on the
-// CUDA cores, against ~50 MB of C read and ~0.67 GB of candidates
-// written (0.21 ms at 3.35 TB/s). This kernel scores every tile, twice
-// that: 2 n^2 v = 8.25e11 FLOP. The selection is k rounds of a 16-lane
-// shuffle argmax per row held in registers, about a sixth of the GEMM's
-// instruction count at k = 10. What the simple design leaves on the
-// table: see tile_gemm.cuh, plus the candidate bytes (a k-wide merge
-// across column tiles inside the block would cut them by the number of
-// column tiles per block).
+// What it computes: S = 2 (C C^T) / (d_i + d_j) (0 where that is 0) with
+// the self pair at -inf when mask_self; then, for each stripe of
+// stripe_tiles * 128 columns, each row's top-k in the order (descending
+// score, ascending column), written to a candidate buffer [n, n_stripes,
+// k]. Columns n .. ceil(n / 128) * 128 - 1 are -inf padding with their
+// own ids, so every stripe holds at least 128 >= k columns and a row
+// never repeats a column. Pass 2 (the stable hierarchical sort
+// ops/sparse.chunked_row_topk) reduces the candidates: any row's global
+// top-k element is in its stripe's top-k, and the candidates lie in
+// column order within equal values (stripes ascending, each stripe's
+// list in (value, column) order), so the result is exact with ties to
+// the lowest global column.
+//
+// Design: K3's (topk_rect.cu) on the square factor. One block owns one
+// (128-row block, stripe) unit and walks the stripe's 64-column
+// subtiles. M comes exact from the int8 tensor cores over the factor's
+// u8 limb planes (u8_tile.cuh: integer tensor cores, exact by
+// construction; still no TF32), the row block's planes resident while
+// they fit, the V loop covering the K-tiled Pallas variant; each
+// warpgroup scores and selects from its accumulators where they lie
+// (topk_list.cuh: a coarse per-row integer bound, an exact
+// division-free test, one warp vote) while the other warpgroup's product
+// and the TMA loads run. A row's list (k <= 16 slots) lives in shared
+// memory for the whole stripe and is written to the candidate buffer
+// once. Row blocks with the most limbs launch first. The stripe width is
+// the wrapper's (cuda_kernels.TWOPASS_STRIPE_TILES): a row's list
+// restarts per stripe, and the first subtile of each stripe is scored
+// in full while the list fills, so wide stripes cost less selection;
+// pass 2 reads n_stripes * k candidates a row.
+//
+// Bound on an H100: operations. S is symmetric, so the function needs the
+// n (n + 1) / 2 upper-triangle dot products: n (n + 1) v u8 operations
+// per limb product, 4.1e11 at the rank-all shape (n = 32768, v = 384),
+// 0.21 ms at the int8 tensor cores' 1,979 TOP/s (6.15 ms at the f32
+// CUDA cores' 67 TFLOP/s, the bound of the CUDA-core kernel this one
+// replaced), against ~13 MB of limb planes read and n * n_stripes * k * 8
+// bytes of candidates written. The kernel does every tile, 2 n^2 v. The
+// tensor cores leave the pace to the selection on the CUDA cores, as in
+// K3 and K4.
 #include <climits>
 
-#include "tile_gemm.cuh"
+#include "topk_list.cuh"
+#include "u8_tile.cuh"
 
 namespace pathsim {
 
-__global__ void __launch_bounds__(THREADS)
-topk_candidates_kernel(const float* __restrict__ c,
-                       const float* __restrict__ d, int n, int v, int k,
-                       int mask_self, int n_ct, float* __restrict__ vals,
-                       int* __restrict__ cols) {
-    __shared__ TileSmem sm;
-    const int col_tile = blockIdx.x;
-    const int row0 = blockIdx.y * BM;
-    const int col0 = col_tile * BN;
-    float s[TM][TN];
-    tile_product(c, n, v, row0, col0, sm, s);
-
-    const int ty = threadIdx.x / 16;
-    const int tx = threadIdx.x % 16;
-    float dj[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const int gj = col0 + tx + 16 * j;
-        dj[j] = gj < n ? d[gj] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-        const int gi = row0 + ty + 16 * r;
-        const float di = gi < n ? d[gi] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int gj = col0 + tx + 16 * j;
-            const float x = normalize(s[r][j], di + dj[j]);
-            s[r][j] = (gj >= n || (mask_self && gi == gj)) ? -INFINITY : x;
-        }
-    }
-
-    // A row's BN columns live in the 16 lanes of one half-warp (8 each).
-    // Round t: each lane proposes its best untaken (value, column), a
-    // 4-step xor shuffle picks the half-warp's best (ties: lower
-    // column), the owner marks it taken, and lane t keeps it for slot t.
-    // Taken bits (not -inf) mark used entries, so -inf entries are
-    // still emitted as distinct columns.
-    unsigned taken[TM];
-    float keep_v[TM];
-    int keep_c[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-        taken[r] = 0u;
-        keep_v[r] = -INFINITY;
-        keep_c[r] = 0;
-    }
-    for (int t = 0; t < k; ++t) {
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-            float bv = -INFINITY;
-            int bc = INT_MAX;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int gj = col0 + tx + 16 * j;
-                const bool untaken = !((taken[r] >> j) & 1u);
-                if (untaken && (s[r][j] > bv || (s[r][j] == bv && gj < bc))) {
-                    bv = s[r][j];
-                    bc = gj;
-                }
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1) {
-                const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-                const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-                if (ov > bv || (ov == bv && oc < bc)) {
-                    bv = ov;
-                    bc = oc;
-                }
-            }
-            const int local = bc - col0;
-            if (local % 16 == tx) taken[r] |= 1u << (local / 16);
-            if (tx == t) {
-                keep_v[r] = bv;
-                keep_c[r] = bc;
-            }
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-        const int gi = row0 + ty + 16 * r;
-        if (gi < n && tx < k) {
-            const long long o = ((long long)gi * n_ct + col_tile) * k + tx;
-            vals[o] = keep_v[r];
-            cols[o] = keep_c[r];
-        }
-    }
+// WIDE: the instance with the f64 fold, for a factor whose row sums do
+// not bound every M below 2^31 (u8_tile.cuh); it takes the registers of
+// one block an SM, the common instance leaves room for two.
+template <bool WIDE>
+__global__ void __launch_bounds__(u8::THREADS, WIDE ? 1 : 2)
+topk_twopass_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const float* __restrict__ d, int n, int v_pad, int k,
+                    int mask_self, const StripeGrid g,
+                    float* __restrict__ vals, int* __restrict__ cols) {
+    // the self column of a row is the row itself (self_ids == nullptr)
+    const Ctx ctx{d, nullptr, n, n, 0, mask_self != 0};
+    stripe_topk<WIDE>(&map_a, &map_b, d, n, ctx, g, v_pad, k, vals, cols);
 }
 
 }  // namespace pathsim
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched). The
-// caller guarantees n >= 1, 1 <= k <= 16 and buffers of
-// n * ceil(n / BN) * k elements for vals and cols.
-extern "C" int pathsim_topk_candidates(const float* c, const float* d,
-                                       int n, int v, int k, int mask_self,
-                                       float* vals, int* cols,
-                                       void* stream) {
+// Launch on `stream`; returns 0, a CUDA error, or a tensor-map error
+// (u8_tile.cuh). The caller guarantees n >= 1, 1 <= k <= 16,
+// stripe_tiles >= 1, limb planes [n_planes, n, v_pad] u8 (v_pad a
+// multiple of 32; rows v_pad bytes apart, planes plane_stride apart),
+// rb_max (each block's largest entry) and order over the ceil(n / 128)
+// row blocks, sub_max (each subtile's largest entry) over the
+// ceil(n / 64) subtiles, d_min over the ceil(n / 128) * 2 subtiles the
+// kernel walks (each one's least denominator, 0 past n), wide (0 only
+// when every M of the factor is known below 2^31: cuda_kernels' largest
+// row sum times largest entry), and buffers of n * n_stripes * k
+// elements for vals and cols, n_stripes = ceil(ceil(n / 128) /
+// stripe_tiles).
+extern "C" int pathsim_topk_twopass(const void* planes, int n_planes,
+                                    long long plane_stride, int v_pad,
+                                    const float* d, int n, int k,
+                                    int mask_self, int stripe_tiles,
+                                    const int* rb_max, const int* order,
+                                    const int* sub_max, const float* d_min,
+                                    int wide, float* vals, int* cols,
+                                    void* stream) {
     using namespace pathsim;
-    const int n_ct = (n + BN - 1) / BN;
-    const dim3 grid(n_ct, (n + BM - 1) / BM);
-    topk_candidates_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        c, d, n, v, k, mask_self, n_ct, vals, cols);
+    CUtensorMap map_a, map_b;
+    int rc = pathsim_limb_map(&map_a, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BM);
+    if (rc == 0)
+        rc = pathsim_limb_map(&map_b, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BN);
+    if (rc != 0) return rc;
+    long long units;
+    const StripeGrid g = pathsim_stripe_grid(n, n, stripe_tiles, rb_max,
+                                             order, sub_max, d_min, &units);
+    const auto kernel =
+        wide ? topk_twopass_kernel<true> : topk_twopass_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STRIPE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)units, u8::THREADS, STRIPE_SMEM,
+             (cudaStream_t)stream>>>(map_a, map_b, d, n, v_pad, k,
+                                     mask_self, g, vals, cols);
     return (int)cudaGetLastError();
 }

@@ -7,10 +7,11 @@ normalization ``S = 2M / (d_i + d_j)`` (reference semantics, SURVEY.md
 compute tiles of S in registers so M never reaches device memory:
 
 - **K1** ``topk_twopass_candidates`` (``csrc/topk_twopass.cu``) replaces
-  the Pallas ``_topk2_kernel`` / ``_topk2_kernel_kt``: each score tile's
-  per-row top-k goes to a candidate buffer ``[N, n_col_tiles, k]``, and
-  :func:`fused_topk_twopass` reduces it with
-  :func:`..ops.sparse.chunked_row_topk` (pass 2, torch ops).
+  the Pallas ``_topk2_kernel`` / ``_topk2_kernel_kt``: each row's top-k
+  per stripe of columns (:func:`twopass_stripe_tiles`) goes to a
+  candidate buffer ``[N, n_stripes, k]``, and :func:`fused_topk_twopass`
+  reduces it with :func:`..ops.sparse.chunked_row_topk` (pass 2, torch
+  ops).
 - **K2** ``fused_scores`` (``csrc/fused_scores.cu``) replaces
   ``_scores_kernel`` / ``_scores_kernel_kt``: the whole score matrix.
 - **K3** ``topk_rect_candidates`` (``csrc/topk_rect.cu``) replaces
@@ -26,9 +27,10 @@ compute tiles of S in registers so M never reaches device memory:
 Exactness contract — zero tolerance against the plain versions: path
 counts are integers below 2²⁴, so every f32 sum is exact in any order,
 and the one division is correctly rounded (the kernels are built without
-fast math and with ``-prec-div=true``). K1 and K2 compute M on the
-CUDA cores in f32. K3 and K4 compute it on the integer tensor cores,
-exact by construction: :func:`split_limbs` splits the factor into u8
+fast math and with ``-prec-div=true``). All four kernels compute M on
+the integer tensor cores, exact by construction (past 2²⁴, with
+``--approx``, M is the correctly rounded exact count): :func:`split_limbs`
+splits the factor into u8
 limbs (raising for anything but integers in ``[0, 2²⁴)``), the u8 × u8
 products and their s32 sums are integer arithmetic, folded into f64
 before they could overflow, and M is converted to f32 once, correctly
@@ -63,10 +65,10 @@ import torch
 
 from . import sparse
 
-# Tile edge of K1 and K2 (csrc/tile_gemm.cuh BM = BN), of K3's and K4's
-# row blocks, and the unit of K3's stripes.
+# Rows of the kernels' row blocks (csrc/u8_tile.cuh BM), and the unit of
+# K1's and K3's column stripes.
 TILE = 128
-# Columns of K3's and K4's subtiles (csrc/u8_tile.cuh BN, wgmma's N).
+# Columns of the kernels' subtiles (csrc/u8_tile.cuh BN, wgmma's N).
 SUBTILE = 64
 # The limb planes' width is padded to a multiple of this many bytes
 # (wgmma's u8 depth).
@@ -77,12 +79,20 @@ FOLD_V = 8192
 # Largest k whose lists K4 keeps in shared memory (csrc/topk_fold.cu
 # SMEM_K_MAX); past it they live in the output.
 FOLD_SMEM_K_MAX = 137
-# Two-pass top-k bound: k rounds of extraction per tile (K1), one list
-# slot per lane of a half-warp (K3). k > CAND_MAX is the single-pass fold
-# kernel's job (K4).
+# Two-pass top-k bound: a row's list has at most this many slots in
+# shared memory (K1, K3; csrc/topk_list.cuh CAND_K_MAX). k > CAND_MAX is
+# the single-pass fold kernel's job (K4).
 CAND_MAX = 16
-# Grid rows are blockIdx.y (at most 65535 row tiles).
-_MAX_ROWS = 65535 * TILE
+# Column tiles of K1's widest stripe (16384 columns): each row's top-k
+# per stripe goes to the candidate buffer. A row's list restarts per
+# stripe, and a stripe's first subtile is scored in full while the list
+# fills, so wider stripes cost K1 less selection (on an H100 at the bench
+# shape 32768 x 384, k = 10: 6.5 ms at 1024 columns, 4.2 at 8192, 3.8 at
+# 16384; PERF.md), while the buffer, and pass 2's input, is N · ceil(N /
+# stripe) · k candidates, whose budget (twopass_fits) is where the dense
+# rank-all leaves K1 for K3 (about 1.47M authors at k = 10). Narrower
+# stripes serve small N (twopass_stripe_tiles).
+TWOPASS_STRIPE_TILES = 128
 # (row block, stripe) units K3's grid aims for when it sets its stripe
 # width (rect_stripe_tiles): about two per block slot of an H100 (132
 # SMs, two blocks each), which the card's in-order block dispatch still
@@ -107,12 +117,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNELS = {
     "topk_twopass_candidates": (
-        "topk_twopass.cu", "pathsim_topk_candidates",
-        [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "topk_twopass.cu", "pathsim_topk_twopass",
+        [_P, _I, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     ),
     "fused_scores": (
         "fused_scores.cu", "pathsim_fused_scores",
-        [_P, _P, _I, _I, _P, _P],
+        [_P, _I, _L, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P],
     ),
     "topk_rect_candidates": (
         "topk_rect.cu", "pathsim_topk_rect",
@@ -278,38 +288,48 @@ def _check_kernel_input(c: torch.Tensor, d: torch.Tensor) -> None:
     if not (c.is_contiguous() and d.is_contiguous()):
         raise ValueError("the CUDA kernels take contiguous tensors")
     n, v = c.shape
-    if n > _MAX_ROWS or v >= 2**31:
+    if n >= 2**31 - TILE or v >= 2**31:
         raise ValueError(f"factor {n}x{v} exceeds the kernels' grid limits")
 
 
-# -- u8 limbs (K3 and K4) ----------------------------------------------------
+# -- u8 limbs --------------------------------------------------------------
 
 
 class Limbs(NamedTuple):
-    """A factor split into u8 limbs, c = l0 + 256·l1 + 65536·l2, as K3 and
-    K4 read it: ``planes`` u8 [L, n, v_pad] (L the most limbs any entry
+    """A factor split into u8 limbs, c = l0 + 256·l1 + 65536·l2, as the
+    kernels read it: ``planes`` u8 [L, n, v_pad] (L the most limbs any entry
     needs, v_pad a multiple of :data:`LIMB_ALIGN`, zero padded; a slice
     of rows may leave the planes apart by more than n · v_pad),
     ``counts`` u8 [n] (the limbs each row needs, at least 1), ``rmax``
     int32 [n] (each row's largest entry), ``sub`` int32 [ceil(n /
     SUBTILE)] (the largest entry of each 64-row tile: the kernels'
-    column subtiles), and on the host ``host_rsum`` / ``host_rmax``
-    (each row's sum and largest entry, int64 numpy) to pick a launch's
-    kernel instance without waiting for the card (:func:`_needs_wide`)."""
+    column subtiles), ``blocks`` and ``order`` int32 [ceil(n / TILE)]
+    (each row block's largest entry, and the blocks' launch order, most
+    limbs first: :func:`_row_blocks`), and on the host ``host_rsum`` /
+    ``host_rmax`` (each row's sum and largest entry, int64 numpy) to pick
+    a launch's kernel instance without waiting for the card
+    (:func:`_needs_wide`). Everything a launch reads besides the planes
+    is made here, once, so a call on a split factor launches at once."""
 
     planes: torch.Tensor
     counts: torch.Tensor
     rmax: torch.Tensor
     sub: torch.Tensor
+    blocks: torch.Tensor
+    order: torch.Tensor
     host_rsum: np.ndarray
     host_rmax: np.ndarray
 
+    @classmethod
+    def of(cls, planes, counts, rmax, host_rsum, host_rmax) -> "Limbs":
+        return cls(planes, counts, rmax, _tile_max(rmax, SUBTILE),
+                   *_row_blocks(rmax), host_rsum, host_rmax)
+
     def rows(self, r0: int, r1: int) -> "Limbs":
         """The limbs of rows r0 .. r1-1, sharing the planes' memory."""
-        rmax = self.rmax[r0:r1]
-        return Limbs(self.planes[:, r0:r1], self.counts[r0:r1], rmax,
-                     _tile_max(rmax, SUBTILE), self.host_rsum[r0:r1],
-                     self.host_rmax[r0:r1])
+        return Limbs.of(self.planes[:, r0:r1], self.counts[r0:r1],
+                        self.rmax[r0:r1], self.host_rsum[r0:r1],
+                        self.host_rmax[r0:r1])
 
 
 def _tile_max(values: torch.Tensor, rows: int) -> torch.Tensor:
@@ -320,8 +340,8 @@ def _tile_max(values: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def split_limbs(c: torch.Tensor) -> Limbs:
-    """Split a factor of integer path counts into the u8 limb planes K3
-    and K4 multiply on the tensor cores (:class:`Limbs`). Raises
+    """Split a factor of integer path counts into the u8 limb planes the
+    kernels multiply on the tensor cores (:class:`Limbs`). Raises
     ValueError unless every entry is an integer in [0, 2²⁴): NaN, ±inf,
     negatives, fractions and anything from 2²⁴ up (an f32 holds every
     integer below it, and three limbs do)."""
@@ -345,9 +365,9 @@ def split_limbs(c: torch.Tensor) -> Limbs:
                          device=c.device)
     for p in range(n_planes):
         planes[p, :, :v] = ((ci >> (8 * p)) & 255).to(torch.uint8)
-    return Limbs(planes, counts, row_max, _tile_max(row_max, SUBTILE),
-                 ci.sum(1, dtype=torch.int64).cpu().numpy(),
-                 row_max.long().cpu().numpy())
+    return Limbs.of(planes, counts, row_max,
+                    ci.sum(1, dtype=torch.int64).cpu().numpy(),
+                    row_max.long().cpu().numpy())
 
 
 def limb_product_plain(rows: Limbs, cols: Limbs) -> torch.Tensor:
@@ -385,10 +405,11 @@ def _needs_wide(rows: Limbs, cols: Limbs) -> bool:
     return min(a, b) >= 2**31
 
 
-def _row_blocks(limbs: Limbs):
-    """Per TILE-row block: its largest entry (int32), and the launch
-    order of the blocks, those with the most limbs first (stable)."""
-    rb = _tile_max(limbs.rmax, TILE)
+def _row_blocks(rmax: torch.Tensor):
+    """Per TILE-row block of rows whose largest entries are ``rmax``: its
+    largest entry (int32), and the launch order of the blocks, those with
+    the most limbs first (stable)."""
+    rb = _tile_max(rmax, TILE)
     n_limbs = 1 + (rb >= 256).int() + (rb >= 65536).int()
     order = torch.sort(-n_limbs, stable=True).indices.to(torch.int32)
     return rb, order.contiguous()
@@ -412,7 +433,9 @@ def _check_limbs(limbs: Limbs, n: int, v: int, device) -> None:
             or limbs.counts.shape != (n,) or limbs.rmax.shape != (n,)
             or len(limbs.host_rsum) != n or len(limbs.host_rmax) != n
             or limbs.sub.shape != (-(-n // SUBTILE),)
-            or limbs.sub.dtype != torch.int32):
+            or limbs.sub.dtype != torch.int32
+            or limbs.blocks.shape != (-(-n // TILE),)
+            or limbs.order.shape != (-(-n // TILE),)):
         raise ValueError(
             f"limbs {tuple(planes.shape)} do not match a {n}x{v} factor"
         )
@@ -448,22 +471,34 @@ def fused_topk_twopass_plain(c: torch.Tensor, d: torch.Tensor, k: int = 10,
     return v[:, :k], p[:, :k]
 
 
+def _stripe_topk(s: torch.Tensor, k: int, stripe_tiles: int):
+    """Each row's top-k of ``s`` [T, N] inside every stripe of
+    ``stripe_tiles * TILE`` columns (columns past N at -inf, each with its
+    own id; ties to the lowest column): values f32 and global columns
+    int32, [T, n_stripes, k]. The two-pass kernels' candidate layout."""
+    t, n = s.shape
+    width = stripe_tiles * TILE
+    n_st = _rect_n_stripes(n, stripe_tiles)
+    s = torch.nn.functional.pad(s, (0, n_st * width - n), value=float("-inf"))
+    v, p = torch.sort(s.view(t, n_st, width), dim=2, descending=True,
+                      stable=True)
+    base = torch.arange(n_st, device=s.device).view(1, n_st, 1) * width
+    return v[..., :k].contiguous(), (p[..., :k] + base).to(torch.int32)
+
+
 def topk_twopass_candidates_plain(c: torch.Tensor, d: torch.Tensor, k: int,
-                                  mask_self: bool):
+                                  mask_self: bool,
+                                  stripe_tiles: int | None = None):
     """K1's own output in plain torch: each row's top-k inside every
-    TILE-wide column tile (columns past N at -inf; ties to the lowest
-    column), values f32 and global columns int32, [N, n_col_tiles, k]."""
+    stripe of ``stripe_tiles * TILE`` columns (default
+    :func:`twopass_stripe_tiles`; self pairs at -inf when ``mask_self``),
+    [N, n_stripes, k] (:func:`_stripe_topk`)."""
     _check_factor(c, d)
-    n = c.shape[0]
-    n_ct = -(-n // TILE)
     s = _scores_plain(c, d)
     if mask_self:
         s.fill_diagonal_(float("-inf"))
-    s = torch.nn.functional.pad(s, (0, n_ct * TILE - n), value=float("-inf"))
-    v, p = torch.sort(s.view(n, n_ct, TILE), dim=2, descending=True,
-                      stable=True)
-    base = torch.arange(n_ct, device=c.device).view(1, n_ct, 1) * TILE
-    return v[..., :k].contiguous(), (p[..., :k] + base).to(torch.int32)
+    n = c.shape[0]
+    return _stripe_topk(s, k, stripe_tiles or twopass_stripe_tiles(n))
 
 
 def _sorted_topk(s: torch.Tensor, k: int):
@@ -538,14 +573,8 @@ def topk_rect_candidates_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
     n_true = n if n_true_cols is None else int(n_true_cols)
     if stripe_tiles is None:
         stripe_tiles = rect_stripe_tiles(t, n)
-    width = stripe_tiles * TILE
-    n_st = _rect_n_stripes(n, stripe_tiles)
     s = _rect_scores_masked(c_rows, c_cols, d_rows, d_cols, row_ids, n_true)
-    s = torch.nn.functional.pad(s, (0, n_st * width - n), value=float("-inf"))
-    v, p = torch.sort(s.view(t, n_st, width), dim=2, descending=True,
-                      stable=True)
-    base = torch.arange(n_st, device=s.device).view(1, n_st, 1) * width
-    return v[..., :k].contiguous(), (p[..., :k] + base).to(torch.int32)
+    return _stripe_topk(s, k, stripe_tiles)
 
 
 def fused_topk_twopass_rect_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
@@ -575,54 +604,86 @@ def fused_topk_twopass_rect_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
 # -- kernel wrappers ----------------------------------------------------------
 
 
+def _square_limbs(c: torch.Tensor, limbs: Limbs | None):
+    """What a square kernel (K1, K2, K4) launches with: the factor's limbs
+    (``limbs``, else split here, raising ValueError for entries that are
+    not integers in [0, 2²⁴)), and whether the launch takes the instance
+    with the f64 fold (:func:`_needs_wide`)."""
+    lim = split_limbs(c) if limbs is None else limbs
+    _check_limbs(lim, c.shape[0], c.shape[1], c.device)
+    return lim, int(_needs_wide(lim, lim))
+
+
 def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
-                            mask_self: bool):
-    """Launch K1: per-row, per-column-tile top-k candidates, values f32
-    and global columns int32, each [N, ceil(N / TILE), k]."""
+                            mask_self: bool, limbs: Limbs | None = None,
+                            stripe_tiles: int | None = None):
+    """Launch K1: each row's top-k per stripe of ``stripe_tiles * TILE``
+    columns (default :func:`twopass_stripe_tiles`), values f32 and global
+    columns int32, each [N, n_stripes, k]. ``limbs``: the factor already
+    split (:func:`split_limbs`); otherwise it is split here, raising
+    ValueError for entries that are not integers in [0, 2²⁴)."""
     _check_factor(c, d)
     _check_kernel_input(c, d)
     if not 1 <= k <= CAND_MAX:
         raise ValueError(f"topk_twopass_candidates needs 1 <= k <= {CAND_MAX}")
-    n, v = c.shape
-    n_ct = -(-n // TILE)
-    vals = torch.empty((n, n_ct, k), dtype=torch.float32, device=c.device)
-    cols = torch.empty((n, n_ct, k), dtype=torch.int32, device=c.device)
+    n = c.shape[0]
+    if stripe_tiles is None:
+        stripe_tiles = twopass_stripe_tiles(n)
+    if stripe_tiles < 1:
+        raise ValueError("stripe_tiles must be >= 1")
+    n_st = _rect_n_stripes(n, stripe_tiles)
+    vals = torch.empty((n, n_st, k), dtype=torch.float32, device=c.device)
+    cols = torch.empty((n, n_st, k), dtype=torch.int32, device=c.device)
     if n:
-        _launch(
-            "topk_twopass_candidates", c.device, c.data_ptr(), d.data_ptr(),
-            n, v, k,
-            int(mask_self), vals.data_ptr(), cols.data_ptr(),
-        )
+        lim, wide = _square_limbs(c, limbs)
+        d_min = _subtile_min(d, 2 * -(-n // TILE))
+        _launch("topk_twopass_candidates", c.device, lim.planes.data_ptr(),
+                lim.planes.shape[0], lim.planes.stride(0),
+                lim.planes.shape[2], d.data_ptr(), n, k, int(mask_self),
+                stripe_tiles, lim.blocks.data_ptr(), lim.order.data_ptr(),
+                lim.sub.data_ptr(), d_min.data_ptr(), wide,
+                vals.data_ptr(), cols.data_ptr())
     return vals, cols
 
 
 def fused_topk_twopass(c: torch.Tensor, d: torch.Tensor, k: int = 10,
-                       mask_self: bool = True):
+                       mask_self: bool = True, limbs: Limbs | None = None):
     """Exact per-row top-k of the score matrix, never materialized on
-    the card: K1 writes tile candidates, pass 2 (stable sorts) reduces
-    them. Returns (values f32 [N, k], columns int64 [N, k])."""
+    the card: K1 writes stripe candidates, pass 2 (stable sorts) reduces
+    them. Returns (values f32 [N, k], columns int64 [N, k]).
+    ``limbs``: as for :func:`topk_twopass_candidates` (unused on the
+    CPU)."""
     _check_factor(c, d)
     if k > CAND_MAX:
         raise ValueError(f"fused_topk_twopass supports k <= {CAND_MAX}")
     if _device_kind(c) == "cpu":
         return fused_topk_twopass_plain(c, d, k=k, mask_self=mask_self)
-    vals, cols = topk_twopass_candidates(c, d, k, mask_self)
+    vals, cols = topk_twopass_candidates(c, d, k, mask_self, limbs=limbs)
     n = c.shape[0]
     fv, fc = sparse.chunked_row_topk(vals.view(n, -1), cols.view(n, -1), k)
     return fv, fc.long()
 
 
-def fused_scores(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """All-pairs scores S [N, N] f32 (K2 on the card)."""
+def fused_scores(c: torch.Tensor, d: torch.Tensor,
+                 limbs: Limbs | None = None) -> torch.Tensor:
+    """All-pairs scores S [N, N] f32 (K2 on the card). ``limbs``: the
+    factor already split (:func:`split_limbs`); otherwise it is split
+    here, raising ValueError for entries that are not integers in
+    [0, 2²⁴). Unused on the CPU."""
     _check_factor(c, d)
     if _device_kind(c) == "cpu":
         return fused_scores_plain(c, d)
     _check_kernel_input(c, d)
-    n, v = c.shape
+    n = c.shape[0]
     out = torch.empty((n, n), dtype=torch.float32, device=c.device)
     if n:
-        _launch("fused_scores", c.device, c.data_ptr(), d.data_ptr(), n, v,
-                out.data_ptr())
+        lim, wide = _square_limbs(c, limbs)
+        _launch("fused_scores", c.device, lim.planes.data_ptr(),
+                lim.planes.shape[0], lim.planes.stride(0),
+                lim.planes.shape[2], d.data_ptr(), n,
+                rect_stripe_tiles(n, n), lim.blocks.data_ptr(),
+                lim.order.data_ptr(),
+                lim.sub.data_ptr(), wide, out.data_ptr())
     return out
 
 
@@ -663,7 +724,6 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
         _check_limbs(lc, n, v, c_rows.device)
         if lr.planes.shape[2] != lc.planes.shape[2]:
             raise ValueError("row and column limbs differ in width")
-        rb, order = _row_blocks(lr)
         d_min = _subtile_min(d_cols, 2 * -(-n // TILE))
         _launch(
             "topk_rect_candidates", c_rows.device,
@@ -671,7 +731,7 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
             d_rows.data_ptr(), row_ids.data_ptr(), t,
             lc.planes.data_ptr(), lc.planes.shape[0], lc.planes.stride(0),
             d_cols.data_ptr(), n, n_true, lr.planes.shape[2], k,
-            stripe_tiles, rb.data_ptr(), order.data_ptr(),
+            stripe_tiles, lr.blocks.data_ptr(), lr.order.data_ptr(),
             lc.sub.data_ptr(), d_min.data_ptr(), int(_needs_wide(lr, lc)),
             vals.data_ptr(), cols.data_ptr(),
         )
@@ -716,7 +776,7 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
     if _device_kind(c) == "cpu":
         return fused_topk_plain(c, d, k=k, mask_self=mask_self)
     _check_kernel_input(c, d)
-    n, v = c.shape
+    n = c.shape[0]
     if max(n, k) >= 2**31 - TILE or n * k >= 2**31:
         raise ValueError(f"fused_topk with n={n}, k={k} exceeds the "
                          "kernel's int32 column range")
@@ -725,25 +785,32 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
     vals = buf[:n * k].view(torch.float32).view(n, k)
     idxs = buf[n * k:].view(n, k)
     if n:
-        lim = split_limbs(c) if limbs is None else limbs
-        _check_limbs(lim, n, v, c.device)
-        rb, order = _row_blocks(lim)
+        lim, wide = _square_limbs(c, limbs)
         d_min = _subtile_min(d, 2 * -(-max(n, k) // TILE))
         _launch("topk_fold", c.device, lim.planes.data_ptr(),
                 lim.planes.shape[0], lim.planes.stride(0),
                 lim.planes.shape[2], d.data_ptr(), n, k, int(mask_self),
-                rb.data_ptr(), order.data_ptr(), lim.sub.data_ptr(),
-                d_min.data_ptr(), int(_needs_wide(lim, lim)),
-                vals.data_ptr(), idxs.data_ptr())
+                lim.blocks.data_ptr(), lim.order.data_ptr(),
+                lim.sub.data_ptr(), d_min.data_ptr(), wide, vals.data_ptr(),
+                idxs.data_ptr())
     return vals, idxs.long()
 
 
 # -- budgets ----------------------------------------------------------------
 
 
+def twopass_stripe_tiles(n: int) -> int:
+    """Column tiles per K1 stripe for an N-row factor:
+    :data:`TWOPASS_STRIPE_TILES`, or fewer where that would leave fewer
+    than about :data:`RECT_TARGET_UNITS` (row block, stripe) units to
+    fill the card (below ~64k rows: :func:`rect_stripe_tiles`)."""
+    return min(TWOPASS_STRIPE_TILES, rect_stripe_tiles(n, n))
+
+
 def candidate_bytes(n: int, k: int) -> int:
-    """K1's candidate buffer: N · ceil(N / TILE) · k · (4 + 4) bytes."""
-    return n * (-(-n // TILE)) * k * 8
+    """K1's candidate buffer: N · n_stripes · k · (4 + 4) bytes, stripes
+    of :func:`twopass_stripe_tiles` column tiles."""
+    return n * _rect_n_stripes(n, twopass_stripe_tiles(n)) * k * 8
 
 
 def candidate_budget_bytes(device) -> int:
@@ -805,13 +872,23 @@ def rect_fits(n_cols: int, tile_rows: int, k: int, device) -> bool:
             <= candidate_budget_bytes(device))
 
 
-def rect_pad_factor(c: torch.Tensor, d: torch.Tensor):
+def kernel_limbs(c: torch.Tensor) -> Limbs | None:
+    """The factor's limbs where a kernel will read them: split once
+    (:func:`split_limbs`) for a CUDA factor, None on the CPU, where the
+    plain versions take any f32. A backend keeps them beside its factor
+    and hands them to every launch, so no call pays the split."""
+    return split_limbs(c) if c.device.type == "cuda" else None
+
+
+def rect_pad_factor(c: torch.Tensor, d: torch.Tensor,
+                    limbs: Limbs | None = None):
     """The factor and denominators as K3 takes them, made once per pass
     so that no row-tile launch splits them again: contiguous float32,
-    and on the card the factor's u8 limbs (:func:`split_limbs`; a row
-    tile's are ``limbs.rows(i0, i1)``), None on the CPU, where the plain
-    version takes any f32. Unlike the TPU kernel's, K3 masks its ragged
-    edges itself, so nothing is padded."""
+    and the factor's limbs (``limbs`` when the caller has split the
+    factor already, else :func:`kernel_limbs`; a row tile's are
+    ``limbs.rows(i0, i1)``). Unlike the TPU kernel's, K3 masks its
+    ragged edges itself, so nothing is padded."""
     cc = c.to(torch.float32).contiguous()
-    limbs = split_limbs(cc) if cc.device.type == "cuda" else None
+    if limbs is None:
+        limbs = kernel_limbs(cc)
     return cc, d.to(torch.float32).contiguous(), limbs

@@ -1,8 +1,10 @@
-"""K3 and K4 on the int8 tensor cores, on the card, against their plain
-versions with zero tolerance: a factor with 1-, 2- and 3-limb rows
+"""The kernels on the int8 tensor cores, on the card, against their plain
+versions with zero tolerance: factors with 1-, 2- and 3-limb rows
 (narrow tile pairs summed in one s32 accumulator, and pairs folded
-through f64), K4 past the k its lists keep in shared memory, limbs split
-on the card, and a CUDA factor that is not integer path counts raising.
+through f64 in each kernel's wide instance) for all four kernels, K4
+past the k its lists keep in shared memory, limbs split on the card
+once and handed over, and a CUDA factor that is not integer path counts
+raising.
 These tests need a CUDA card (marker ``cuda``) and skip without one;
 they import only the port, so they run on a machine with no JAX:
 
@@ -30,18 +32,21 @@ def card():
     return torch.device("cuda")
 
 
-def _multilimb(device, n=700, v=96, seed=3):
+def _multilimb(device, n=700, v=96, seed=3, three_limb=3):
     """Rows of 1, 2 and 3 limbs; path counts between distinct rows below
     2^24 (a big entry's column holds at most 1 elsewhere). The 3-limb
     rows' tile pairs fail the s32 bound (65536^2 · 96 >= 2^31) and fold
-    through f64; the 2-limb ones sum in one s32 accumulator."""
+    through f64 (the kernels' wide instances); the 2-limb ones sum in
+    one s32 accumulator. ``three_limb=0`` leaves 1- and 2-limb rows
+    only, whose row sums bound every count below 2^31: the narrow
+    instances."""
     rng = np.random.default_rng(seed)
     c = rng.integers(0, 4, (n, v)).astype(np.float64)
     c[rng.random((n, v)) < 0.4] = 0
     cols = rng.choice(v, 10, replace=False)
     c[:, cols] = np.minimum(c[:, cols], 1)
     for i, (r, col) in enumerate(zip(rng.choice(n, 10, replace=False), cols)):
-        c[r, col] = 70000 + 13 * i if i < 3 else 257 + 90 * i
+        c[r, col] = 70000 + 13 * i if i < three_limb else 257 + 90 * i
     m = c @ c.T
     np.fill_diagonal(m, 0)
     assert m.max() < 2**24
@@ -70,6 +75,34 @@ def test_rect_kernel_multilimb_equals_plain(card, k, r0, t, stripe_tiles):
     assert torch.equal(cv, pv) and torch.equal(cc, pc)
 
 
+@pytest.mark.parametrize("instance", ["wide", "narrow"])
+def test_twopass_and_scores_multilimb_equal_plain(card, instance):
+    """K1 (k in 1/10/16, self masked, default and 1-tile stripes) and K2
+    on multi-limb factors, in each kernel instance. K2 also equals the
+    correctly rounded scores of the exact counts on the diagonal, where
+    a 3-limb row's own count passes 2^24."""
+    c, d = _multilimb(card, three_limb=3 if instance == "wide" else 0)
+    lim = ck.split_limbs(c)
+    assert ck._needs_wide(lim, lim) == (instance == "wide")
+    assert int(lim.counts.max()) == (3 if instance == "wide" else 2)
+    for k in (1, 10, 16):
+        for stripe_tiles in (None, 1):
+            cv, cc = ck.topk_twopass_candidates(c, d, k, True, limbs=lim,
+                                                stripe_tiles=stripe_tiles)
+            pv, pc = ck.topk_twopass_candidates_plain(
+                c, d, k, True, stripe_tiles=stripe_tiles)
+            assert torch.equal(cv, pv) and torch.equal(cc, pc)
+        fv, fc = ck.fused_topk_twopass(c, d, k=k, limbs=lim)
+        gv, gc = ck.fused_topk_twopass_plain(c, d, k=k)
+        assert torch.equal(fv, gv) and torch.equal(fc, gc)
+    got = ck.fused_scores(c, d, limbs=lim)
+    m = c.double() @ c.double().T
+    den = d[:, None] + d[None, :]
+    assert torch.equal(got, torch.where(den > 0, (2.0 * m.float()) / den, 0.0))
+    exact = m < 2**24
+    assert torch.equal(got[exact], ck.fused_scores_plain(c, d)[exact])
+
+
 @pytest.mark.parametrize("k", [20, ck.FOLD_SMEM_K_MAX + 1])
 def test_fold_kernel_multilimb_equals_plain(card, k):
     """k = 20 keeps the lists in shared memory; one past FOLD_SMEM_K_MAX
@@ -90,10 +123,11 @@ def test_fold_kernel_past_smem_limit_both_masks(card):
 
 
 def test_presplit_limbs_match(card):
-    """The split made once (rect_pad_factor, the backends' path) and a
-    row tile's slice of it give what the wrapper's own split gives."""
+    """The split made once (kernel_limbs and rect_pad_factor, the
+    backends' path) and a row tile's slice of it give what the wrappers'
+    own split gives, for every kernel."""
     c, d = _multilimb(card)
-    cc, dc, limbs = ck.rect_pad_factor(c, d)
+    cc, dc, limbs = ck.rect_pad_factor(c, d, ck.kernel_limbs(c))
     lim_cpu = ck.split_limbs(c.cpu())
     assert torch.equal(limbs.planes.cpu(), lim_cpu.planes)
     ids = torch.arange(100, 356, dtype=torch.int32, device=card)
@@ -104,15 +138,24 @@ def test_presplit_limbs_match(card):
     fv, fc = ck.fused_topk(c, d, k=12, limbs=limbs)
     gv, gc = ck.fused_topk_plain(c, d, k=12)
     assert torch.equal(fv, gv) and torch.equal(fc, gc)
+    got = ck.topk_twopass_candidates(c, d, 10, True, limbs=limbs)
+    want = ck.topk_twopass_candidates(c, d, 10, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(ck.fused_scores(c, d, limbs=limbs),
+                       ck.fused_scores(c, d))
 
 
-@pytest.mark.parametrize("bad", [0.5, -2.0, float(2**24)])
-def test_non_count_factor_raises_on_card(card, bad):
-    c = torch.ones((40, 8), device=card)
-    c[3, 2] = bad
+def test_non_count_factor_raises_on_card(card):
+    """Every kernel's split refuses a factor that is not integer path
+    counts in [0, 2^24)."""
     d = torch.ones(40, device=card)
-    with pytest.raises(ValueError):
-        ck.fused_topk(c, d, k=3)
     ids = torch.arange(40, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError):
-        ck.topk_rect_candidates(c, c, d, d, ids, 3)
+    for bad in (0.5, -2.0, float(2**24)):
+        c = torch.ones((40, 8), device=card)
+        c[3, 2] = bad
+        for call in (lambda: ck.fused_topk(c, d, k=3),
+                     lambda: ck.topk_rect_candidates(c, c, d, d, ids, 3),
+                     lambda: ck.fused_topk_twopass(c, d, k=3),
+                     lambda: ck.fused_scores(c, d)):
+            with pytest.raises(ValueError):
+                call()

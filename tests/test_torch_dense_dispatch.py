@@ -3,7 +3,8 @@
 ``jax_dense.JaxDenseBackend.topk``): K1 while its candidate buffer fits,
 then row tiles through K3 (the rect arm) with the self mask and f32,
 otherwise the single-pass K4. Mirrors tests/test_pallas.py's routing
-cases; values and indices bit for bit."""
+cases; values and indices bit for bit. The backend splits its factor
+into the kernels' u8 limbs once and hands the split to every launch."""
 
 import numpy as np
 import pytest
@@ -94,6 +95,53 @@ def test_dense_topk_above_16_routes_fold(monkeypatch, k):
     jv, ji = jcreate("jax", graphs[0], jmp, use_pallas=False).topk(k=k)
     np.testing.assert_array_equal(np.asarray(jv), tv)
     np.testing.assert_array_equal(np.asarray(ji), ti)
+
+
+def test_dense_backend_splits_once_and_hands_limbs_to_kernels(monkeypatch):
+    """The backend splits C into u8 limbs once per graph
+    (``cuda_kernels.kernel_limbs``; on the card, where the kernels read
+    them) and hands that one split to K1 (k <= 16), K4 (k > 16), K2
+    (all-pairs) and the rect arm's K3 launches (row-tile slices of it),
+    so no call pays the split again. On the CPU the split is stood in
+    by the real one so the hand-over shows; results stay the JAX
+    package's."""
+    graphs = _graphs(300, 5)
+    jmp, tmp = metapaths(graphs)
+    splits = []
+
+    def kernel_limbs(c):
+        splits.append(tuple(c.shape))
+        return ck.split_limbs(c)
+
+    monkeypatch.setattr(ck, "kernel_limbs", kernel_limbs)
+    seen = {}
+    for name in ("fused_topk_twopass", "fused_topk", "fused_scores",
+                 "fused_topk_twopass_rect"):
+        def wrapped(*a, _real=getattr(ck, name), _name=name, **kw):
+            seen.setdefault(_name, []).append(kw.get("limbs"))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(ck, name, wrapped)
+    backend = tcreate("torch", graphs[1], tmp, device="cpu")
+    tv, ti = backend.topk(k=5)
+    backend.topk(k=20)
+    backend.all_pairs_scores()
+    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device: False)
+    monkeypatch.setattr(torch_dense.TorchDenseBackend, "_RECT_TILE_ROWS", 128)
+    rv, ri = backend.topk(k=5)
+    assert splits == [(300, 24)]  # C: 300 authors x 24 venues
+    lim = seen["fused_topk_twopass"][0]
+    assert isinstance(lim, ck.Limbs)
+    assert seen["fused_topk"] == [lim] and seen["fused_scores"] == [lim]
+    tiles = seen["fused_topk_twopass_rect"]
+    assert len(tiles) == 3  # 300 rows / 128
+    for i, (rows, cols) in enumerate(tiles):
+        assert cols is lim
+        assert torch.equal(rows.planes, lim.planes[:, 128 * i:128 * (i + 1)])
+    jv, ji = jcreate("jax", graphs[0], jmp, use_pallas=False).topk(k=5)
+    for vals, idxs in ((tv, ti), (rv, ri)):
+        np.testing.assert_array_equal(np.asarray(jv), vals)
+        np.testing.assert_array_equal(np.asarray(ji), idxs)
 
 
 def test_rect_gates():

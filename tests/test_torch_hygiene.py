@@ -87,3 +87,33 @@ def test_cli_refuses_without_cuda_unless_cpu(no_cuda, gexf, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     assert torch_main(["--dataset", gexf, "--top-k", "3", "--quiet",
                        "--platform", "cpu"]) == 0
+
+
+def test_kernel_builds_key_on_every_header(tmp_path, monkeypatch):
+    """Every header a kernel source includes exists in csrc/, and a
+    kernel library's path changes when a header is edited, added or
+    removed: a stale build is never loaded."""
+    import re
+    import shutil
+
+    from distributed_pathsim_tpu_torch.ops import cuda_kernels as ck
+
+    for src in ck.CSRC.iterdir():
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (ck.CSRC / inc).exists(), (src.name, inc)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ck.CSRC, csrc)
+    monkeypatch.setattr(ck, "CSRC", csrc)
+    before = {name: ck._lib_path(name) for name in ck.KERNELS}
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    added = {name: ck._lib_path(name) for name in ck.KERNELS}
+    (csrc / "extra.cuh").unlink()
+    assert {name: ck._lib_path(name) for name in ck.KERNELS} == before
+    header = csrc / "u8_tile.cuh"
+    header.write_text(header.read_text() + "\n")
+    edited = {name: ck._lib_path(name) for name in ck.KERNELS}
+    (csrc / "topk_list.cuh").unlink()
+    gone = {name: ck._lib_path(name) for name in ck.KERNELS}
+    for name in ck.KERNELS:
+        paths = {before[name], added[name], edited[name], gone[name]}
+        assert len(paths) == 4, name

@@ -15,6 +15,7 @@ import torch
 
 from distributed_pathsim_tpu.ops import pallas_kernels as pk
 from distributed_pathsim_tpu_torch.ops import cuda_kernels as ck
+from torch_port_util import kernel_case
 
 
 def _recombine(limbs, v):
@@ -76,29 +77,11 @@ def test_emulated_product_is_exact(case):
     assert torch.equal(m, exact.double().float())
 
 
-def _multilimb_factor():
-    """1-limb rows of 0..3, and rows with one 2- or 3-limb entry each in
-    its own column, where every other row holds at most 1: path counts
-    between distinct rows stay below 2^24."""
-    rng = np.random.default_rng(5)
-    n, v = 300, 40
-    c = rng.integers(0, 4, (n, v)).astype(np.float64)
-    c[rng.random((n, v)) < 0.5] = 0
-    cols = rng.choice(v, 6, replace=False)
-    c[:, cols] = np.minimum(c[:, cols], 1)
-    for i, (r, col) in enumerate(zip(rng.choice(n, 6, replace=False), cols)):
-        c[r, col] = 65536 + 31 * i if i < 2 else 300 + 100 * i
-    m = c @ c.T
-    np.fill_diagonal(m, 0)
-    assert m.max() < 2**24
-    return c.astype(np.float32), (c @ c.sum(0)).astype(np.float32)
-
-
 def test_emulated_selection_matches_pallas():
     """K4's and K3's functions from the emulated M: equal to the Pallas
     kernels in interpret mode (self pairs masked: a 3-limb row's own
     count is past 2^24)."""
-    c, d = _multilimb_factor()
+    c, d = kernel_case("multilimb")
     limbs = ck.split_limbs(torch.from_numpy(c))
     assert sorted(set(limbs.counts.tolist())) == [1, 2, 3]
     m = ck.limb_product_plain(limbs, limbs)

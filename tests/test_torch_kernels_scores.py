@@ -1,8 +1,11 @@
-"""Port parity of the fused scores kernel's plain version against the
-Pallas scores kernels (plain and K-tiled) in interpret mode, bit for
-bit; and the wrappers' contract on the CPU: the plain version runs for
-CPU tensors, nothing is counted as a launch, inputs are checked, and the
-candidate budget is what the two-pass top-k plans with."""
+"""Port parity of the fused scores kernel (K2) against the Pallas scores
+kernels (plain and K-tiled) in interpret mode, bit for bit: its plain
+version, and its arithmetic on the int8 tensor cores (the u8 limb
+product ``cuda_kernels.limb_product_plain`` followed by the normalize),
+on narrow, wide and multi-limb factors; and the wrappers' contract on
+the CPU: the plain version runs for CPU tensors, nothing is counted as a
+launch, inputs are checked, and the candidate budget is what the
+two-pass top-k plans with."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,15 @@ def ties():
     return kernel_case("ties")
 
 
+def _limb_scores(tc, td):
+    """K2's arithmetic in torch: the exact u8 limb product M, one
+    correctly rounded conversion to f32, then the normalize."""
+    limbs = ck.split_limbs(tc)
+    m = ck.limb_product_plain(limbs, limbs)
+    den = td[:, None] + td[None, :]
+    return torch.where(den > 0, (2.0 * m) / den, 0.0).numpy()
+
+
 @pytest.mark.parametrize("case", ["narrow", "wide", "ties"])
 def test_scores_match_pallas(case, request):
     c, d = request.getfixturevalue(case)
@@ -39,6 +51,28 @@ def test_scores_match_pallas(case, request):
     kernel = pk.fused_scores if pk.fits_vmem(c.shape[1]) else pk.fused_scores_ktiled
     want = np.asarray(kernel(jnp.asarray(c), jnp.asarray(d), interpret=True))
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_limb_scores(tc, td), want)
+
+
+def test_limb_scores_multilimb_match_pallas():
+    """K2's arithmetic on a factor of 1-, 2- and 3-limb rows equals both
+    Pallas scores kernels off the diagonal (counts below 2^24, exact in
+    any f32 order); on the diagonal, where a 3-limb row's own count is
+    past 2^24, it is the correctly rounded exact score."""
+    c, d = kernel_case("multilimb")
+    tc, td = factor_from_arrays(c, d, "cpu")
+    assert sorted(set(ck.split_limbs(tc).counts.tolist())) == [1, 2, 3]
+    got = _limb_scores(tc, td)
+    off = ~np.eye(c.shape[0], dtype=bool)
+    for kernel in (pk.fused_scores, pk.fused_scores_ktiled):
+        want = np.asarray(kernel(jnp.asarray(c), jnp.asarray(d),
+                                 interpret=True))
+        np.testing.assert_array_equal(got[off], want[off])
+    ci = c.astype(np.int64)
+    m_ii = np.float32((ci * ci).sum(1))  # exact below 2^53, rounded once
+    assert m_ii.max() > 2**24
+    np.testing.assert_array_equal(
+        np.diag(got), np.where(d > 0, (np.float32(2) * m_ii) / (d + d), 0))
 
 
 def test_scores_ktiled_matches_on_narrow(narrow):
@@ -86,8 +120,13 @@ def test_tf32_check(monkeypatch):
 def test_candidate_budget(monkeypatch):
     """The budget is an eighth of the card's memory; the CPU's plain
     version has no candidate buffer, so every shape fits there."""
-    assert ck.candidate_bytes(32768, 10) == 32768 * 256 * 10 * 8
-    assert ck.twopass_fits(400_000, 16, "cpu")
+    # one list of k per row and stripe: 2 stripes of 128 column tiles at
+    # the bench shape; narrower stripes below ~64k rows keep the card busy
+    assert ck.twopass_stripe_tiles(32768) == ck.TWOPASS_STRIPE_TILES == 128
+    assert ck.candidate_bytes(32768, 10) == 32768 * 2 * 10 * 8
+    assert ck.twopass_stripe_tiles(8192) == 8
+    assert ck.candidate_bytes(8192, 16) == 8192 * 8 * 16 * 8
+    assert ck.twopass_fits(1_500_000, 16, "cpu")
 
     class Card:
         total_memory = 80 * 10**9
@@ -96,4 +135,5 @@ def test_candidate_budget(monkeypatch):
                         lambda device: Card)
     assert ck.candidate_budget_bytes("cuda") == 10**10
     assert ck.twopass_fits(32768, 10, "cuda")
-    assert not ck.twopass_fits(400_000, 16, "cuda")
+    assert ck.twopass_fits(1_400_000, 10, "cuda")
+    assert not ck.twopass_fits(1_500_000, 16, "cuda")

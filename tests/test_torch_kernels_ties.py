@@ -1,6 +1,6 @@
 """Port parity of the two-pass top-k on tie-heavy rows and zero-degree
 targets (tests/test_pallas.py's tie cases), and the exactness of the
-two-pass design itself: K1's plain per-tile candidates reduced by pass 2
+two-pass design itself: K1's plain per-stripe candidates reduced by pass 2
 equal the full-sort plain top-k. Zero tolerance, as in
 test_torch_kernels.py."""
 
@@ -42,14 +42,16 @@ def test_zero_degree_targets_score_zero(ties):
 @pytest.mark.parametrize("k,mask_self", [(1, True), (10, True), (16, False)])
 @pytest.mark.parametrize("case", ["narrow", "ties"])
 def test_candidates_reduce_to_plain_topk(case, k, mask_self, request):
-    """K1's own plain version (per-tile candidates, the kernel's exact
+    """K1's own plain version (per-stripe candidates, the kernel's exact
     output layout) reduced by pass 2 equals the full-sort plain top-k:
     the two-pass design is exact, ties included."""
     c, d = request.getfixturevalue(case)
     tc, td = factor_from_arrays(c, d, "cpu")
     cv, cc = ck.topk_twopass_candidates_plain(tc, td, k, mask_self)
     n = tc.shape[0]
-    assert tuple(cv.shape) == (n, -(-n // ck.TILE), k)
+    n_stripes = -(-(-(-n // ck.TILE)) // ck.twopass_stripe_tiles(n))
+    assert n_stripes > 1
+    assert tuple(cv.shape) == (n, n_stripes, k)
     assert cc.dtype == torch.int32
     fv, fc = tsp.chunked_row_topk(cv.view(n, -1), cc.view(n, -1), k)
     pv, pc = ck.fused_topk_twopass_plain(tc, td, k=k, mask_self=mask_self)

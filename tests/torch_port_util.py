@@ -101,12 +101,31 @@ def _kernel_case(case):
         c = base[rng.integers(0, 40, size=1100)].astype(np.float32)
         c[rng.integers(0, 1100, size=90)] = 0.0
         return c, (c.astype(np.float64) @ c.sum(0)).astype(np.float32)
+    if case == "multilimb":
+        # 1-limb rows of 0..3, and rows with one 2- or 3-limb entry each in
+        # its own column, where every other row holds at most 1: path
+        # counts between distinct rows stay below 2^24 (a 3-limb row's own
+        # count does not)
+        rng = np.random.default_rng(5)
+        n, v = 300, 40
+        c = rng.integers(0, 4, (n, v)).astype(np.float64)
+        c[rng.random((n, v)) < 0.5] = 0
+        cols = rng.choice(v, 6, replace=False)
+        c[:, cols] = np.minimum(c[:, cols], 1)
+        for i, (r, col) in enumerate(zip(rng.choice(n, 6, replace=False),
+                                         cols)):
+            c[r, col] = 65536 + 31 * i if i < 2 else 300 + 100 * i
+        m = c @ c.T
+        np.fill_diagonal(m, 0)
+        assert m.max() < 2**24
+        return c.astype(np.float32), (c @ c.sum(0)).astype(np.float32)
     raise KeyError(case)
 
 
 def kernel_case(case):
-    """(C, d) of one kernel parity case: ``narrow``, ``wide`` or
-    ``ties``. Built once per process; each caller gets its own copy."""
+    """(C, d) of one kernel parity case: ``narrow``, ``wide``, ``ties``
+    or ``multilimb``. Built once per process; each caller gets its own
+    copy."""
     return tuple(a.copy() for a in _kernel_case(case))
 
 
