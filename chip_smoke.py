@@ -28,7 +28,21 @@ nonzero and no result line is printed):
    (K3) byte-identical to the ``torch`` one, single source with its log's
    line count, all-pairs at 8192 authors; then the dense backend's rect
    arm (K3) at the smallest author count past K1's candidate budget;
-4. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
+4. serving on the card: a warm ``PathSimService`` over the bench graph
+   (headroom 0.25, max_batch 32) under cold, warm and mixed load from 32
+   client threads x 64 ``topk`` (k = 10), every answer equal to the host
+   f64 oracle, warm load all result-cache hits, p50/p95/p99 and QPS per
+   regime from the service's own histograms, the layers of a served
+   request from its tracer spans; one ``update`` (64 author_of edges
+   added, 16 removed, 8 authors appended) taking the delta path, the
+   patched C and row sums equal to a rebuild's, K1 (k = 10) and K4
+   (k = 20) on the patched backend and K2 on an 8192-author backend
+   patched the same way equal to rebuilt ones (each ranked before its
+   patch, so stale u8 limbs would show), affected rows against the new
+   oracle and unaffected ones still result-cache hits; 0 compiles from
+   the end of warmup to the end of the phase; ``dpathsim-torch serve
+   --platform cuda`` as a subprocess with a short JSONL script;
+5. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
    papers x 64 venues (seed 42), ``torch-sparse`` with tile_rows 8192 and
    ``--approx`` semantics, ``PathSimDriver.rank_all(k=10)`` with a
    checkpoint directory: K3 once per row tile, 3 seeded spot rows
@@ -37,15 +51,16 @@ nonzero and no result line is printed):
    arrays, rank-all seconds, author-pairs/s, layer times and busy share,
    how many (row block, column subtile) pairs needed 1, 2, 3, 4, 6 or 9
    limb products, and K3's time at tile 0 (the Zipf head) and at a
-   middle tile;
-5. times on the card (CUDA events, median of 7 after 2 warm-ups): each
+   middle tile; the same backend behind a service, 64 requests, 3 rows
+   within 1e-6 of host f64 arithmetic;
+6. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
    stripe widths, and the rank-all wall time as author-pairs/s with its
    per-layer breakdown.
 
-The kernels' launch counters are zeroed before each main-path run and
-read after it.
+The kernels' launch counters are zeroed before each main-path run (the
+serving phase's included) and read after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -83,6 +98,15 @@ C5_SPOT_SEED, C5_SPOT_ROWS, C5_ATOL = 7, 3, 1e-6
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# The serving phase: the bench graph with serve's default capacity
+# headroom, 32 client threads x 64 topk requests per load regime; one
+# update of 64 author_of edges added, 16 removed and 8 authors appended;
+# 64 requests against the config 5 backend.
+SERVE_HEADROOM, SERVE_MAX_BATCH = 0.25, 32
+SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 64
+UPDATE_ADDS, UPDATE_REMOVES, UPDATE_APPENDS = 64, 16, 8
+C5_SERVE_REQUESTS = 64
 
 REPS, WARMUP = 7, 2
 # K1's stripe widths timed beside the default (column tiles of 128).
@@ -850,6 +874,8 @@ def config5(torch, ck, np, launches, workdir, card):
                                    err_msg=f"config 5 spot row {r} columns")
     print(f"config 5 spot rows {spot}: within {C5_ATOL} of host f64 "
           "arithmetic from the COO factor (values and chosen columns)")
+    serve_config5(np, backend, c64, d64, card)
+    del c64, d64
 
     # K3 against its plain version on one 1024-row tile at full N. The
     # counts pass 2^24 here, so sums in another order round differently:
@@ -992,6 +1018,457 @@ def config5(torch, ck, np, launches, workdir, card):
             "c5_err": c5_err}
 
 
+# -- serving on the card ------------------------------------------------------
+
+
+def f64_topk(np, hin, mp):
+    """The host f64 oracle of a served graph: exact counts from its COO
+    factor (f64 on the host), denominators from them, the repo's f64
+    normalize and (descending score, ascending column) top-k. Returns
+    ``topk(rows, k) -> (values, indices)`` and the f64 factor."""
+    from distributed_pathsim_tpu_torch.ops import pathsim, planner
+
+    coo = planner.fold_half(hin, mp).summed()
+    n = hin.type_size(mp.source_type)
+    c64 = np.zeros(coo.shape, dtype=np.float64)
+    np.add.at(c64, (coo.rows, coo.cols), coo.weights)
+    c64 = c64[:n]  # capacity rows hold no edges
+    d64 = c64 @ c64.sum(0)
+
+    def topk(rows, k):
+        rows = np.asarray(rows, dtype=np.int64)
+        vals, idxs = [], []
+        for q in range(0, rows.shape[0], 256):
+            r = rows[q:q + 256]
+            s = pathsim.score_rows(c64[r] @ c64.T, d64[r], d64, xp=np)
+            s[np.arange(r.shape[0]), r] = -np.inf
+            v, i = pathsim.topk_from_score_rows(s, min(k, n - 1))
+            vals.append(v)
+            idxs.append(i)
+        return np.concatenate(vals), np.concatenate(idxs)
+
+    return topk, c64
+
+
+def check_served(np, answers, rows, oracle, k, label):
+    """Every served (values, indices) equals the oracle's, bit for bit."""
+    rows = np.asarray(rows, dtype=np.int64)
+    uniq, inv = np.unique(rows, return_inverse=True)
+    ov, oi = oracle(uniq, k)
+    for j, (v, i) in enumerate(answers):
+        u = inv[j]
+        if not (np.array_equal(v, ov[u]) and np.array_equal(i, oi[u])):
+            raise AssertionError(f"{label}: row {rows[j]} differs from the "
+                                 "f64 oracle")
+    print(f"{label}: {len(answers)} answers ({uniq.shape[0]} distinct rows) "
+          "bit-identical to the host f64 oracle")
+
+
+def run_clients(svc, rows_by_client, k):
+    """Each client thread sends its rows one ``topk`` at a time; returns
+    the answers in client order and the wall time."""
+    import threading
+
+    results = [[None] * len(r) for r in rows_by_client]
+    errors = []
+
+    def client(c):
+        try:
+            for j, r in enumerate(rows_by_client[c]):
+                results[c][j] = svc.topk_index(int(r), k)
+        except Exception as exc:  # surfaced below, the phase fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(rows_by_client))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load clients failed: {errors[:1]}")
+    return [a for per in results for a in per], wall
+
+
+def regime_latencies(svc, n_requests, wall, label, card):
+    """p50/p95/p99 per outcome from the service's own histograms (reset
+    before the regime) and the regime's requests/s."""
+    parts = []
+    for outcome, cell in svc._m_latency.items():
+        if cell.count:
+            parts.append(
+                f"{outcome} n={cell.count} p50 {cell.quantile(0.5) * 1e3:.3f}"
+                f" p95 {cell.quantile(0.95) * 1e3:.3f} p99 "
+                f"{cell.quantile(0.99) * 1e3:.3f} ms")
+        cell.reset()
+    print(f"{label}: {n_requests} requests in {wall:.3f} s -> "
+          f"{n_requests / wall:.1f} QPS; " + "; ".join(parts)
+          + f" ({card})")
+
+
+def update_records(np, hin, rng, tag):
+    """The update op's records: UPDATE_APPENDS authors appended, each
+    wired to 4 papers, UPDATE_ADDS new author_of edges in all (the rest
+    between existing authors and papers), UPDATE_REMOVES existing ones
+    removed."""
+    blk = hin.blocks["author_of"]
+    a_ids = hin.indices["author"].ids
+    p_ids = hin.indices["paper"].ids
+    n_a, n_p = hin.type_size("author"), hin.type_size("paper")
+    existing = set(zip(blk.rows.tolist(), blk.cols.tolist()))
+    rem = rng.choice(blk.nnz, UPDATE_REMOVES, replace=False)
+    removes = [{"rel": "author_of", "src_row": int(blk.rows[i]),
+                "dst_row": int(blk.cols[i])} for i in rem]
+    new_ids = [f"{tag}_{i}" for i in range(UPDATE_APPENDS)]
+    adds = []
+    for a in new_ids:
+        for p in rng.choice(n_p, 4, replace=False):
+            adds.append({"rel": "author_of", "src": a, "dst": p_ids[p]})
+    while len(adds) < UPDATE_ADDS:
+        e = (int(rng.integers(0, n_a)), int(rng.integers(0, n_p)))
+        if e not in existing:
+            existing.add(e)
+            adds.append({"rel": "author_of", "src": a_ids[e[0]],
+                         "dst": p_ids[e[1]]})
+    return {
+        "add_nodes": [{"type": "author", "id": a, "label": a}
+                      for a in new_ids],
+        "add_edges": adds, "remove_edges": removes,
+    }
+
+
+def serving(torch, ck, np, launches, workdir, card, hin, hin_ap):
+    """The online path on the card: a warm service over the bench graph
+    under cold, warm and mixed load from 32 client threads, one
+    ``update`` patched into the resident factor, the kernels on the
+    patched backends, and ``dpathsim-torch serve`` as a subprocess."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+    from distributed_pathsim_tpu_torch.serving.protocol import handle_request
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+
+    phase(f"serving on the card: {N_AUTHORS}x{N_PAPERS}x{N_VENUES}, "
+          f"headroom {SERVE_HEADROOM}, max_batch {SERVE_MAX_BATCH}, "
+          f"{SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} topk k={TOP_K}")
+    hin_h = tdl.with_headroom(hin, SERVE_HEADROOM)
+    mp = compile_metapath("APVPA", hin_h.schema)
+    t0 = time.perf_counter()
+    backend = create_backend("torch", hin_h, mp, device="cuda")
+    svc = PathSimService(backend, config=ServeConfig(
+        max_batch=SERVE_MAX_BATCH, k_default=TOP_K))
+    print(f"service start (backend init + warmup of buckets "
+          f"{svc._bucket_ladder}): {time.perf_counter() - t0:.3f} s")
+    try:
+        with CompileCounter() as compiles:
+            serving_load_and_update(torch, ck, np, launches, card, svc, mp,
+                                    hin_ap, tdl, create_backend,
+                                    handle_request)
+            serve_subprocess(np, workdir, hin_ap, card)
+        if compiles.count:
+            raise AssertionError(
+                f"{compiles.count} compiles after warmup: {compiles.by_kind}")
+        print("compile counter: 0 kernel builds, loads or graph captures "
+              "from the end of warmup to the end of the phase")
+    finally:
+        svc.close()
+
+
+def serving_load_and_update(torch, ck, np, launches, card, svc, mp, hin_ap,
+                            tdl, create_backend, handle_request):
+    """Cold, warm and mixed load against the f64 oracle, then the update
+    and the kernels on the patched backends."""
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    backend = svc.backend
+    rng = np.random.default_rng(SEED)
+    n = svc.n
+    cold_rows = rng.integers(0, n, (SERVE_CLIENTS, SERVE_PER_CLIENT))
+    for cell in svc._m_latency.values():
+        cell.reset()
+    cold, wall = run_clients(svc, cold_rows, TOP_K)
+    regime_latencies(svc, len(cold), wall, "cold load", card)
+    oracle, _ = f64_topk(np, svc.hin, mp)
+    check_served(np, cold, cold_rows.ravel(), oracle, TOP_K, "cold load")
+
+    hits0 = svc.result_cache.hits
+    sent0 = svc.coalescer.dispatched_requests
+    warm, wall = run_clients(svc, cold_rows, TOP_K)
+    regime_latencies(svc, len(warm), wall, "warm load", card)
+    if (svc.result_cache.hits - hits0 != len(warm)
+            or svc.coalescer.dispatched_requests != sent0):
+        raise AssertionError("warm load: not every request hit the result "
+                             "cache")
+    if any(not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+           for a, b in zip(warm, cold)):
+        raise AssertionError("warm load: an answer differs from cold")
+    print(f"warm load: all {len(warm)} requests result-cache hits, answers "
+          "identical to the cold load's")
+
+    fresh = rng.integers(0, n, (SERVE_CLIENTS, SERVE_PER_CLIENT // 2))
+    mixed_rows = np.empty((SERVE_CLIENTS, SERVE_PER_CLIENT), dtype=np.int64)
+    mixed_rows[:, 0::2] = cold_rows[:, : SERVE_PER_CLIENT // 2]
+    mixed_rows[:, 1::2] = fresh
+    mixed, wall = run_clients(svc, mixed_rows, TOP_K)
+    regime_latencies(svc, len(mixed), wall, "mixed load (50/50 warm/cold "
+                     "rows)", card)
+    check_served(np, mixed, mixed_rows.ravel(), oracle, TOP_K, "mixed load")
+    serving_layers(torch, np, svc, rng, card)
+
+    # The update: the served backend ranks once first, so C's u8 limbs
+    # are split and cached when the patch lands.
+    counted(torch, ck, launches, lambda: backend.topk(k=TOP_K),
+            "served backend rank-all before the update (limbs cached)")
+    recs = update_records(np, svc.hin, np.random.default_rng(SEED + 1),
+                          "serve_new")
+    old_hin = svc.hin
+    resp = handle_request(svc, {"id": 1, "op": "update", **recs,
+                                "want_rows": True})
+    if not resp["ok"] or resp["result"]["mode"] != "delta":
+        raise AssertionError(f"update did not patch: {resp}")
+    res = resp["result"]
+    print(f"update: {res['edge_changes']} edge changes, "
+          f"{res['node_appends']} appended authors, mode {res['mode']}, "
+          f"{res['affected_rows']} affected rows, {res['purged_entries']} "
+          f"cache entries purged, {res['ms']:.3f} ms ({card})")
+    update_layers(torch, np, backend, tdl, old_hin, recs, mp, card)
+    rebuilt = create_backend("torch", svc.hin, mp, device="cuda")
+    c, rs = backend._half()
+    rc, rrs = rebuilt._half()
+    if not (torch.equal(c, rc) and torch.equal(rs, rrs)):
+        raise AssertionError("patched C or row sums differ from a rebuild")
+    print("patched device C and row sums: torch.equal to a backend rebuilt "
+          "from the delta-applied graph")
+    for k, kernel, label in ((TOP_K, "topk_twopass_candidates", "K1"),
+                             (TOP_K_FOLD, "topk_fold", "K4")):
+        (got, want), counts, _ = counted(
+            torch, ck, launches,
+            lambda: (backend.topk(k=k), rebuilt.topk(k=k)),
+            f"rank-all k={k} on the patched and the rebuilt backend")
+        if counts[kernel] < 2:
+            raise AssertionError(f"rank-all k={k} did not launch {label}")
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"{label} on the patched backend differs "
+                                 "from the rebuilt backend")
+        print(f"{label} (k={k}) on the patched backend: bit-identical to "
+              "the rebuilt backend")
+
+    new_oracle, _ = f64_topk(np, svc.hin, mp)
+    affected = np.asarray(res["affected_row_list"], dtype=np.int64)
+    appended = np.arange(n, svc.n)
+    probe = np.unique(np.concatenate([affected[:256], appended]))
+    answers, _ = run_clients(svc, np.array_split(probe, SERVE_CLIENTS), TOP_K)
+    check_served(np, answers, probe, new_oracle, TOP_K,
+                 "affected and appended rows after the update")
+    keep = ~np.isin(cold_rows.ravel(), affected)
+    unaffected = np.unique(cold_rows.ravel()[keep])[:256]
+    if unaffected.shape[0] == 0:
+        raise AssertionError("the update left no cached row unaffected")
+    hits0 = svc.result_cache.hits
+    answers = [svc.topk_index(int(r), TOP_K) for r in unaffected]
+    if svc.result_cache.hits - hits0 != unaffected.shape[0]:
+        raise AssertionError("unaffected rows missed the result cache")
+    check_served(np, answers, unaffected, new_oracle, TOP_K,
+                 "unaffected rows after the update (all result-cache hits)")
+
+    # K2 on the all-pairs graph, patched the same way
+    hin_a = tdl.with_headroom(hin_ap, SERVE_HEADROOM)
+    mp_a = compile_metapath("APVPA", hin_a.schema)
+    b2 = create_backend("torch", hin_a, mp_a, device="cuda")
+    counted(torch, ck, launches, b2.all_pairs_scores,
+            f"all-pairs {N_AUTHORS_ALL_PAIRS} before its update (limbs "
+            "cached)")
+    recs = update_records(np, hin_a, np.random.default_rng(SEED + 2),
+                          "pairs_new")
+    delta = tdl.delta_from_records(hin_a, **recs)
+    plan = tdl.plan_delta(hin_a, delta, mp_a)
+    if plan.fallback:
+        raise AssertionError(f"all-pairs update fell back: {plan.reason}")
+    b2.apply_delta(plan)
+    r2 = create_backend("torch", plan.hin_new, mp_a, device="cuda")
+    (got, want), counts, _ = counted(
+        torch, ck, launches,
+        lambda: (b2.all_pairs_scores(), r2.all_pairs_scores()),
+        "all-pairs on the patched and the rebuilt backend")
+    if counts["fused_scores"] < 2:
+        raise AssertionError("all-pairs did not launch K2")
+    if not np.array_equal(got, want):
+        raise AssertionError("K2 on the patched backend differs from the "
+                             "rebuilt backend")
+    print(f"K2 on the patched {N_AUTHORS_ALL_PAIRS}-author backend "
+          f"({got.shape[0]} authors after the update): bit-identical to "
+          "the rebuilt backend")
+
+
+def serving_layers(torch, np, svc, rng, card):
+    """Where a served request's time goes: 8 cold requests from each
+    client with tracing on, the mean of each span of the service's own
+    instrumentation (enqueue; the dispatcher's issue of gather + GEMM on
+    the serving stream; the completion thread's wait for the GEMM and the
+    pinned copy; the f64 normalize and top-k; the cache fill), and the
+    card's part alone at a batch of SERVE_MAX_BATCH (CUDA events)."""
+    from distributed_pathsim_tpu_torch import obs
+    from distributed_pathsim_tpu_torch.obs.trace import get_tracer
+
+    tracer = get_tracer()
+    tracer.clear()
+    obs.configure(tracing=True)
+    try:
+        rows = rng.integers(0, svc.n, (SERVE_CLIENTS, 8))
+        _, wall = run_clients(svc, rows, TOP_K)
+    finally:
+        obs.configure(tracing=False)
+    spans = {}
+    for sp in tracer.spans():
+        spans.setdefault(sp.name, []).append(sp.duration_s * 1e3)
+    tracer.clear()
+    mean = {k: float(np.mean(v)) for k, v in spans.items()}
+    cnt = {k: len(v) for k, v in spans.items()}
+    host = (mean["serve.complete"] - mean["serve.host_transfer"]
+            - mean["serve.cache_fill"])
+    c, _ = svc.backend._half()
+    idx = torch.as_tensor(np.arange(SERVE_MAX_BATCH) * 997 % svc.n,
+                          device=c.device)
+    gemm_ms = time_ms(torch, lambda: c[idx] @ c.T)
+    out = c[idx] @ c.T
+    pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    copy_ms = time_ms(torch, lambda: pinned.copy_(out, non_blocking=True))
+    print(f"serving layers ({rows.size} cold requests, {cnt['serve.dispatch']}"
+          f" batches, tracer spans, mean ms): request "
+          f"{mean['serve.request']:.3f}, queue {mean['serve.enqueue']:.3f}, "
+          f"issue of gather + GEMM {mean['serve.device_execute']:.3f}, "
+          f"host transfer (GEMM wait + pinned copy) "
+          f"{mean['serve.host_transfer']:.3f}, f64 normalize + top-k "
+          f"{host:.3f}, cache fill {mean['serve.cache_fill']:.3f}; on the "
+          f"card at {SERVE_MAX_BATCH} rows: gather + GEMM {gemm_ms:.4f} ms, "
+          f"copy of the {out.shape[0]}x{out.shape[1]} f32 counts "
+          f"{copy_ms:.4f} ms (CUDA events; {card})")
+
+
+def update_layers(torch, np, backend, tdl, old_hin, recs, mp, card):
+    """The update's layers, measured again after it: the host plan with
+    the factor fold already cached on the graph (the update's own first
+    plan paid that fold), and the ΔC scatter + row sums on a copy of C
+    (CUDA events)."""
+    from distributed_pathsim_tpu_torch.backends.torch_dense import (
+        _pad_coo_bucket,
+    )
+    from distributed_pathsim_tpu_torch.ops import chain
+
+    delta = tdl.delta_from_records(old_hin, **recs)
+    t0 = time.perf_counter()
+    plan = tdl.plan_delta(old_hin, delta, mp)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    dc = plan.delta_c
+    r, cidx, w = _pad_coo_bucket(dc.rows, dc.cols, dc.weights)
+    c, _ = backend._half()
+    c2 = c.clone()
+    rr = torch.as_tensor(r, device=c.device)
+    cc = torch.as_tensor(cidx, device=c.device)
+    ww = torch.as_tensor(w, dtype=c.dtype, device=c.device)
+    patch_ms = time_ms(torch, lambda: (
+        c2.index_put_((rr, cc), ww, accumulate=True),
+        chain.rowsums_from_half(c2)))
+    print(f"update layers: plan (fold cached) {plan_ms:.3f} ms, dC nnz "
+          f"{dc.rows.shape[0]} (padded {r.shape[0]}), scatter + row sums "
+          f"on the card {patch_ms:.4f} ms (CUDA events; {card})")
+
+
+def serve_subprocess(np, workdir, hin_ap, card):
+    """``dpathsim-torch serve --platform cuda`` on the all-pairs GEXF with
+    a short JSONL script: every response ok, exit 0."""
+    blk = hin_ap.blocks["author_of"]
+    a_ids = hin_ap.indices["author"].ids
+    p_ids = hin_ap.indices["paper"].ids
+    mine = set(blk.cols[blk.rows == 7].tolist())
+    paper = next(p for p in range(len(p_ids)) if p not in mine)
+    script = [
+        {"id": 1, "op": "topk", "source_id": a_ids[7], "k": TOP_K},
+        {"id": 2, "op": "topk", "source_id": a_ids[7], "k": TOP_K},
+        {"id": 3, "op": "update", "add_edges": [
+            {"rel": "author_of", "src": a_ids[7], "dst": p_ids[paper]}]},
+        {"id": 4, "op": "metrics"},
+        {"id": 5, "op": "health"},
+        {"id": 6, "op": "shutdown"},
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "serve",
+         "--dataset", str(workdir / "allpairs.gexf"), "--platform", "cuda",
+         "--backend", "torch"],
+        input="\n".join(json.dumps(r) for r in script) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    resps = [json.loads(line) for line in proc.stdout.splitlines()]
+    if [r.get("id") for r in resps] != [1, 2, 3, 4, 5, 6] or not all(
+            r["ok"] for r in resps):
+        raise AssertionError(f"serve responses: {resps}")
+    if resps[2]["result"]["mode"] != "delta":
+        raise AssertionError("serve's update did not patch")
+    print(f"dpathsim-torch serve --platform cuda on {N_AUTHORS_ALL_PAIRS} "
+          f"authors: exit 0, all 6 responses ok in {wall:.1f} s (startup "
+          f"included); topk {resps[0]['latency_ms']} ms cold, "
+          f"{resps[1]['latency_ms']} ms cached; update "
+          f"{resps[2]['result']['ms']} ms; compiles in the process: "
+          f"{resps[4]['result']['compiles']} ({card})")
+
+
+def serve_config5(np, backend, c64, d64, card):
+    """The config 5 torch-sparse backend behind a service: 64 requests,
+    3 seeded rows within C5_ATOL of host f64 arithmetic."""
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+
+    n = backend.n
+    svc = PathSimService(backend, config=ServeConfig(
+        max_batch=SERVE_MAX_BATCH, k_default=TOP_K, warm=False))
+    try:
+        rng = np.random.default_rng(C5_SPOT_SEED + 1)
+        rows = rng.integers(0, n, C5_SERVE_REQUESTS)
+        t0 = time.perf_counter()
+        futs = [svc.submit_topk(int(r), TOP_K) for r in rows]
+        answers = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        for j in range(C5_SPOT_ROWS):
+            r = int(rows[j])
+            m = c64 @ c64[r]
+            den = d64[r] + d64
+            s64 = np.where(den > 0, 2.0 * m / np.where(den > 0, den, 1.0),
+                           0.0)
+            s64[r] = -np.inf
+            expect = np.sort(s64)[::-1][:TOP_K]
+            vals, idxs = answers[j]
+            np.testing.assert_allclose(vals, expect, atol=C5_ATOL,
+                                       err_msg=f"served config 5 row {r}")
+            np.testing.assert_allclose(s64[idxs], expect, atol=C5_ATOL,
+                                       err_msg=f"served config 5 row {r} "
+                                       "columns")
+        lat = svc._m_latency["dispatch"]
+        print(f"config 5 served: {C5_SERVE_REQUESTS} topk requests in "
+              f"{wall:.3f} s ({svc.stats()['dispatch']['batches']} batches; "
+              f"dispatch p50 {lat.quantile(0.5) * 1e3:.1f} ms, p99 "
+              f"{lat.quantile(0.99) * 1e3:.1f} ms); rows "
+              f"{[int(r) for r in rows[:C5_SPOT_ROWS]]} within {C5_ATOL} of "
+              f"host f64 arithmetic ({card})")
+    finally:
+        svc.close()
+
+
 def square_bounds(lim, n, v, out_bytes):
     """A square kernel's least times on this factor: at the int8 tensor
     cores, the limb products of the N(N+1)/2 pairs of the symmetric S (2 v
@@ -1005,7 +1482,7 @@ def square_bounds(lim, n, v, out_bytes):
 
 
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
-    """Phase 2 at the main path's shapes + phase 4 (times)."""
+    """Phase 2 at the main path's shapes + phase 6 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 
@@ -1213,12 +1690,14 @@ def main() -> int:
         return 2
     ck.true_f32()
 
+    t_start = time.perf_counter()
     name, smi, instances = device_and_build(torch, ck)
     kernel_checks(torch, ck, np, synthetic_hin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         hin, hin_ap, launches, backend = main_path(
             torch, ck, np, pathlib.Path(tmp)
         )
+        serving(torch, ck, np, launches, pathlib.Path(tmp), smi, hin, hin_ap)
         k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
@@ -1226,6 +1705,8 @@ def main() -> int:
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked[:5]}")
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
+          f"kernel build to the last phase on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

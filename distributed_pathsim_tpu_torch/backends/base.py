@@ -20,6 +20,7 @@ streaming row-tiled device backend, ``torch_sparse.py``) and ``numpy``
 from __future__ import annotations
 
 import abc
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -30,16 +31,33 @@ from ..ops.metapath import MetaPath
 from ..ops import pathsim
 
 
+class DeltaUnsupported(RuntimeError):
+    """The backend has no incremental-update path for this chain shape
+    (e.g. an asymmetric metapath: no half factor to patch). Callers fall
+    back to a full rebuild — a capability miss, never a correctness
+    failure."""
+
+
 class PathSimBackend(abc.ABC):
-    """Common surface for all execution backends. Every host-visible
-    result (rows, sums, matrices, scores) is trimmed to the logical
-    size ``n_sources`` / ``n_targets``."""
+    """Common surface for all execution backends.
+
+    **Capacity invariant**: the bound HIN may reserve index headroom
+    (data/delta.py) — adjacency blocks then have padded shapes and the
+    backend's device/host arrays are built at capacity. Every
+    host-visible result (rows, sums, matrices, scores) is trimmed to
+    the LOGICAL size ``n_sources`` / ``n_targets``, so padding is
+    invisible to callers and results are bit-identical to an unpadded
+    build (padded factor rows hold no edges, so they contribute zero
+    counts everywhere)."""
 
     name: str = "abstract"
 
     def __init__(self, hin: EncodedHIN, metapath: MetaPath, **options: Any):
         self.hin = hin
         self.metapath = metapath
+        # the constructor's keyword options: subclasses add their named
+        # ones, so a rebuild over a delta-applied graph (the serving
+        # layer's fallback) replays exactly this configuration
         self.options = options
         # The chain is data: every backend executes an EvalPlan —
         # DP-ordered association over the (half-)chain with estimated
@@ -53,9 +71,16 @@ class PathSimBackend(abc.ABC):
         estimates (the ``stats()``/bench surface of plan choices)."""
         return self.plan.to_dict()
 
+    def factor_info(self) -> dict | None:
+        """Resident factor accounting (``stats()["factor"]``):
+        ``{"format", "bytes", "nnz", "coo_bytes"}``, or None for
+        backends with no resident sparse factor."""
+        return None
+
     @property
     def n_sources(self) -> int:
-        """Logical source-node count."""
+        """Logical source-node count (never the padded capacity). Read
+        dynamically: a delta update can append nodes."""
         return self.hin.type_size(self.metapath.source_type)
 
     @property
@@ -155,6 +180,32 @@ class PathSimBackend(abc.ABC):
         )
         return pathsim.score_matrix(m, rowsums=rowsums, variant=variant, xp=np)
 
+    # -- incremental updates (delta ingestion, data/delta.py) --------------
+
+    def apply_delta(self, plan) -> None:
+        """Absorb one :class:`~..data.delta.DeltaPlan` in place: patch
+        the half factor, denominators and derived caches from the plan's
+        signed ΔC instead of rebuilding — O(Δ + affected rows), and every
+        patched array keeps its shape (that's what the capacity headroom
+        buys).
+
+        Raises :class:`DeltaUnsupported` when this backend/chain has no
+        patch path; the caller (PathSimService.update) falls back to a
+        full rebuild. A ``fallback`` plan is a caller bug — the plan
+        already decided this delta must rebuild."""
+        if plan.fallback:
+            raise ValueError(
+                f"plan requires full rebuild ({plan.reason}); "
+                "apply_delta must not be called with a fallback plan"
+            )
+        impl = getattr(self, "_apply_delta_impl", None)
+        if impl is None:
+            raise DeltaUnsupported(
+                f"backend {self.name!r} has no incremental update path"
+            )
+        impl(plan)
+        self.hin = plan.hin_new
+
 
 _REGISTRY: dict[str, Callable[..., PathSimBackend]] = {}
 
@@ -189,5 +240,22 @@ def available_backends() -> list[str]:
 def create_backend(
     name: str, hin: EncodedHIN, metapath: MetaPath, **options: Any
 ) -> PathSimBackend:
-    """Construct a registered backend."""
-    return get_backend(name)(hin, metapath, **options)
+    """Construct a registered backend, visible to obs: init count and
+    duration land in the registry (a serving process rebuilding
+    backends at delta-fallback rate shows up as a moving
+    ``dpathsim_backend_inits_total``), and the init runs inside a
+    ``backend.init`` span."""
+    from ..obs.metrics import get_registry
+    from ..obs.trace import get_tracer
+
+    t0 = time.perf_counter()
+    with get_tracer().span("backend.init", backend=name):
+        backend = get_backend(name)(hin, metapath, **options)
+    reg = get_registry()
+    reg.counter(
+        "dpathsim_backend_inits_total", "backend constructions by name"
+    ).inc(backend=name)
+    reg.histogram(
+        "dpathsim_backend_init_seconds", "backend construction duration"
+    ).observe(time.perf_counter() - t0, backend=name)
+    return backend

@@ -12,13 +12,14 @@ import numpy as np
 
 from ..ops import chain
 from ..ops import planner
-from .base import PathSimBackend, register_backend
+from .base import DeltaUnsupported, PathSimBackend, register_backend
 
 
 @register_backend("numpy")
 class NumpyBackend(PathSimBackend):
     def __init__(self, hin, metapath, dtype=np.float64, **options):
         super().__init__(hin, metapath, **options)
+        self.options = {**options, "dtype": dtype}
         self.dtype = dtype
         if metapath.is_symmetric:
             # Plan-ordered sparse fold, densified once: identical
@@ -78,3 +79,18 @@ class NumpyBackend(PathSimBackend):
         for b in self._blocks[1:]:
             v = v @ b
         return v[:, :n]
+
+    def _apply_delta_impl(self, plan) -> None:
+        """Patch the dense half factor with the signed ΔC scatter —
+        f64 integer adds are exact, so the patched C equals a rebuilt C
+        bit for bit — and drop the derived caches (M, rowsums), which
+        recompute lazily from the patched factor through the very same
+        code paths a fresh build uses."""
+        if self._c is None:
+            raise DeltaUnsupported(
+                "numpy backend patches only the symmetric half factor"
+            )
+        dc = plan.delta_c
+        np.add.at(self._c, (dc.rows, dc.cols), dc.weights.astype(self.dtype))
+        self._m = None
+        self._rowsums = None

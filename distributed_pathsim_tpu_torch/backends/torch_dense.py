@@ -35,6 +35,55 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().astype(np.float64)
 
 
+def _pad_coo_bucket(rows, cols, weights):
+    """Pad a COO triple to a power-of-two nnz bucket (floor 8), so
+    steady-state delta patches allocate the same shapes whatever their
+    size within a bucket. Pad entries carry weight 0 at (0, 0) and
+    scatter harmlessly."""
+    nnz = int(rows.shape[0])
+    bucket = max(8, 1 << (max(nnz, 1) - 1).bit_length())
+    r = np.zeros(bucket, dtype=np.int64)
+    c = np.zeros(bucket, dtype=np.int64)
+    w = np.zeros(bucket, dtype=np.float64)
+    r[:nnz] = rows
+    c[:nnz] = cols
+    w[:nnz] = weights
+    return r, c, w
+
+
+class PendingRows:
+    """The in-flight result of :meth:`TorchDenseBackend.pairwise_rows_device`:
+    batched counts being computed on the backend's serving stream.
+
+    ``np.asarray(handle)`` is where the host blocks (as on an un-fetched
+    JAX device array): it makes a copy stream wait on the GEMM's event,
+    copies the counts into a pinned host buffer there and waits for that
+    copy alone — so on the card, the copy of one batch overlaps the next
+    batch's GEMM instead of queueing behind it on one stream. On the CPU
+    the counts are already computed and the handle only holds them."""
+
+    def __init__(self, out: torch.Tensor, event=None, copy_stream=None):
+        self._out = out
+        self._event = event
+        self._copy_stream = copy_stream
+
+    def __array__(self, dtype=None, copy=None):
+        out = self._out
+        if self._event is None:
+            host = out.numpy()
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(self._event)
+                pinned = torch.empty(out.shape, dtype=out.dtype,
+                                     pin_memory=True)
+                pinned.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            done.synchronize()
+            host = pinned.numpy()
+        return host if dtype is None else host.astype(dtype, copy=False)
+
+
 @register_backend("torch")
 class TorchDenseBackend(PathSimBackend):
     """Dense chain on one device: CUDA unless ``device`` says the CPU."""
@@ -47,6 +96,8 @@ class TorchDenseBackend(PathSimBackend):
         relative rounding, and rankings may swap near-exact ties."""
         self.device = resolve_device(device)
         super().__init__(hin, metapath, **options)
+        self.options = {**options, "dtype": dtype, "device": self.device,
+                        "exact_counts": exact_counts}
         self.dtype = dtype
         self.exact_counts = exact_counts
         if self.device.type == "cuda":
@@ -77,6 +128,10 @@ class TorchDenseBackend(PathSimBackend):
         self._rowsums = None
         self._half_cache = None
         self._limbs_cache = None
+        # serving streams (card only, made at the first batched issue):
+        # the GEMMs of pairwise_rows_device and the host copies of their
+        # results, each on its own stream
+        self._serve_streams = None
 
     def _half(self):
         """(C, rowsums) on the device for a symmetric chain, built once:
@@ -160,15 +215,76 @@ class TorchDenseBackend(PathSimBackend):
         return self._compute()[0][source_index, : self.n_targets]
 
     def pairwise_rows(self, rows) -> np.ndarray:
-        """Batched M[rows, :] as one GEMM against the half factor."""
-        if not self._symmetric:
+        """Batched M[rows, :] — host view of :meth:`pairwise_rows_device`
+        (the serving layer uses the handle directly to overlap the host
+        copy of one batch with the next batch's GEMM)."""
+        out = self.pairwise_rows_device(rows)
+        if out is None:
             return super().pairwise_rows(rows)
+        return np.asarray(out, dtype=np.float64)[:, : self.n_targets]
+
+    def pairwise_rows_device(self, rows):
+        """Batched row counts M[rows, :] = C[rows] @ Cᵀ as one gather +
+        GEMM, returned as a :class:`PendingRows` handle, f32 counts at
+        the padded width. On the card the work is queued on the
+        backend's serving stream (after whatever the default stream
+        queued on C) and the call returns before it finishes. Returns
+        None for an asymmetric chain (counts come from the cached M)."""
+        if not self._symmetric:
+            return None
         c, rowsums = self._half()
-        idx = torch.as_tensor(np.asarray(rows, dtype=np.int64),
-                              device=self.device)
-        out = c[idx] @ c.T
+        idx = np.asarray(rows, dtype=np.int64)
+        # same exactness contract as pairwise_row: guard even when this
+        # is the first call on the backend
         self._fetch_rowsums(rowsums)
-        return _host(out)[:, : self.n_targets]
+        if self.device.type != "cuda":
+            return PendingRows(c[torch.as_tensor(idx)] @ c.T)
+        if self._serve_streams is None:
+            self._serve_streams = (torch.cuda.Stream(self.device),
+                                   torch.cuda.Stream(self.device))
+        gemm_stream, copy_stream = self._serve_streams
+        gemm_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(gemm_stream):
+            ids = torch.as_tensor(idx).to(self.device, non_blocking=False)
+            out = c[ids] @ c.T
+            event = torch.cuda.Event()
+            event.record(gemm_stream)
+        return PendingRows(out, event, copy_stream)
+
+    def _apply_delta_impl(self, plan) -> None:
+        """Patch the device-resident half factor in place: one
+        ``index_put_(accumulate=True)`` of the signed ΔC (padded to a
+        power-of-two nnz bucket) and the row sums recomputed. f32 adds
+        of small integers are exact below the 2^24 guard, so the
+        patched factor equals a rebuilt one bit for bit. Every cache
+        derived from C goes: M, the host row sums (the next fetch re-runs
+        the exact-count guard) and C's u8 limbs — the kernels would
+        otherwise rank the pre-delta counts."""
+        from .base import DeltaUnsupported
+
+        if not self._symmetric:
+            raise DeltaUnsupported(
+                "torch backend patches only the symmetric half factor"
+            )
+        dc = plan.delta_c
+        rows, cols, w = _pad_coo_bucket(dc.rows, dc.cols, dc.weights)
+        c, _ = self._half()
+        if self._serve_streams is not None:
+            # the scatter must not overtake a serving GEMM still reading C
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._serve_streams[0])
+        c.index_put_(
+            (torch.as_tensor(rows, device=self.device),
+             torch.as_tensor(cols, device=self.device)),
+            torch.as_tensor(w, dtype=self.dtype, device=self.device),
+            accumulate=True,
+        )
+        # _half_cache stays the single authority for (C, rowsums); the
+        # construction-time COO is stale and never read again
+        self._half_cache = (c, chain.rowsums_from_half(c))
+        self._m = None
+        self._rowsums = None
+        self._limbs_cache = None
 
     # -- on-device scoring ---------------------------------------------------
 

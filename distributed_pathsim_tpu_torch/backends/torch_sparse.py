@@ -85,6 +85,12 @@ class TorchSparseBackend(PathSimBackend):
         arm (its plain version on the CPU); False forces the fold."""
         self.device = resolve_device(device)
         super().__init__(hin, metapath, **options)
+        self.options = {
+            **options, "tile_rows": tile_rows, "dtype": dtype,
+            "device": self.device, "exact_counts": exact_counts,
+            "dense_c_budget_bytes": dense_c_budget_bytes,
+            "rect_kernel": rect_kernel,
+        }
         if not metapath.is_symmetric:
             raise ValueError("torch-sparse requires a symmetric metapath")
         if factor_format not in (None, "coo"):
@@ -146,6 +152,25 @@ class TorchSparseBackend(PathSimBackend):
         self._m: np.ndarray | None = None
         self._c_sum = None
         self._indptr = None
+
+    def _apply_delta_impl(self, plan) -> None:
+        """Rebind to the plan's already-patched COO factor (ΔC came from
+        the product rule — the chain is never refolded) and rebuild the
+        tiling. Host cost is one O(nnz) re-sort; device tiles re-densify
+        lazily at unchanged shapes (tile_rows and V are fixed by the
+        capacity invariant)."""
+        self.hin = plan.hin_new  # logical n may have grown (appends)
+        self._bind_factor(plan.half_new)
+
+    def factor_info(self) -> dict:
+        nnz = int(self._c.rows.shape[0])
+        return {
+            "format": self._factor_format,
+            "bytes": int(self._c.rows.nbytes + self._c.cols.nbytes
+                         + self._c.weights.nbytes),
+            "nnz": nnz,
+            "coo_bytes": 24 * nnz,  # int64 rows + int64 cols + f64 w
+        }
 
     @property
     def _n_live_tiles(self) -> int:

@@ -6,6 +6,9 @@ Replaces the reference's hard-coded ``__main__`` block
     dpathsim-torch --dataset g.gexf --source "Didier Dubois" \\
                    --backend torch --metapath APVPA --output out.log
 
+and routes ``dpathsim-torch serve ...`` to the online serving entry
+point (serving/cli.py).
+
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
 without ``--platform cpu`` it refuses to run.
@@ -92,6 +95,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    # Subcommand routing: ``dpathsim-torch serve ...`` is the online
+    # serving entry point (serving/cli.py); everything else stays the
+    # flag-driven batch CLI.
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        from .serving.cli import serve_main
+
+        try:
+            return serve_main(argv[1:])
+        except (KeyError, ValueError, OverflowError, FileNotFoundError,
+                NotImplementedError, DeviceUnavailable) as exc:
+            msg = exc.args[0] if exc.args else exc
+            print(f"error: {msg}", file=sys.stderr)
+            return 1
     args = build_parser().parse_args(argv)
     try:
         return _run(args)

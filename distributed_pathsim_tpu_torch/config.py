@@ -25,4 +25,8 @@ class RunConfig:
     platform: str = "cuda"  # device of the device backends: cuda | cpu
     tile_rows: int | None = None  # torch-sparse: rows per streaming tile
     approx: bool = False  # device backends: waive the f32 2^24 count guard
+    dtype: str | None = None  # carry dtype name; None = the backend's own
+    # delta-ingestion capacity reserve (data/delta.with_headroom); the
+    # serve CLI sets 0.25, the batch CLI leaves it off
+    headroom: float = 0.0
     echo: bool = True

@@ -7,6 +7,8 @@ execution strategy and ``platform`` the device of the torch backend.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .backends.base import PathSimBackend, create_backend
 from .config import RunConfig
 from .data.encode import EncodedHIN, encode_hin
@@ -45,8 +47,20 @@ def build_backend(
     half-chain fold and the factor's transfer) are recorded on it."""
     if timer is None:
         timer = StageTimer()
+    # count kernel builds from the very first: a serving process's
+    # health op reports them (utils/compile_counter.py)
+    from .utils.compile_counter import install_compile_metrics
+
+    install_compile_metrics()
     with timer.stage("load_encode"):
         hin = load_dataset(config.dataset, loader=config.loader)
+        if config.headroom:
+            # Reserve append capacity BEFORE any backend sees a shape:
+            # the delta-ingestion contract (data/delta.py) — results are
+            # bit-identical, shapes survive node growth.
+            from .data.delta import with_headroom
+
+            hin = with_headroom(hin, config.headroom)
     with timer.stage("metapath_compile"):
         metapath = compile_metapath(config.metapath, hin.schema)
     with timer.stage("backend_init"):
@@ -57,16 +71,31 @@ def build_backend(
 
 
 def backend_options(config: RunConfig) -> dict:
-    """Backend constructor kwargs from a RunConfig: the device backends
-    (torch, torch-sparse) take the device named by ``platform`` and
-    ``approx`` as ``exact_counts=False``; torch-sparse takes
-    ``tile_rows``. The numpy oracle runs on the host whatever the
-    platform."""
+    """Backend constructor kwargs from a RunConfig — shared by the
+    bootstrap above and the serving layer's delta-fallback rebuild,
+    which must replay the SAME knobs. The device backends (torch,
+    torch-sparse) take the device named by ``platform`` and ``approx``
+    as ``exact_counts=False``; torch-sparse takes ``tile_rows``. The
+    numpy oracle runs on the host whatever the platform. ``dtype``
+    names a numpy dtype for numpy and a torch dtype otherwise."""
     if config.backend not in ("torch", "torch-sparse"):
+        if config.dtype:
+            return {"dtype": np.dtype(config.dtype)}
         return {}
     options = {"device": config.platform}
+    if config.dtype:
+        options["dtype"] = _torch_dtype(config.dtype)
     if config.approx:
         options["exact_counts"] = False
     if config.backend == "torch-sparse" and config.tile_rows is not None:
         options["tile_rows"] = config.tile_rows
     return options
+
+
+def _torch_dtype(name: str):
+    import torch
+
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype

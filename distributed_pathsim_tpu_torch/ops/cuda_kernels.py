@@ -45,8 +45,9 @@ launches the kernel or raises. Nothing falls back.
 
 The kernels are compiled at first use with ``nvcc`` into ``_build/``
 (listed in ``.gitignore``), one shared library per source with a plain C
-interface, loaded with ``ctypes``. Nothing here touches the GPU or the
-compiler at import time.
+interface, loaded with ``ctypes``; each build and each load is recorded
+with :func:`utils.compile_counter.record`. Nothing here touches the GPU
+or the compiler at import time.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ import numpy as np
 import torch
 
 from . import sparse
+from ..utils import compile_counter
 
 # Rows of the kernels' row blocks (csrc/u8_tile.cuh BM), and the unit of
 # K1's and K3's column stripes.
@@ -223,6 +225,7 @@ def build(names=None) -> dict[str, str]:
             failed.append(f"{name} (rc {proc.returncode}):\n{text}")
         else:
             os.replace(tmp, out)
+            compile_counter.record("nvcc", name)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return reports
@@ -238,6 +241,7 @@ def _entry(name: str):
             if not path.exists():
                 build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(path))
+            compile_counter.record("load", name)
     _, symbol, argtypes = KERNELS[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes

@@ -461,6 +461,28 @@ def fold_general(
     return _eval_coo_node(plan.root, steps, hin)
 
 
+def fold_blocks(
+    blocks: Sequence[sp.COOMatrix],
+    dense_cutover: float | None = None,
+) -> sp.COOMatrix:
+    """Plan-ordered fold of pre-oriented COO blocks (the delta
+    algebra's general-chain refold and any caller that already
+    materialized its factors). Stats come from the blocks themselves."""
+    if len(blocks) == 1:
+        return blocks[0]
+    stats = [
+        factor_stats_from_coo(b.rows, b.cols, b.shape) for b in blocks
+    ]
+    root, _, _ = plan_chain(stats, dense_cutover=dense_cutover)
+
+    def ev(node: PlanNode) -> sp.COOMatrix:
+        if node.is_leaf:
+            return blocks[node.lo]
+        return sp.matmul_summed(ev(node.left), ev(node.right))
+
+    return ev(root)
+
+
 def dense_half(hin, metapath: MetaPath, dtype=np.float32) -> np.ndarray:
     """Dense [N, V] half-chain factor via the plan-ordered sparse fold
     (the dense [N, P] intermediate of a naive chain product never

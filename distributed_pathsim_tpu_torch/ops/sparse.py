@@ -8,6 +8,11 @@ run on the device. This replaces the reference's per-query 4-way
 distributed hash join with one precomputed join reused by every query,
 and it never builds a P×V or N×N dense intermediate.
 
+The delta algebra (``coo_nonzero`` to ``affected_source_rows``) patches
+the COO factor for a graph delta by the product rule, O(Δ·deg), and
+bounds the score rows the delta can change — the serving layer's
+``update`` op rests on it.
+
 :func:`chunked_row_topk` is the exact hierarchical top-k that reduces
 the CUDA candidate kernels' winners to each row's final top-k.
 
@@ -96,6 +101,167 @@ def matmul_summed(a: COOMatrix, b: COOMatrix) -> COOMatrix:
     """One coalesced COO product (row-major sorted, exact integer
     accumulation in f64)."""
     return coo_matmul(a, b).summed()
+
+
+# ---------------------------------------------------------------------------
+# Delta algebra: O(Δ·deg) updates to the half-chain factor
+# ---------------------------------------------------------------------------
+#
+# The half-chain factor C is the one precomputed join every backend
+# shares; a graph delta must patch it without refolding the chain. For a
+# 2-block half C = A·B the product rule gives an exact COO identity:
+#
+#     ΔC = ΔA·B_new + A_old·ΔB
+#
+# where ΔA/ΔB carry SIGNED weights (+1 per added edge, −1 per removed
+# edge). Each term is a coo_matmul over only the delta's nnz — O(Δ·deg),
+# never O(nnz). For a 1-block half, ΔC = ΔA directly. Longer halves
+# (none exist in the DBLP schema family) would need the intermediate
+# partial products the backends don't keep, so they diff the refolded
+# factor instead — still recompile-free, just not O(Δ).
+
+
+def coo_nonzero(c: COOMatrix) -> COOMatrix:
+    """Drop explicit zeros (a removed-then-unchanged coordinate after
+    coalescing) so downstream support-based reasoning sees true nnz."""
+    keep = c.weights != 0.0
+    if keep.all():
+        return c
+    return COOMatrix(
+        rows=c.rows[keep], cols=c.cols[keep], weights=c.weights[keep],
+        shape=c.shape,
+    )
+
+
+def coo_delta_fold(
+    old_blocks: list[COOMatrix], delta_blocks: list[COOMatrix]
+) -> COOMatrix:
+    """ΔC for a half chain, by the product rule (coalesced, zero-free,
+    signed). ``old_blocks`` are the PRE-delta oriented blocks,
+    ``delta_blocks`` the signed edge deltas in the same orientation
+    (empty deltas allowed — nnz 0)."""
+    if len(old_blocks) == 1:
+        return coo_nonzero(delta_blocks[0].summed())
+    if len(old_blocks) == 2:
+        a_old, b_old = old_blocks
+        da, db = delta_blocks
+        b_new = COOMatrix(
+            rows=np.concatenate([b_old.rows, db.rows]),
+            cols=np.concatenate([b_old.cols, db.cols]),
+            weights=np.concatenate([b_old.weights, db.weights]),
+            shape=b_old.shape,
+        )
+        term1 = coo_matmul(da, b_new)
+        term2 = coo_matmul(a_old, db)
+        merged = COOMatrix(
+            rows=np.concatenate([term1.rows, term2.rows]),
+            cols=np.concatenate([term1.cols, term2.cols]),
+            weights=np.concatenate([term1.weights, term2.weights]),
+            shape=term1.shape,
+        )
+        return coo_nonzero(merged.summed())
+    # General chain: diff the refolded factor (exact, not O(Δ) — the
+    # backends keep no intermediate partials to apply the product rule
+    # against). Callers treat a wide ΔC like any other; recompile-free
+    # serving is preserved either way. The refold is plan-ordered, like
+    # every other fold (planner.fold_blocks).
+    from . import planner
+
+    new_blocks = []
+    for ob, db in zip(old_blocks, delta_blocks):
+        new_blocks.append(
+            COOMatrix(
+                rows=np.concatenate([ob.rows, db.rows]),
+                cols=np.concatenate([ob.cols, db.cols]),
+                weights=np.concatenate([ob.weights, db.weights]),
+                shape=ob.shape,
+            ).summed()
+        )
+    c_new = planner.fold_blocks(new_blocks)
+    c_old = planner.fold_blocks([b.summed() for b in old_blocks])
+    merged = COOMatrix(
+        rows=np.concatenate([c_new.rows, c_old.rows]),
+        cols=np.concatenate([c_new.cols, c_old.cols]),
+        weights=np.concatenate([c_new.weights, -c_old.weights]),
+        shape=c_new.shape,
+    )
+    return coo_nonzero(merged.summed())
+
+
+def coo_apply_delta(c: COOMatrix, delta_c: COOMatrix) -> COOMatrix:
+    """Patch C row-granularly: rows untouched by ΔC are kept verbatim
+    (one boolean mask + memcpy — no global re-sort, no global
+    coalesce); touched rows are re-coalesced from their old entries
+    plus ΔC. Exact for signed integer weights; entries cancelled to
+    zero are dropped so the patched factor's support equals a rebuilt
+    factor's."""
+    if delta_c.rows.shape[0] == 0:
+        return c
+    if c.shape != delta_c.shape:
+        raise ValueError(f"delta shape {delta_c.shape} != factor {c.shape}")
+    touched = np.unique(delta_c.rows)
+    hit = np.isin(c.rows, touched)
+    patched = COOMatrix(
+        rows=np.concatenate([c.rows[hit], delta_c.rows]),
+        cols=np.concatenate([c.cols[hit], delta_c.cols]),
+        weights=np.concatenate([c.weights[hit], delta_c.weights]),
+        shape=c.shape,
+    )
+    patched = coo_nonzero(patched.summed())
+    return COOMatrix(
+        rows=np.concatenate([c.rows[~hit], patched.rows]),
+        cols=np.concatenate([c.cols[~hit], patched.cols]),
+        weights=np.concatenate([c.weights[~hit], patched.weights]),
+        shape=c.shape,
+    )
+
+
+def affected_source_rows(
+    c_old: COOMatrix,
+    c_new: COOMatrix,
+    delta_c: COOMatrix,
+    n_logical: int,
+) -> np.ndarray:
+    """Sound superset of the source rows whose SCORE row changes under
+    ΔC, for both denominator variants. Derivation (M = C·Cᵀ, d the
+    rowsum or diagonal denominator):
+
+    - R = rows of ΔC: their counts row and denominator change.
+    - d may also change for rows supported on Δcolsum's columns
+      (rowsum variant: d_i = Σ_v C[i,v]·colsum[v]).
+    - score(i, j) = 2M[i,j]/(d_i+d_j) changes for i ∉ R∪D only through
+      M[i,j] (j ∈ R, needs C[i] ∩ cols(ΔC)) or d_j (j ∈ D, needs
+      M[i,j] ≠ 0, i.e. C[i] ∩ supp(C[j])).
+
+    So with W = cols(ΔC) ∪ cols(C rows in R∪D), every changed score row
+    lies in R ∪ {i : C_new[i] has support on W} — a couple of O(nnz)
+    vectorized masks, no score is ever computed. (A zero M entry stays
+    score 0 whatever the denominators do, which is what bounds the
+    2-hop spread to supp(C[j]).)"""
+    if delta_c.rows.shape[0] == 0:
+        return np.empty(0, dtype=np.int64)
+    r_rows = np.unique(delta_c.rows)
+    dcolsum = np.zeros(c_old.shape[1], dtype=np.float64)
+    np.add.at(dcolsum, delta_c.cols, delta_c.weights)
+    dv_cols = np.flatnonzero(dcolsum)
+    # D superset: rows of the NEW factor supported on Δcolsum columns,
+    # plus R (removals can only shrink support of rows already in R).
+    col_hit = np.zeros(c_old.shape[1], dtype=bool)
+    col_hit[np.unique(delta_c.cols)] = True
+    col_hit[dv_cols] = True
+    d_sup = np.union1d(r_rows, np.unique(c_new.rows[col_hit[c_new.cols]]))
+    # W: ΔC's columns plus every column supported by a row in R ∪ D
+    # (old and new support both, so removed overlap still invalidates).
+    row_hit = np.zeros(c_old.shape[0], dtype=bool)
+    row_hit[d_sup] = True
+    w_mask = col_hit.copy()
+    w_mask[np.unique(c_old.cols[row_hit[c_old.rows]])] = True
+    w_mask[np.unique(c_new.cols[row_hit[c_new.rows]])] = True
+    affected = np.union1d(
+        r_rows, np.unique(c_new.rows[w_mask[c_new.cols]])
+    )
+    affected = np.union1d(affected, np.unique(c_old.rows[w_mask[c_old.cols]]))
+    return affected[affected < n_logical].astype(np.int64)
 
 
 def _stable_topk(x: torch.Tensor, k: int):

@@ -1,0 +1,224 @@
+"""``dpathsim-torch serve`` — the online serving entry point.
+
+Bootstraps the engine once (dataset, backend, metapath, variant,
+platform), wraps the warm backend in a :class:`PathSimService`, and
+speaks the JSONL protocol on stdin/stdout until EOF or a ``shutdown``
+op::
+
+    echo '{"id": 1, "op": "topk", "source": "Didier Dubois", "k": 5}' \\
+        | dpathsim-torch serve --dataset dblp/dblp_small.gexf --backend torch
+
+Runs on the CUDA card by default; ``--platform cpu`` runs on the host.
+Without a card and without ``--platform cpu`` it refuses to start.
+Structured events (bucket warm times, batch accounting, sheds, updates)
+ride the ``--metrics`` JSONL channel. Flags of the JAX package's
+``serve`` that belong to lanes not ported yet are refused by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..backends.base import available_backends
+from ..config import RunConfig
+from ..ops.pathsim import VARIANTS
+from .service import ServeConfig, build_service
+
+# Flags of the JAX package's ``dpathsim serve`` whose features the port
+# does not have yet: the ANN and learned lanes, secondary-metapath
+# engines, compaction, the tuning table, the Prometheus exporter, the
+# sharded backend's device count, compressed factor layouts and the
+# native loader.
+NOT_PORTED_FLAGS = frozenset({
+    "--memo-budget-mb", "--max-metapaths", "--loader", "--n-devices",
+    "--factor-format", "--no-compact", "--compact-chain-len",
+    "--compact-headroom-frac", "--compact-headroom", "--compact-cooldown",
+    "--metrics-file", "--metrics-interval", "--tuning-table",
+    "--no-tuning", "--topk-mode", "--index", "--ann-nprobe",
+    "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
+    "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
+    "--learned-checkpoint", "--learned-dim", "--learned-steps",
+    "--learned-neg-ratio", "--learned-cand-mult",
+    "--learned-shadow-every", "--learned-recall-floor",
+    "--no-learned-refresh",
+})
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dpathsim-torch serve",
+        description="online PathSim serving on a CUDA card: JSONL "
+        "queries on stdin, JSONL answers on stdout",
+    )
+    p.add_argument("--dataset", required=True, help="GEXF file path")
+    p.add_argument("--backend", default="torch", choices=available_backends())
+    p.add_argument("--metapath", default="APVPA", help="served metapath")
+    p.add_argument("--variant", default="rowsum", choices=list(VARIANTS))
+    p.add_argument(
+        "--platform", default="cuda", choices=("cuda", "cpu"),
+        help="device: 'cuda' (default) fails when no card is present; "
+        "'cpu' serves from the host",
+    )
+    p.add_argument("--dtype", default="float32",
+                   help="carry dtype of the backend (float32 or float64)")
+    p.add_argument(
+        "--tile-rows", type=int, default=None,
+        help="torch-sparse: rows per streaming tile",
+    )
+    p.add_argument(
+        "--approx", action="store_true",
+        help="torch / torch-sparse: waive the f32 exact-integer-count guard",
+    )
+    p.add_argument("--metrics", default=None, help="JSONL metrics/events file")
+    p.add_argument("--k", type=int, default=10, help="default top-k")
+    p.add_argument(
+        "--max-batch", type=int, default=32,
+        help="coalescing cap; buckets are powers of two up to this",
+    )
+    p.add_argument(
+        "--max-wait-ms", type=float, default=2.0,
+        help="how long a formed batch waits for stragglers",
+    )
+    p.add_argument(
+        "--queue-depth", type=int, default=256,
+        help="admission bound; requests beyond it are shed",
+    )
+    p.add_argument(
+        "--cache-entries", type=int, default=4096,
+        help="result LRU capacity (0 disables tier 1)",
+    )
+    p.add_argument(
+        "--tile-cache-mb", type=float, default=64.0,
+        help="hot-tile score cache budget (0 disables tier 2)",
+    )
+    p.add_argument(
+        "--no-warm", action="store_true",
+        help="skip driving the shape buckets at startup",
+    )
+    p.add_argument(
+        "--batch-events", action="store_true",
+        help="emit a JSONL event per dispatched batch",
+    )
+    p.add_argument(
+        "--headroom", type=float, default=0.25,
+        help="index-capacity reserve for in-place 'update' ops "
+        "(fraction of each type's size; 0 disables — every node append "
+        "then forces a full rebuild)",
+    )
+    p.add_argument(
+        "--delta-threshold", type=float, default=0.05,
+        help="'update' batches changing more than this fraction of "
+        "edges rebuild instead of patching",
+    )
+    p.add_argument(
+        "--trace-out", default=None,
+        help="enable request tracing and write the span ring as "
+        "Chrome/Perfetto trace-event JSON here on shutdown",
+    )
+    p.add_argument(
+        "--trace-sample", type=int, default=1,
+        help="trace every Nth request (head sampling; 1 = every request)",
+    )
+    p.add_argument(
+        "--no-metrics", action="store_true",
+        help="disable the in-process metrics registry entirely "
+        "(stats/metrics ops then report zeros)",
+    )
+    return p
+
+
+def parse_serve_args(argv: list[str] | None):
+    """Parse ``serve`` flags; a flag of the JAX package's ``serve`` that
+    the port lacks raises ValueError naming it, any other unknown flag is
+    argparse's usage error."""
+    parser = build_serve_parser()
+    args, rest = parser.parse_known_args(argv)
+    for token in rest:
+        flag = token.split("=", 1)[0]
+        if flag in NOT_PORTED_FLAGS:
+            raise ValueError(f"serve {flag} is not ported yet")
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args
+
+
+def serve_main(argv: list[str] | None = None) -> int:
+    args = parse_serve_args(argv)
+    if "," in args.metapath:
+        raise ValueError(
+            "serve runs one metapath per service; multi-metapath "
+            "ensembles are not served yet"
+        )
+    if args.tile_rows is not None and args.backend != "torch-sparse":
+        raise ValueError(
+            "--tile-rows tunes the streaming tiled path and requires "
+            "--backend torch-sparse"
+        )
+    from ..ops import cuda_kernels
+    from ..utils.device import resolve_device
+
+    platform = resolve_device(args.platform).type  # before any load
+    if platform == "cuda":
+        cuda_kernels.true_f32()
+
+    from .. import obs
+    from ..resilience import preemption_handler
+    from ..utils.logging import RunLogger, set_event_sink
+    from .protocol import serve_loop
+
+    config = RunConfig(
+        dataset=args.dataset,
+        backend=args.backend,
+        metapath=args.metapath,
+        variant=args.variant,
+        platform=platform,
+        dtype=args.dtype,
+        tile_rows=args.tile_rows,
+        approx=args.approx,
+        headroom=args.headroom,
+        echo=False,
+    )
+    serve_config = ServeConfig(
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        queue_depth=args.queue_depth,
+        cache_entries=args.cache_entries,
+        tile_cache_bytes=int(args.tile_cache_mb * (1 << 20)),
+        k_default=args.k,
+        warm=not args.no_warm,
+        batch_events=args.batch_events,
+        delta_threshold=args.delta_threshold,
+    )
+    obs.configure(
+        metrics=not args.no_metrics,
+        tracing=True if args.trace_out else None,
+        trace_sample=args.trace_sample,
+    )
+    logger = RunLogger(output_path=None, echo=False,
+                       metrics_path=args.metrics)
+    set_event_sink(logger)
+    # SIGTERM/SIGINT → graceful drain: serve_loop notices the latched
+    # request at the next protocol event, completes in-flight work and
+    # returns 0 (serving/protocol.py).
+    installed = preemption_handler.install()
+    service = None
+    try:
+        service = build_service(config, serve_config)
+        print(
+            f"serving {service.metapath.name} over {service.n} "
+            f"{service.node_type}s (backend={service.backend.name}, "
+            f"platform={platform}); JSONL on stdin",
+            file=sys.stderr,
+        )
+        return serve_loop(service, sys.stdin, sys.stdout)
+    finally:
+        if service is not None:
+            service.close()
+        if args.trace_out:
+            print(obs.dump_trace(args.trace_out), file=sys.stderr)
+        if installed:
+            preemption_handler.uninstall()
+            preemption_handler.reset()
+        set_event_sink(None)
+        logger.close()

@@ -288,3 +288,75 @@ def metapaths(graphs, spec="APVPA"):
     jhin, thin = graphs
     return (jmeta.compile_metapath(spec, jhin.schema),
             tmeta.compile_metapath(spec, thin.schema))
+
+
+# -- delta ingestion and serving (tests/test_torch_delta*.py, serving) -------
+
+
+def delta_graphs(headroom=0.3, n_authors=96, n_papers=150, n_venues=7,
+                 seed=3):
+    """(JAX-package HIN, port HIN): one synthetic graph with materialized
+    ids (node appends take the id path, as on the wire), each side given
+    its own package's capacity headroom."""
+    from distributed_pathsim_tpu.data import delta as jdl
+    from distributed_pathsim_tpu.data import synthetic as jsyn
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+
+    raw = jsyn.synthetic_hin(n_authors, n_papers, n_venues, seed=seed,
+                             materialize_ids=True)
+    return jdl.with_headroom(raw, headroom), tdl.with_headroom(
+        port_hin(raw), headroom)
+
+
+def random_delta_spec(hin, rng, n_changes=12, append=False,
+                      rels=("author_of", "submit_at")):
+    """A random delta as plain data: adds and removes over each of
+    ``rels`` (both half-chain blocks of APVPA by default, so both
+    product-rule terms run), optionally one appended author wired in by
+    an added edge. ``{"edges": [(rel, add, remove)], "nodes": [(type,
+    ids)]}``; build it in either package with :func:`make_delta`."""
+    edges = []
+    per_rel = max(n_changes // 2, 2)
+    for rel in rels:
+        b = hin.blocks[rel]
+        n_src = hin.type_size(b.src_type)
+        n_dst = hin.type_size(b.dst_type)
+        n_rem = per_rel // 2
+        rem_i = rng.choice(b.nnz, size=n_rem, replace=False)
+        removes = np.stack([b.rows[rem_i], b.cols[rem_i]], axis=1)
+        existing = set(zip(b.rows.tolist(), b.cols.tolist()))
+        adds = []
+        while len(adds) < per_rel - n_rem:
+            e = (int(rng.integers(0, n_src)), int(rng.integers(0, n_dst)))
+            if e not in existing:
+                existing.add(e)
+                adds.append(e)
+        edges.append([rel, np.asarray(adds, dtype=np.int64).reshape(-1, 2),
+                      removes.astype(np.int64)])
+    nodes = []
+    if append:
+        n_auth = hin.type_size("author")
+        nodes.append(("author", (f"author_{n_auth}",)))
+        extra = [[n_auth, int(rng.integers(0, hin.type_size("paper")))]]
+        edges[0][1] = np.concatenate([edges[0][1], extra]).astype(np.int64)
+    return {"edges": [tuple(e) for e in edges], "nodes": nodes}
+
+
+def make_delta(dl, spec):
+    """A ``DeltaBatch`` of the package whose ``data.delta`` module is
+    ``dl``, from :func:`random_delta_spec`'s plain data."""
+    return dl.DeltaBatch(
+        edges=tuple(dl.edge_delta(rel, add=add, remove=rem)
+                    for rel, add, rem in spec["edges"]),
+        nodes=tuple(dl.NodeAppend(node_type=t, ids=tuple(ids))
+                    for t, ids in spec["nodes"]),
+    )
+
+
+def assert_coo_equal(a, b) -> None:
+    """Two COO factors (either package's) with equal shape, coordinates
+    and weights, in order."""
+    assert tuple(a.shape) == tuple(b.shape)
+    np.testing.assert_array_equal(a.rows, b.rows)
+    np.testing.assert_array_equal(a.cols, b.cols)
+    np.testing.assert_array_equal(a.weights, b.weights)
