@@ -42,7 +42,22 @@ nonzero and no result line is printed):
    oracle and unaffected ones still result-cache hits; 0 compiles from
    the end of warmup to the end of the phase; ``dpathsim-torch serve
    --platform cuda`` as a subprocess with a short JSONL script;
-5. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
+5. the router fleet on the card: two ``dpathsim-torch worker --platform
+   cuda`` processes on the one card over the bench graph (headroom 0.25)
+   behind an in-process port ``Router`` with ``RouterConfig`` defaults
+   (hedge 100 ms, heartbeat 0.25 s): 32 client threads x 64 ``topk``
+   (k = 10) with one worker SIGKILLed after a quarter of the answers —
+   zero lost, every answer equal to the host f64 oracle, at least one
+   failover, no other replica down, the heartbeat suspicions printed —
+   then the respawn, a warm load, the serving phase's update broadcast
+   and applied on both replicas on the delta path, the affected and
+   appended rows against the new oracle with both replicas owning some,
+   each worker's ``health`` compiles unchanged from the end of its warmup;
+   QPS and p50/p95/p99 by outcome from the router's own histogram, the
+   hedges, failovers, sheds and dispatches per worker, the fleet's cold
+   QPS beside the single service's; ``dpathsim-torch router --workers 2
+   --platform cuda`` as a subprocess with a short JSONL script;
+6. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
    papers x 64 venues (seed 42), ``torch-sparse`` with tile_rows 8192 and
    ``--approx`` semantics, ``PathSimDriver.rank_all(k=10)`` with a
    checkpoint directory: K3 once per row tile, 3 seeded spot rows
@@ -53,7 +68,7 @@ nonzero and no result line is printed):
    limb products, and K3's time at tile 0 (the Zipf head) and at a
    middle tile; the same backend behind a service, 64 requests, 3 rows
    within 1e-6 of host f64 arithmetic;
-6. times on the card (CUDA events, median of 7 after 2 warm-ups): each
+7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
    stripe widths, and the rank-all wall time as author-pairs/s with its
@@ -107,6 +122,11 @@ SERVE_HEADROOM, SERVE_MAX_BATCH = 0.25, 32
 SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 64
 UPDATE_ADDS, UPDATE_REMOVES, UPDATE_APPENDS = 64, 16, 8
 C5_SERVE_REQUESTS = 64
+# The router fleet: two workers on the one card over the bench graph
+# (author ids materialized, so the update's appended authors can be
+# named on the wire), the serving phase's load and update.
+ROUTER_SPEC = (f"synthetic:authors={N_AUTHORS},papers={N_PAPERS},"
+               f"venues={N_VENUES},seed={SEED},ids=1")
 
 REPS, WARMUP = 7, 2
 # K1's stripe widths timed beside the default (column tiles of 128).
@@ -1169,15 +1189,16 @@ def serving(torch, ck, np, launches, workdir, card, hin, hin_ap):
           f"{svc._bucket_ladder}): {time.perf_counter() - t0:.3f} s")
     try:
         with CompileCounter() as compiles:
-            serving_load_and_update(torch, ck, np, launches, card, svc, mp,
-                                    hin_ap, tdl, create_backend,
-                                    handle_request)
+            cold_qps = serving_load_and_update(
+                torch, ck, np, launches, card, svc, mp, hin_ap, tdl,
+                create_backend, handle_request)
             serve_subprocess(np, workdir, hin_ap, card)
         if compiles.count:
             raise AssertionError(
                 f"{compiles.count} compiles after warmup: {compiles.by_kind}")
         print("compile counter: 0 kernel builds, loads or graph captures "
               "from the end of warmup to the end of the phase")
+        return cold_qps
     finally:
         svc.close()
 
@@ -1185,7 +1206,8 @@ def serving(torch, ck, np, launches, workdir, card, hin, hin_ap):
 def serving_load_and_update(torch, ck, np, launches, card, svc, mp, hin_ap,
                             tdl, create_backend, handle_request):
     """Cold, warm and mixed load against the f64 oracle, then the update
-    and the kernels on the patched backends."""
+    and the kernels on the patched backends. Returns the cold load's
+    requests/s."""
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 
     backend = svc.backend
@@ -1195,6 +1217,7 @@ def serving_load_and_update(torch, ck, np, launches, card, svc, mp, hin_ap,
     for cell in svc._m_latency.values():
         cell.reset()
     cold, wall = run_clients(svc, cold_rows, TOP_K)
+    cold_qps = len(cold) / wall
     regime_latencies(svc, len(cold), wall, "cold load", card)
     oracle, _ = f64_topk(np, svc.hin, mp)
     check_served(np, cold, cold_rows.ravel(), oracle, TOP_K, "cold load")
@@ -1307,6 +1330,7 @@ def serving_load_and_update(torch, ck, np, launches, card, svc, mp, hin_ap,
     print(f"K2 on the patched {N_AUTHORS_ALL_PAIRS}-author backend "
           f"({got.shape[0]} authors after the update): bit-identical to "
           "the rebuilt backend")
+    return cold_qps
 
 
 def serving_layers(torch, np, svc, rng, card):
@@ -1424,6 +1448,283 @@ def serve_subprocess(np, workdir, hin_ap, card):
           f"{resps[1]['latency_ms']} ms cached; update "
           f"{resps[2]['result']['ms']} ms; compiles in the process: "
           f"{resps[4]['result']['compiles']} ({card})")
+
+
+# -- the router fleet on the card ---------------------------------------------
+
+
+def router_histogram(router, card, label, n_requests, wall):
+    """QPS and p50/p95/p99 by outcome from the router's own
+    ``dpathsim_router_request_seconds`` histogram (reset before each
+    load)."""
+    parts = []
+    for key, cell in router._m_latency.cells():
+        if cell.count:
+            outcome = dict(key).get("outcome", "?")
+            parts.append(
+                f"{outcome} n={cell.count} p50 {cell.quantile(0.5) * 1e3:.3f}"
+                f" p95 {cell.quantile(0.95) * 1e3:.3f} p99 "
+                f"{cell.quantile(0.99) * 1e3:.3f} ms")
+    print(f"{label}: {n_requests} requests in {wall:.3f} s -> "
+          f"{n_requests / wall:.1f} QPS; " + "; ".join(parts)
+          + f" ({card})")
+    return n_requests / wall
+
+
+def router_counts(router):
+    """Hedges, failovers, sheds, heartbeat suspicions and per-worker
+    dispatches from the router's counters (reset before each load)."""
+    from distributed_pathsim_tpu_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+
+    def total(name, **labels):
+        fam = reg.counter(name)
+        return int(sum(c.get() for k, c in fam.cells()
+                       if labels.items() <= dict(k).items()))
+
+    return {
+        "hedges": int(router._m_hedges.get()),
+        "failovers": total("dpathsim_router_failovers_total"),
+        "sheds": total("dpathsim_router_requests_total", outcome="shed"),
+        "suspicions": total("dpathsim_router_worker_down_total",
+                            status="suspect"),
+        "downs": total("dpathsim_router_worker_down_total", status="down"),
+        "dispatches": {dict(k)["worker"]: int(c.get()) for k, c in
+                       reg.counter("dpathsim_router_dispatches_total")
+                       .cells()},
+    }
+
+
+def reset_router_metrics(router):
+    from distributed_pathsim_tpu_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+    router._m_latency.reset()
+    for name in ("dpathsim_router_requests_total",
+                 "dpathsim_router_failovers_total",
+                 "dpathsim_router_hedges_total",
+                 "dpathsim_router_worker_down_total",
+                 "dpathsim_router_dispatches_total"):
+        reg.counter(name).reset()
+
+
+def check_routed(np, answers, oracle, hin, k, label):
+    """Every routed answer (author ids, f64 scores) equals the host f64
+    oracle's top-k over ``hin``, bit for bit."""
+    index_of = hin.indices["author"].index_of
+    rows = np.asarray([r for r, _ in answers], dtype=np.int64)
+    uniq, inv = np.unique(rows, return_inverse=True)
+    ov, oi = oracle(uniq, k)
+    for j, (row, resp) in enumerate(answers):
+        hits = resp["result"]["topk"]
+        got_i = [index_of[h["id"]] for h in hits]
+        got_v = [h["score"] for h in hits]
+        u = inv[j]
+        if got_i != oi[u].tolist() or got_v != ov[u].tolist():
+            raise AssertionError(f"{label}: row {row} differs from the f64 "
+                                 "oracle")
+    print(f"{label}: {len(answers)} answers ({uniq.shape[0]} distinct rows) "
+          "bit-identical to the host f64 oracle")
+
+
+def router_fleet(np, workdir, card, serve_cold_qps):
+    """Two ``dpathsim-torch worker --platform cuda`` processes on the one
+    card behind an in-process port Router (RouterConfig defaults: hedge
+    100 ms, heartbeat 0.25 s) over the bench graph: cold load with one
+    worker SIGKILLed partway, the respawn, warm load, one broadcast
+    update, the compile counts, then ``dpathsim-torch router`` as a
+    subprocess."""
+    import threading
+
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.router import (
+        Router,
+        RouterConfig,
+        SubprocessTransport,
+    )
+    from distributed_pathsim_tpu_torch.router.cli import (
+        _worker_argv,
+        build_worker_hin,
+        parse_router_args,
+    )
+    from distributed_pathsim_tpu_torch.router.loadgen import (
+        run_router_clients,
+    )
+
+    phase(f"router fleet on the card: 2 workers, {ROUTER_SPEC}, headroom "
+          f"{SERVE_HEADROOM}, {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} "
+          f"topk k={TOP_K}")
+    args = parse_router_args([
+        "--dataset", ROUTER_SPEC, "--platform", "cuda", "--backend", "torch",
+        "--headroom", str(SERVE_HEADROOM), "--k", str(TOP_K)])
+    transports = {f"w{i}": SubprocessTransport(f"w{i}", _worker_argv(args, i))
+                  for i in range(2)}
+    router = Router(transports, RouterConfig())
+    try:
+        t0 = time.perf_counter()
+        router.start(ready_timeout=600)
+        print(f"worker start (2 processes at once: graph build, backend "
+              f"init, bucket warmup): {time.perf_counter() - t0:.3f} s "
+              f"({card})")
+        compiles0 = {wid: router.worker_health(wid)["compiles"]
+                     for wid in transports}
+        hin = build_worker_hin(ROUTER_SPEC, SERVE_HEADROOM)
+        mp = compile_metapath("APVPA", hin.schema)
+        oracle, _ = f64_topk(np, hin, mp)
+        n = hin.type_size("author")
+        rng = np.random.default_rng(SEED + 3)
+        cold_rows = rng.integers(0, n, (SERVE_CLIENTS, SERVE_PER_CLIENT))
+
+        # cold load; w0 is SIGKILLed once a quarter of it is answered
+        reset_router_metrics(router)
+        ok_cell = router._m_requests.labels(outcome="ok")
+        started, killed = threading.Event(), {}
+
+        def killer():
+            started.wait()
+            while ok_cell.get() < cold_rows.size // 4:
+                time.sleep(0.001)
+            killed["at"] = int(ok_cell.get())
+            killed["s"] = time.perf_counter() - t_load
+            transports["w0"].kill()
+
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        t_load = time.perf_counter()
+        started.set()
+        res = run_router_clients(router, cold_rows.tolist(), TOP_K)
+        t_end = time.perf_counter() - t_load
+        kt.join(timeout=60)
+        if "at" not in killed:
+            raise AssertionError("the kill never happened")
+        fleet_qps = router_histogram(router, card, "fleet cold load, w0 "
+                                     f"SIGKILLed after {killed['at']} answers",
+                                     res["queries"], res["wall_s"])
+        counts = router_counts(router)
+        if res["lost"] or res["queries"] != cold_rows.size:
+            raise AssertionError(f"fleet cold load lost {res['lost']} "
+                                 f"requests: {res['errors']}")
+        check_routed(np, res["answers"], oracle, hin, TOP_K,
+                     "fleet cold load")
+        status = {wid: w.status for wid, w in router.workers.items()}
+        if status != {"w0": "down", "w1": "up"} or counts["downs"] != 1:
+            raise AssertionError(f"worker states after the kill: {status}, "
+                                 f"{counts['downs']} marked down")
+        if counts["failovers"] < 1:
+            raise AssertionError("the kill caused no failover")
+        print(f"fleet cold load by stage: {killed['at'] / killed['s']:.1f}"
+              f" QPS with both workers up ({killed['at']} answers in "
+              f"{killed['s']:.3f} s), "
+              f"{(res['queries'] - killed['at']) / (t_end - killed['s']):.1f}"
+              f" QPS on w1 alone after the kill ({card})")
+        print(f"fleet cold load: 0 lost, {counts['failovers']} failovers "
+              f"({res['failover_affected']} answers re-dispatched), "
+              f"{counts['hedges']} hedges, {counts['sheds']} sheds, "
+              f"{counts['suspicions']} heartbeat suspicions, dispatches "
+              f"{counts['dispatches']}; fleet {fleet_qps:.1f} QPS beside "
+              f"one service's {serve_cold_qps:.1f} QPS in the serving "
+              f"phase ({card})")
+
+        t0 = time.perf_counter()
+        router.reap_workers()
+        router.add_worker("w0", SubprocessTransport("w0",
+                                                    _worker_argv(args, 0)),
+                          ready_timeout=600)
+        print(f"respawn of w0 (one process): {time.perf_counter() - t0:.3f}"
+              f" s ({card})")
+        compiles0["w0"] = router.worker_health("w0")["compiles"]
+
+        reset_router_metrics(router)
+        res = run_router_clients(router, cold_rows.tolist(), TOP_K)
+        router_histogram(router, card, "fleet warm load (same rows)",
+                         res["queries"], res["wall_s"])
+        counts = router_counts(router)
+        if res["lost"]:
+            raise AssertionError(f"fleet warm load lost {res['lost']}")
+        check_routed(np, res["answers"], oracle, hin, TOP_K,
+                     "fleet warm load")
+        print(f"fleet warm load: {counts['hedges']} hedges, "
+              f"{counts['failovers']} failovers, {counts['sheds']} sheds, "
+              f"{counts['suspicions']} heartbeat suspicions, dispatches "
+              f"{counts['dispatches']} ({card})")
+
+        recs = update_records(np, hin, np.random.default_rng(SEED + 1),
+                              "fleet_new")
+        t0 = time.perf_counter()
+        resp = router.request({"id": 1, "op": "update", **recs}, timeout=600)
+        update_ms = (time.perf_counter() - t0) * 1e3
+        if not resp["ok"] or resp["result"]["applied"] != ["w0", "w1"] or (
+                resp["result"]["mode"] != "delta"):
+            raise AssertionError(f"fleet update: {resp}")
+        res_u = resp["result"]
+        print(f"fleet update: applied on {res_u['applied']}, mode "
+              f"{res_u['mode']}, {res_u['affected_rows']} affected rows, "
+              f"{update_ms:.3f} ms from submit to the last ack ({card})")
+        plan = tdl.plan_delta(hin, tdl.delta_from_records(hin, **recs), mp)
+        new_oracle, _ = f64_topk(np, plan.hin_new, mp)
+        probe = np.unique(np.concatenate([
+            plan.affected_rows[:512], np.arange(n, plan.hin_new.type_size(
+                "author"))]))
+        owners = {wid: int(sum(router.policy.owner(int(r)) == wid
+                               for r in probe)) for wid in transports}
+        if min(owners.values()) == 0:
+            raise AssertionError(f"probe rows owned by one replica: {owners}")
+        res = run_router_clients(
+            router, [p.tolist() for p in np.array_split(probe,
+                                                        SERVE_CLIENTS)],
+            TOP_K)
+        if res["lost"]:
+            raise AssertionError(f"affected rows lost {res['lost']}")
+        check_routed(np, res["answers"], new_oracle, plan.hin_new, TOP_K,
+                     f"affected and appended rows after the update (owners "
+                     f"{owners})")
+        compiles1 = {wid: router.worker_health(wid)["compiles"]
+                     for wid in transports}
+        if compiles1 != compiles0:
+            raise AssertionError(f"worker compiles moved: {compiles0} -> "
+                                 f"{compiles1}")
+        print(f"worker compiles: {compiles1}, unchanged from the end of each "
+              "worker's warmup to the end of the phase")
+    finally:
+        router.close()
+    router_subprocess(workdir, card)
+
+
+def router_subprocess(workdir, card):
+    """``dpathsim-torch router --workers 2 --platform cuda`` on the
+    all-pairs GEXF with a short JSONL script: exit 0, every response
+    ok."""
+    script = [
+        {"id": 1, "op": "topk", "row": 7, "k": TOP_K},
+        {"id": 2, "op": "update", "add_edges": [
+            {"rel": "author_of", "src_row": 7, "dst_row": 11}]},
+        {"id": 3, "op": "health"},
+        {"id": 4, "op": "shutdown"},
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "router",
+         "--workers", "2", "--platform", "cuda", "--backend", "torch",
+         "--dataset", str(workdir / "allpairs.gexf")],
+        input="\n".join(json.dumps(r) for r in script) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"router exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    resps = {r["id"]: r for r in map(json.loads, proc.stdout.splitlines())}
+    if sorted(resps) != [1, 2, 3, 4] or not all(r["ok"]
+                                                for r in resps.values()):
+        raise AssertionError(f"router responses: {resps}")
+    if resps[2]["result"]["applied"] != ["w0", "w1"]:
+        raise AssertionError(f"router update: {resps[2]}")
+    print(f"dpathsim-torch router --workers 2 --platform cuda on "
+          f"{N_AUTHORS_ALL_PAIRS} authors: exit 0, all 4 responses ok in "
+          f"{wall:.1f} s (2 worker startups included); update applied on "
+          f"{resps[2]['result']['applied']} ({card})")
 
 
 def serve_config5(np, backend, c64, d64, card):
@@ -1697,7 +1998,9 @@ def main() -> int:
         hin, hin_ap, launches, backend = main_path(
             torch, ck, np, pathlib.Path(tmp)
         )
-        serving(torch, ck, np, launches, pathlib.Path(tmp), smi, hin, hin_ap)
+        cold_qps = serving(torch, ck, np, launches, pathlib.Path(tmp), smi,
+                           hin, hin_ap)
+        router_fleet(np, pathlib.Path(tmp), smi, cold_qps)
         k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)

@@ -182,6 +182,12 @@ class PathSimBackend(abc.ABC):
 
     # -- incremental updates (delta ingestion, data/delta.py) --------------
 
+    def check_delta(self, plan) -> None:
+        """Raise, before anything changes, when absorbing ``plan`` would
+        break this backend's exactness guard. The backends without one
+        (the f64 oracle; the streaming tier, which rescores exactly past
+        the guard) accept every plan."""
+
     def apply_delta(self, plan) -> None:
         """Absorb one :class:`~..data.delta.DeltaPlan` in place: patch
         the half factor, denominators and derived caches from the plan's

@@ -162,10 +162,13 @@ class TorchDenseBackend(PathSimBackend):
 
     def _fetch_rowsums(self, rowsums: torch.Tensor) -> None:
         """Host copy of the row sums + the exact-count guard, once per
-        backend (the row sums are as immutable as the graph)."""
+        backend (the row sums are as immutable as the graph). The guard
+        runs BEFORE the copy is cached, so a graph past it raises on
+        every call, never only the first."""
         if self._rowsums is None:
-            self._rowsums = _host(rowsums)
-            self._check_exact(self._rowsums)
+            host = _host(rowsums)
+            self._check_exact(host)
+            self._rowsums = host
 
     def _compute(self):
         if self._m is None:
@@ -175,10 +178,26 @@ class TorchDenseBackend(PathSimBackend):
             else:
                 m = planner.execute_dense(self.plan, self._blocks)
                 rowsums = m.sum(1)
+            host_rowsums = _host(rowsums)
+            self._check_exact(host_rowsums)  # before anything is cached
             self._m = _host(m)
-            self._rowsums = _host(rowsums)
-            self._check_exact(self._rowsums)
+            self._rowsums = host_rowsums
         return self._m, self._rowsums
+
+    def check_delta(self, plan) -> None:
+        """The exact-count guard on the graph ``plan`` would produce,
+        from its patched host factor C' (row sums of M' = C'·C'ᵀ as
+        C'·(C'ᵀ·1), exact in f64) — so a service can refuse the update
+        before :meth:`apply_delta` touches C."""
+        half = plan.half_new
+        if not self.exact_counts or half is None:
+            return
+        w = np.asarray(half.weights, dtype=np.float64)
+        colsums = np.bincount(half.cols, weights=w,
+                              minlength=half.shape[1])
+        rowsums = np.bincount(half.rows, weights=w * colsums[half.cols],
+                              minlength=half.shape[0])
+        self._check_exact(rowsums)
 
     def commuting_matrix(self) -> np.ndarray:
         return self._compute()[0][: self.n_sources, : self.n_targets]

@@ -7,7 +7,8 @@ Replaces the reference's hard-coded ``__main__`` block
                    --backend torch --metapath APVPA --output out.log
 
 and routes ``dpathsim-torch serve ...`` to the online serving entry
-point (serving/cli.py).
+point (serving/cli.py) and ``dpathsim-torch worker / router /
+fleet-stats ...`` to the horizontal tier (router/cli.py).
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -94,17 +95,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# ``serve``: one warm service on stdin/stdout; ``worker``: one replica
+# speaking the router-facing async protocol; ``router``: the
+# fault-tolerant fan-out over N of them; ``fleet-stats``: the one-shot
+# merged-fleet summary; ``batch``: the JAX package's corpus-scale
+# campaigns, not ported yet.
+SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch")
+
+
+def _subcommand(name: str):
+    if name == "serve":
+        from .serving.cli import serve_main
+
+        return serve_main
+    if name == "batch":
+        raise NotImplementedError(
+            "batch campaigns (dpathsim batch, router/batch.py) are not "
+            "ported yet"
+        )
+    from .router import cli as router_cli
+
+    return {
+        "worker": router_cli.worker_main,
+        "router": router_cli.router_main,
+        "fleet-stats": router_cli.fleet_stats_main,
+    }[name]
+
+
 def main(argv: list[str] | None = None) -> int:
-    # Subcommand routing: ``dpathsim-torch serve ...`` is the online
-    # serving entry point (serving/cli.py); everything else stays the
+    # Subcommand routing (SUBCOMMANDS); everything else stays the
     # flag-driven batch CLI.
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] == "serve":
-        from .serving.cli import serve_main
-
+    if argv and argv[0] in SUBCOMMANDS:
         try:
-            return serve_main(argv[1:])
+            return _subcommand(argv[0])(argv[1:])
         except (KeyError, ValueError, OverflowError, FileNotFoundError,
                 NotImplementedError, DeviceUnavailable) as exc:
             msg = exc.args[0] if exc.args else exc

@@ -40,11 +40,14 @@ def build(
 
 
 def build_backend(
-    config: RunConfig, timer: StageTimer | None = None
+    config: RunConfig, timer: StageTimer | None = None,
+    hin: EncodedHIN | None = None,
 ) -> tuple[EncodedHIN, MetaPath, PathSimBackend]:
     """``timer``: optional StageTimer; the bootstrap phases (GEXF load +
     encode, metapath compile, backend init — which includes the host
-    half-chain fold and the factor's transfer) are recorded on it."""
+    half-chain fold and the factor's transfer) are recorded on it.
+    ``hin``: an already encoded graph (with whatever headroom it was
+    given) that takes the place of ``config.dataset``."""
     if timer is None:
         timer = StageTimer()
     # count kernel builds from the very first: a serving process's
@@ -53,14 +56,8 @@ def build_backend(
 
     install_compile_metrics()
     with timer.stage("load_encode"):
-        hin = load_dataset(config.dataset, loader=config.loader)
-        if config.headroom:
-            # Reserve append capacity BEFORE any backend sees a shape:
-            # the delta-ingestion contract (data/delta.py) — results are
-            # bit-identical, shapes survive node growth.
-            from .data.delta import with_headroom
-
-            hin = with_headroom(hin, config.headroom)
+        if hin is None:
+            hin = _load_with_headroom(config)
     with timer.stage("metapath_compile"):
         metapath = compile_metapath(config.metapath, hin.schema)
     with timer.stage("backend_init"):
@@ -68,6 +65,18 @@ def build_backend(
             config.backend, hin, metapath, **backend_options(config)
         )
     return hin, metapath, backend
+
+
+def _load_with_headroom(config: RunConfig) -> EncodedHIN:
+    hin = load_dataset(config.dataset, loader=config.loader)
+    if config.headroom:
+        # Reserve append capacity BEFORE any backend sees a shape: the
+        # delta-ingestion contract (data/delta.py) — results are
+        # bit-identical, shapes survive node growth.
+        from .data.delta import with_headroom
+
+        hin = with_headroom(hin, config.headroom)
+    return hin
 
 
 def backend_options(config: RunConfig) -> dict:

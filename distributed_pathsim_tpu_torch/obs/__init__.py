@@ -1,4 +1,4 @@
-"""Observability: hierarchical tracing spans and a metrics registry.
+"""Observability: hierarchical tracing spans, metrics, exporters, fleet.
 
 Public surface:
 
@@ -10,10 +10,21 @@ Public surface:
 - :func:`get_registry` / :class:`MetricsRegistry` — process-wide
   counters, gauges and bounded-memory streaming histograms, the source
   of the ``metrics`` op's p50/p95/p99 (metrics.py);
-- :func:`configure` — the one switch the serve CLI flips.
-
-The JAX package's Prometheus exporter, flight recorder, SLO engine and
-fleet merge are not ported yet.
+- :func:`render_prometheus` / :func:`write_textfile` /
+  :class:`PrometheusTextfileExporter` / :func:`write_chrome_trace` —
+  the on-disk/wire formats (export.py; ``--metrics-file`` on ``serve``
+  and ``worker``);
+- fleet.py — exact (bucket-wise, associative) merge of per-process
+  registry snapshots, per-worker-labeled fleet Prometheus export,
+  stitched multi-process Perfetto traces + the parent-link audit, and
+  the ``dpathsim-torch fleet-stats`` renderer;
+- :class:`SLOEngine` / :class:`SLOSpec` (slo.py) — declarative
+  objectives over the merged stream with multi-window burn-rate
+  alerts;
+- :class:`FlightRecorder` (flight.py) — the tail-sampling complement
+  to head sampling: retroactively keep slow/errored/shed/hedged/
+  failed-over requests' records and span trees;
+- :func:`configure` — the one switch the CLIs flip.
 
 Layering: this package imports nothing from the rest of the port —
 everything else imports obs, never the reverse.
@@ -21,6 +32,24 @@ everything else imports obs, never the reverse.
 
 from __future__ import annotations
 
+from .export import (
+    PrometheusTextfileExporter,
+    render_prometheus,
+    write_chrome_trace,
+    write_textfile,
+)
+from .fleet import (
+    FleetTextfileExporter,
+    audit_fleet_traces,
+    fleet_chrome_trace,
+    merge_histogram_cells,
+    merge_registry_snapshots,
+    render_fleet_prometheus,
+    render_fleet_stats,
+    write_fleet_textfile,
+    write_fleet_trace,
+)
+from .flight import FlightRecorder
 from .metrics import (
     MetricsRegistry,
     geometric_bounds,
@@ -28,6 +57,7 @@ from .metrics import (
     quantile_from_counts,
     set_registry,
 )
+from .slo import SLOEngine, SLOSpec, default_specs, specs_from_json
 from .trace import (
     Span,
     SpanContext,
@@ -38,19 +68,37 @@ from .trace import (
 )
 
 __all__ = [
+    "FleetTextfileExporter",
+    "FlightRecorder",
     "MetricsRegistry",
+    "PrometheusTextfileExporter",
+    "SLOEngine",
+    "SLOSpec",
     "Span",
     "SpanContext",
     "Tracer",
+    "audit_fleet_traces",
     "configure",
+    "default_specs",
     "dump_trace",
+    "fleet_chrome_trace",
     "from_wire",
     "geometric_bounds",
     "get_registry",
     "get_tracer",
+    "merge_histogram_cells",
+    "merge_registry_snapshots",
     "quantile_from_counts",
+    "render_fleet_prometheus",
+    "render_fleet_stats",
+    "render_prometheus",
     "set_registry",
+    "specs_from_json",
     "to_wire",
+    "write_chrome_trace",
+    "write_fleet_textfile",
+    "write_fleet_trace",
+    "write_textfile",
 ]
 
 
@@ -79,5 +127,5 @@ def configure(
 def dump_trace(path: str) -> str:
     """Write the span ring as Perfetto-loadable JSON and return the
     one-line summary the CLI prints at exit."""
-    n = get_tracer().write_chrome_trace(path)
+    n = write_chrome_trace(path)
     return f"trace: {n} spans -> {path} (load in https://ui.perfetto.dev)"

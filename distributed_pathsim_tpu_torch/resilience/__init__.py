@@ -1,18 +1,28 @@
-"""Fault-tolerance primitives of the serving path.
+"""Fault-tolerance primitives of the serving path and the router tier.
 
 - :mod:`.policy` — :class:`RetryPolicy` (exponential backoff + jitter,
   exception-class filters, overall deadlines; env-tunable defaults) and
   :class:`Deadline`, the per-request time budget the protocol's
   ``deadline_ms`` field becomes;
+- :mod:`.inject` — :class:`FaultInjector`: the deterministic chaos
+  harness (``PATHSIM_FAULT_PLAN``) that raises, delays or requests
+  preemption at the router tier's seams (``worker_dispatch``,
+  ``heartbeat``, ``delta_broadcast``), so every failover path runs on
+  the CPU in the tests;
 - :mod:`.preemption` — SIGTERM/SIGINT → a latched stop request, which
-  ``serve`` turns into a graceful drain.
+  ``serve`` and ``worker`` turn into a graceful drain.
 
-The JAX package's fault injector and backend degradation chain are not
+The one-line integration surface for seams is :func:`resilient_call`.
+The JAX package's backend degradation chain (``degrade.py``) is not
 ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Callable, TypeVar
+
+from . import inject
+from .inject import FaultInjector, InjectedCrash, InjectedFault
 from .policy import (
     Deadline,
     DeadlineExceeded,
@@ -22,13 +32,38 @@ from .policy import (
 )
 from .preemption import PREEMPTED_EXIT_CODE, Preempted, handler as preemption_handler
 
+T = TypeVar("T")
+
 __all__ = [
     "Deadline",
     "DeadlineExceeded",
+    "FaultInjector",
+    "InjectedCrash",
+    "InjectedFault",
     "PREEMPTED_EXIT_CODE",
     "Preempted",
     "RetryPolicy",
     "TransientError",
+    "inject",
     "policy_from_env",
     "preemption_handler",
+    "resilient_call",
 ]
+
+
+def resilient_call(
+    seam: str,
+    fn: Callable[[], T],
+    policy: RetryPolicy | None = None,
+) -> T:
+    """Run ``fn`` as one seam attempt: consult the fault injector, then
+    the real work, under ``policy`` (env default when None). Each retry
+    attempt re-fires the injector — an injected fault counts as a
+    failure of the operation itself."""
+    policy = policy or policy_from_env()
+
+    def attempt() -> T:
+        inject.fire(seam)
+        return fn()
+
+    return policy.call(attempt, seam=seam)

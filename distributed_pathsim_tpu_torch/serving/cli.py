@@ -11,13 +11,21 @@ op::
 Runs on the CUDA card by default; ``--platform cpu`` runs on the host.
 Without a card and without ``--platform cpu`` it refuses to start.
 Structured events (bucket warm times, batch accounting, sheds, updates)
-ride the ``--metrics`` JSONL channel. Flags of the JAX package's
-``serve`` that belong to lanes not ported yet are refused by name.
+ride the ``--metrics`` JSONL channel; ``--metrics-file`` keeps a
+Prometheus textfile of the live registry, rewritten every
+``--metrics-interval`` seconds. Flags of the JAX package's ``serve``
+that belong to lanes not ported yet are refused by name.
+
+The setup helpers here (:func:`parse_known`, :func:`prepare_platform`,
+:func:`run_config`, :func:`serve_config`, :func:`serving_process`) are
+shared with ``dpathsim-torch worker`` (router/cli.py), which is
+``serve`` with the router-facing loop.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from ..backends.base import available_backends
@@ -27,16 +35,14 @@ from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
 # does not have yet: the ANN and learned lanes, secondary-metapath
-# engines, compaction, the tuning table, the Prometheus exporter, the
-# sharded backend's device count, compressed factor layouts and the
-# native loader.
+# engines, compaction, the tuning table, the sharded backend's device
+# count, compressed factor layouts and the native loader.
 NOT_PORTED_FLAGS = frozenset({
     "--memo-budget-mb", "--max-metapaths", "--loader", "--n-devices",
     "--factor-format", "--no-compact", "--compact-chain-len",
     "--compact-headroom-frac", "--compact-headroom", "--compact-cooldown",
-    "--metrics-file", "--metrics-interval", "--tuning-table",
-    "--no-tuning", "--topk-mode", "--index", "--ann-nprobe",
-    "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
+    "--tuning-table", "--no-tuning", "--topk-mode", "--index",
+    "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
     "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
     "--learned-checkpoint", "--learned-dim", "--learned-steps",
     "--learned-neg-ratio", "--learned-cand-mult",
@@ -71,6 +77,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
         help="torch / torch-sparse: waive the f32 exact-integer-count guard",
     )
     p.add_argument("--metrics", default=None, help="JSONL metrics/events file")
+    p.add_argument(
+        "--metrics-file", default=None,
+        help="Prometheus textfile: counters/gauges/latency histograms "
+        "re-written atomically every --metrics-interval (node-exporter "
+        "textfile-collector format)",
+    )
+    p.add_argument(
+        "--metrics-interval", type=float, default=5.0,
+        help="seconds between --metrics-file snapshots",
+    )
     p.add_argument("--k", type=int, default=10, help="default top-k")
     p.add_argument(
         "--max-batch", type=int, default=32,
@@ -128,23 +144,28 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_serve_args(argv: list[str] | None):
-    """Parse ``serve`` flags; a flag of the JAX package's ``serve`` that
-    the port lacks raises ValueError naming it, any other unknown flag is
-    argparse's usage error."""
-    parser = build_serve_parser()
+def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
+                command: str = "serve"):
+    """Parse ``argv``; a flag of the JAX package's command that the port
+    lacks (``not_ported``) raises ValueError naming it, any other
+    unknown flag is argparse's usage error."""
     args, rest = parser.parse_known_args(argv)
     for token in rest:
         flag = token.split("=", 1)[0]
-        if flag in NOT_PORTED_FLAGS:
-            raise ValueError(f"serve {flag} is not ported yet")
+        if flag in not_ported:
+            raise ValueError(f"{command} {flag} is not ported yet")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     return args
 
 
-def serve_main(argv: list[str] | None = None) -> int:
-    args = parse_serve_args(argv)
+def parse_serve_args(argv: list[str] | None):
+    return parse_known(build_serve_parser(), argv, NOT_PORTED_FLAGS)
+
+
+def prepare_platform(args) -> str:
+    """The flag checks ``serve`` and ``worker`` share, then the device:
+    'cuda' without a card raises DeviceUnavailable before any load."""
     if "," in args.metapath:
         raise ValueError(
             "serve runs one metapath per service; multi-metapath "
@@ -158,16 +179,14 @@ def serve_main(argv: list[str] | None = None) -> int:
     from ..ops import cuda_kernels
     from ..utils.device import resolve_device
 
-    platform = resolve_device(args.platform).type  # before any load
+    platform = resolve_device(args.platform).type
     if platform == "cuda":
         cuda_kernels.true_f32()
+    return platform
 
-    from .. import obs
-    from ..resilience import preemption_handler
-    from ..utils.logging import RunLogger, set_event_sink
-    from .protocol import serve_loop
 
-    config = RunConfig(
+def run_config(args, platform: str) -> RunConfig:
+    return RunConfig(
         dataset=args.dataset,
         backend=args.backend,
         metapath=args.metapath,
@@ -179,7 +198,10 @@ def serve_main(argv: list[str] | None = None) -> int:
         headroom=args.headroom,
         echo=False,
     )
-    serve_config = ServeConfig(
+
+
+def serve_config(args) -> ServeConfig:
+    return ServeConfig(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         queue_depth=args.queue_depth,
@@ -190,35 +212,72 @@ def serve_main(argv: list[str] | None = None) -> int:
         batch_events=args.batch_events,
         delta_threshold=args.delta_threshold,
     )
+
+
+@contextlib.contextmanager
+def serving_process(args, artifacts: bool = True):
+    """The process-level switches of a serving process, flipped for the
+    duration: the obs registry and tracer, the ``--metrics`` JSONL event
+    sink, the ``--metrics-file`` Prometheus exporter (started by the
+    caller once the service is up — ``start`` is yielded — and given a
+    final write on exit) and SIGTERM/SIGINT → a latched graceful drain.
+    ``--trace-out`` is written on exit. ``artifacts=False`` (the router,
+    whose ``--metrics-file`` and ``--trace-out`` are fleet-wide) skips
+    the exporter and the trace file."""
+    from .. import obs
+    from ..resilience import preemption_handler
+    from ..utils.logging import RunLogger, set_event_sink
+
     obs.configure(
         metrics=not args.no_metrics,
         tracing=True if args.trace_out else None,
         trace_sample=args.trace_sample,
     )
+    exporter = (
+        obs.PrometheusTextfileExporter(
+            args.metrics_file, interval_s=args.metrics_interval
+        )
+        if artifacts and args.metrics_file
+        else None
+    )
     logger = RunLogger(output_path=None, echo=False,
                        metrics_path=args.metrics)
     set_event_sink(logger)
-    # SIGTERM/SIGINT → graceful drain: serve_loop notices the latched
-    # request at the next protocol event, completes in-flight work and
-    # returns 0 (serving/protocol.py).
     installed = preemption_handler.install()
-    service = None
     try:
-        service = build_service(config, serve_config)
-        print(
-            f"serving {service.metapath.name} over {service.n} "
-            f"{service.node_type}s (backend={service.backend.name}, "
-            f"platform={platform}); JSONL on stdin",
-            file=sys.stderr,
-        )
-        return serve_loop(service, sys.stdin, sys.stdout)
+        yield (exporter.start if exporter is not None else lambda: None)
     finally:
-        if service is not None:
-            service.close()
-        if args.trace_out:
+        if exporter is not None:
+            exporter.stop()  # final write: shutdown state preserved
+        if artifacts and args.trace_out:
             print(obs.dump_trace(args.trace_out), file=sys.stderr)
         if installed:
             preemption_handler.uninstall()
             preemption_handler.reset()
         set_event_sink(None)
         logger.close()
+
+
+def serve_main(argv: list[str] | None = None) -> int:
+    args = parse_serve_args(argv)
+    platform = prepare_platform(args)  # before any load
+
+    from .protocol import serve_loop
+
+    config = run_config(args, platform)
+    with serving_process(args) as start_exporter:
+        service = build_service(config, serve_config(args))
+        try:
+            start_exporter()
+            print(
+                f"serving {service.metapath.name} over {service.n} "
+                f"{service.node_type}s (backend={service.backend.name}, "
+                f"platform={platform}); JSONL on stdin",
+                file=sys.stderr,
+            )
+            # SIGTERM/SIGINT → graceful drain: serve_loop notices the
+            # latched request at the next protocol event, completes
+            # in-flight work and returns 0 (serving/protocol.py).
+            return serve_loop(service, sys.stdin, sys.stdout)
+        finally:
+            service.close()

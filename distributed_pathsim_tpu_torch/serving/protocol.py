@@ -182,7 +182,7 @@ class NotPorted(KeyError):
     protocol that the port does not serve yet."""
 
 
-def _check_lane(service: PathSimService, req: dict,
+def check_lane(service: PathSimService, req: dict,
                 topk: bool = True) -> None:
     """Refuse, per request, what only an unported lane could answer: a
     ``metapath`` other than the served one, and for ``topk`` a non-exact
@@ -228,7 +228,7 @@ def _dispatch_op(
         service.invalidate()
         return {"invalidated": True}
     if op == "topk":
-        _check_lane(service, req)
+        check_lane(service, req)
         kwargs = {key: req.get(key) for key in _QUERY_KEYS}
         if all(v is None for v in kwargs.values()):
             raise KeyError("topk needs one of source / source_id / row")
@@ -260,7 +260,7 @@ def _dispatch_op(
         )
         return service.update(delta, want_rows=bool(req.get("want_rows")))
     if op == "scores":
-        _check_lane(service, req, topk=False)
+        check_lane(service, req, topk=False)
         row = service.resolve(
             source=req.get("source"),
             source_id=req.get("source_id"),

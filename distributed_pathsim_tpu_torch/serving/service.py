@@ -136,7 +136,10 @@ class PathSimService:
     def _install_backend(self, backend: PathSimBackend, warm: bool) -> None:
         """Make a backend serving-warm: denominators prefetched (for the
         torch backend this also assembles C and leaves it resident on
-        the card), fingerprint computed, buckets driven once."""
+        the card), fingerprint computed, buckets driven once. The
+        denominators come first: a graph past the backend's exactness
+        guard raises here, before the service's state is touched."""
+        d = np.asarray(backend._denominators(self.variant), dtype=np.float64)
         self.backend = backend
         self.hin = backend.hin
         self.metapath = backend.metapath
@@ -153,9 +156,7 @@ class PathSimService:
         # pair can never resurrect a stale answer: versions only grow,
         # and a rebuild/reload swaps base_fp itself.
         self._row_ver = np.zeros(self.index.padded_size, dtype=np.int64)
-        self._d = np.asarray(
-            backend._denominators(self.variant), dtype=np.float64
-        )
+        self._d = d
         # The port has no tuning table: the heuristic pow2 ladder. The
         # SAME ladder feeds warmup and the coalescer — a mismatch would
         # dispatch a bucket warmup never drove.
@@ -449,6 +450,13 @@ class PathSimService:
         path): build a fresh backend for the delta-applied graph and
         swap it in, reload-style.
 
+        An update that would push a path count past the backend's
+        exactness guard (f32 counts ≥ 2^24) is refused with
+        OverflowError before anything changes: the backend, its factor,
+        the graph, the denominators, the consistency token and both
+        cache tiers stay as they were. (The JAX package's service
+        patches first and raises after, leaving a half-applied state.)
+
         Returns an accounting dict (mode, affected rows, purges,
         chained fingerprint) — also the JSONL ``update`` op's result."""
         from ..backends.base import DeltaUnsupported
@@ -465,6 +473,10 @@ class PathSimService:
             )
             mode, reason = "delta", plan.reason
             if not plan.fallback:
+                # refuse a guard-tripping update while nothing has
+                # changed; the rebuild path's guard runs in
+                # _install_backend, before the swap
+                self.backend.check_delta(plan)
                 try:
                     self.backend.apply_delta(plan)
                 except DeltaUnsupported as exc:
@@ -621,14 +633,16 @@ def build_service(
     config,
     serve_config: ServeConfig | None = None,
     timer=None,
+    hin=None,
 ):
     """RunConfig → warm PathSimService (engine bootstrap + serving
-    wrap): the one-call path of the ``serve`` CLI."""
+    wrap): the one-call path of the ``serve`` and ``worker`` CLIs.
+    ``hin`` (an encoded graph) takes the place of ``config.dataset``."""
     from ..backends.base import create_backend
     from ..engine import backend_options, build_backend
 
     t0 = time.perf_counter()
-    _, metapath, backend = build_backend(config, timer=timer)
+    _, metapath, backend = build_backend(config, timer=timer, hin=hin)
     service = PathSimService(
         backend,
         variant=config.variant,

@@ -30,6 +30,36 @@ def _port_modules():
     )
 
 
+def test_port_never_names_or_spawns_the_jax_package():
+    """No port module and no line of chip_smoke.py names a module of the
+    JAX package (``distributed_pathsim_tpu.cli`` above all) or spawns one
+    with ``-m``: a port fleet whose router started JAX workers would pass
+    every parity test for the wrong reason."""
+    import pathlib
+    import re
+
+    from distributed_pathsim_tpu_torch.router.cli import (
+        _worker_argv,
+        parse_router_args,
+    )
+
+    root = pathlib.Path(port.__file__).parent
+    named = re.compile(r"\bdistributed_pathsim_tpu\.\w")
+    spawned = re.compile(
+        r"""["']-m["']\s*,\s*["']distributed_pathsim_tpu["'.]""")
+    sources = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert len(sources) > 50
+    for path in sources:
+        text = path.read_text()
+        assert not named.search(text), path
+        assert not spawned.search(text), path
+    args = parse_router_args(["--dataset", "g.gexf"])
+    argv = _worker_argv(args, 3)
+    assert argv[1:6] == ["-m", "distributed_pathsim_tpu_torch.cli",
+                         "worker", "--worker-id", "w3"]
+    assert argv[argv.index("--platform") + 1] == "cuda"
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     names = _port_modules()
     assert "distributed_pathsim_tpu_torch.ops.cuda_kernels" in names
