@@ -2,9 +2,12 @@
 
 The PyTorch port of ``distributed_pathsim_tpu`` (the JAX package, kept
 beside it as the reference): typed-HIN data model, metapath compiler,
-sparsity-aware chain planner, a host f64 oracle backend and a dense
-torch backend whose hot path runs on hand-written CUDA kernels for
-Hopper (``csrc/``). It imports neither JAX nor the JAX package.
+sparsity-aware chain planner, a host f64 oracle backend, dense and
+streaming torch backends whose hot path runs on hand-written CUDA
+kernels for Hopper (``csrc/``), native C++ host code for the loader and
+the fold (``native/``), tuning dispatch, the multi-metapath ensemble,
+the serving tier and the router fleet. It imports neither JAX nor the
+JAX package.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,11 @@ assumed: the row sums are checked against the guard). On the card every
 torch matmul runs in true f32: the backend refuses to start while TF32
 is on (:func:`cuda_kernels.check_true_f32`; the entry points turn it off
 with :func:`cuda_kernels.true_f32`).
-float64 is real float64 here, on the host and on the card.
+float64 is real float64 for the row sums, single-source rows and
+batched rows, on the host and on the card. Rank-all and all-pairs on the
+card run the f32 kernels: a float64 factor is cast at their entry, behind
+the 2²⁴ guard (:func:`cuda_kernels.kernel_operands`; ``--approx`` waives
+it); on the CPU their plain versions compute in float64.
 """
 
 from __future__ import annotations
@@ -319,19 +323,23 @@ class TorchDenseBackend(PathSimBackend):
         raise ValueError(f"unknown PathSim variant {variant!r}")
 
     def all_pairs_scores(self, variant: str = "rowsum") -> np.ndarray:
-        """The score matrix (f32 on the host), from K2 on the card."""
+        """The score matrix on the host, from K2 on the card (f32) or its
+        plain version on the CPU (the backend's dtype)."""
         if not self._symmetric:
             return super().all_pairs_scores(variant)
         c, rowsums = self._half()
         d = self._denominator_device(c, rowsums, variant)
         self._fetch_rowsums(rowsums)
-        scores = ck.fused_scores(c, d, limbs=self._limbs(c))
+        limbs = self._limbs(c)
+        c, d = ck.kernel_operands(c, d, self.exact_counts)
+        scores = ck.fused_scores(c, d, limbs=limbs)
         n = self.n_sources
         return scores[:n, :n].cpu().numpy()
 
     def topk(self, k: int = 10, mask_self: bool = True,
              variant: str = "rowsum"):
-        """Per-source top-k (values f32, indices int64), ordered
+        """Per-source top-k (values f32 on the card, the backend's dtype
+        on the CPU; indices int64), ordered
         (descending score, ascending column), fully on the device. The
         JAX package's dispatch: K1 + pass 2 while k <= 16 and its
         candidate buffer fits; past the buffer, with the self mask and
@@ -343,6 +351,7 @@ class TorchDenseBackend(PathSimBackend):
         c, rowsums = self._half()
         d = self._denominator_device(c, rowsums, variant)
         limbs = self._limbs(c)
+        c, d = ck.kernel_operands(c, d, self.exact_counts)
         n_rows = c.shape[0]
         if k <= ck.CAND_MAX and ck.twopass_fits(n_rows, k, self.device):
             vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self,

@@ -17,6 +17,18 @@ GEMMs + sorts over the device-resident dense C) otherwise; the per-tile
 fold over the LRU of densified tiles when the dense C is over budget.
 ``compute_path`` in the checkpoint identity records which arm ran.
 
+The sweep has the JAX package's resilience seams: each row tile's launch
+is one ``tile_execute`` attempt (retried alone under the retry policy;
+the tiles already in flight are untouched), a preemption request is
+honored between tiles by flushing every finished tile through the
+``CheckpointManager`` and raising ``Preempted`` (the CLI exits 75), and
+each checkpoint write retries transient I/O faults.
+
+The tile height, the scatter-pad floor and the factor format resolve
+through the tuning registry (``sparse_tile_rows``, default 4096;
+``sparse_nnz_floor``, default 1; ``factor_format``, ``coo``), once at
+build and pinned for the backend's life.
+
 Past the f32 exact-integer range (row sums ≥ 2^24) with
 ``exact_counts=True`` the f32 pass runs as a candidate prefilter and an
 exact f64 host rescore (with a per-row soundness certificate and a
@@ -30,10 +42,12 @@ import hashlib
 import numpy as np
 import torch
 
+from .. import resilience
 from ..ops import chain, planner
 from ..ops import cuda_kernels as ck
 from ..ops import sparse as sp
 from ..ops.metapath import MetaPath
+from ..resilience.preemption import handler as _preemption
 from ..utils.device import resolve_device
 from .base import PathSimBackend, register_backend
 
@@ -53,9 +67,6 @@ class TorchSparseBackend(PathSimBackend):
     # package allows a quarter of a 16 GB v5e (4 GB); a quarter of an
     # 80 GB H100 is 20 GB: ~80M authors at V = 64 in f32.
     _DENSE_C_DEVICE_BUDGET = 20 << 30
-    # The JAX package's tuning registry's untuned tile height (its
-    # scatter-pad floor, 1, is TiledHalfChain's).
-    _TILE_ROWS = 4096
     # In-flight row tiles: one fetching, one computing, one queued.
     _PIPELINE_DEPTH = 3
 
@@ -93,12 +104,7 @@ class TorchSparseBackend(PathSimBackend):
         }
         if not metapath.is_symmetric:
             raise ValueError("torch-sparse requires a symmetric metapath")
-        if factor_format not in (None, "coo"):
-            raise NotImplementedError(
-                f"factor_format {factor_format!r} is not ported: torch-sparse "
-                "holds a COO factor; the packed layouts of the JAX "
-                "package's ops/packed.py are not ported yet"
-            )
+        _require_coo(factor_format)
         if self.device.type == "cuda":
             ck.check_true_f32()
         self.exact_counts = exact_counts
@@ -109,11 +115,26 @@ class TorchSparseBackend(PathSimBackend):
             else int(dense_c_budget_bytes)
         )
         self._rect_kernel = rect_kernel
-        self._tile_rows_req = (
-            self._TILE_ROWS if tile_rows is None else int(tile_rows)
-        )
-        self._factor_format = "coo"
-        self._bind_factor(planner.fold_half(hin, metapath, plan=self.plan))
+        coo = planner.fold_half(hin, metapath, plan=self.plan)
+        # Knobs resolved ONCE, keyed on the folded factor's real (N, V,
+        # density), and pinned: a delta rebind reuses them, so tile
+        # shapes stay stable across updates.
+        from .. import tuning
+
+        shape = dict(n=coo.shape[0], v=coo.shape[1],
+                     nnz=int(coo.rows.shape[0]), dtype=_dtype_name(dtype))
+        if tile_rows is None:
+            tile_rows = tuning.choose("sparse_tile_rows", default=4096,
+                                      **shape)
+        self._tile_rows_req = int(tile_rows)
+        self._nnz_floor_req = int(
+            tuning.choose("sparse_nnz_floor", default=1, **shape))
+        if factor_format is None:
+            factor_format = str(
+                tuning.choose("factor_format", default="coo", **shape))
+        _require_coo(factor_format)
+        self._factor_format = factor_format
+        self._bind_factor(coo)
 
     def _bind_factor(self, factor: sp.COOMatrix) -> None:
         """Bind the half-chain factor: overflow-mode detection, tiling,
@@ -145,6 +166,7 @@ class TorchSparseBackend(PathSimBackend):
             # in rescore mode the f32 tiles are a prefilter by design;
             # the tiled guard would refuse what the rescore phase fixes
             exact_counts=self.exact_counts and not self._exact_rescore,
+            nnz_bucket_floor=self._nnz_floor_req,
         )
         self._rect_factor = None
         self._rowsums: np.ndarray | None = None
@@ -348,7 +370,10 @@ class TorchSparseBackend(PathSimBackend):
 
         # Software pipeline over row tiles: the device runs tile i+1
         # while the host waits for tile i's copy into pinned memory, and
-        # results still land (and checkpoint) in tile order.
+        # results still land (and checkpoint) in tile order. A tile joins
+        # ``pending`` only once its launch succeeded, with its own fresh
+        # output and pinned buffers, so a retried tile never sees a stale
+        # in-flight buffer.
         pending: list[tuple] = []
 
         def drain_one():
@@ -373,8 +398,34 @@ class TorchSparseBackend(PathSimBackend):
                 vals[i0:i0 + rows_here] = unit["vals"]
                 idxs[i0:i0 + rows_here] = unit["idxs"]
                 continue
-            best_v, best_i = self._topk_row_tile(i, i0, k, variant, denoms,
-                                                 scanned)
+            # Preemption point: everything in `pending` is flushed (and
+            # checkpointed) first, so the manifest covers every tile the
+            # device finished — the restart redoes only tile i onward.
+            if _preemption.requested():
+                while pending:
+                    drain_one()
+                _preemption.check(
+                    checkpoint_dir=str(ckpt.dir) if ckpt is not None else None
+                )
+            try:
+                best_v, best_i = resilience.resilient_call(
+                    "tile_execute",
+                    lambda i=i, i0=i0: self._topk_row_tile(
+                        i, i0, k, variant, denoms, scanned
+                    ),
+                )
+            except BaseException:
+                # The tiles in `pending` finished on the device before
+                # this one failed — flush them to the checkpoint (best
+                # effort: the device may be wedged) so the failure costs
+                # one tile of progress, not the pipeline depth.
+                if ckpt is not None:
+                    try:
+                        while pending:
+                            drain_one()
+                    except Exception:
+                        pass
+                raise
             pending.append((i, i0, rows_here, *_fetch_async(best_v, best_i)))
             while len(pending) >= self._PIPELINE_DEPTH:
                 drain_one()
@@ -602,6 +653,15 @@ class TorchSparseBackend(PathSimBackend):
             j1 = min(j0 + chunk, self.n)
             out[j0:j1] = self._densify_rows_f64(np.arange(j0, j1)) @ ci
         return out
+
+
+def _require_coo(factor_format: str | None) -> None:
+    if factor_format not in (None, "coo"):
+        raise NotImplementedError(
+            f"factor_format {factor_format!r} is not ported: torch-sparse "
+            "holds a COO factor; the packed layouts of the JAX "
+            "package's ops/packed.py are not ported yet"
+        )
 
 
 def _fetch_async(vals: torch.Tensor, idxs: torch.Tensor):

@@ -2,8 +2,8 @@
 
 The reference reads GEXF through ``networkx.read_gexf`` and flattens to
 tuple lists. We parse the XML directly with a streaming ``iterparse`` —
-no networkx dependency, no intermediate graph object, O(E) memory. (The
-JAX package also has a C++ parser; it is not ported yet.)
+no networkx dependency, no intermediate graph object, O(E) memory — and
+optionally through the C++ fast parser in ``native/`` for large files.
 
 Semantics matched to the reference pipeline:
 - node attvalue titled ``node_type`` → vertex node_type
@@ -28,8 +28,23 @@ def _local(tag: str) -> str:
     return tag.rsplit("}", 1)[-1]
 
 
-def read_gexf(path: str) -> HINGraph:
-    """Parse a GEXF file into a typed :class:`HINGraph`."""
+def read_gexf(path: str, use_native: bool | None = None) -> HINGraph:
+    """Parse a GEXF file into a typed :class:`HINGraph`.
+
+    ``use_native``: force (True) or forbid (False) the C++ parser;
+    ``None`` auto-selects it when the shared library is available.
+    """
+    if use_native is not False:
+        try:
+            from ..native import gexf_native
+
+            if gexf_native.available():
+                return gexf_native.read_gexf(path)
+            if use_native is True:
+                raise RuntimeError("native GEXF parser requested but unavailable")
+        except ImportError:
+            if use_native is True:
+                raise
     return _read_gexf_python(path)
 
 

@@ -16,8 +16,11 @@ import time
 
 import numpy as np
 
+from . import resilience
 from .backends.base import PathSimBackend
+from .obs.trace import get_tracer
 from .utils.logging import RunLogger
+from .utils.profiling import StageTimer
 
 
 def _format_count(x: float) -> int:
@@ -57,7 +60,22 @@ class PathSimDriver:
     ) -> SingleSourceResult:
         """The reference's ``run()``: one source vs all other nodes of the
         endpoint type, with per-stage reference-grammar logging."""
+        # Root span for the whole run: the StageTimer stages inside
+        # nest under it, so a --trace-out dump shows one tree per query.
+        with get_tracer().span(
+            "driver.run_single_source", source=str(source)
+        ):
+            return self._run_single_source(source, by_label, logger)
+
+    def _run_single_source(
+        self,
+        source: str,
+        by_label: bool,
+        logger: RunLogger | None,
+    ) -> SingleSourceResult:
         logger = logger or RunLogger(output_path=None, echo=False)
+        timer = StageTimer(logger, device=getattr(self.backend, "device",
+                                                  None))
         t0 = time.perf_counter()
         # Reference parity: the reference starts its overall clock when
         # the run begins (DPathSim_APVPA.py:26), not when the log file is
@@ -72,37 +90,54 @@ class PathSimDriver:
         )
 
         # The reference's 2N-1 joins collapse to two device computations
-        # (denominators + the source's pairwise row) and host formatting.
-        d = self.backend._denominators(self.variant)
-        row = self.backend.pairwise_row(source_index)
+        # (denominators + the source's pairwise row) and host formatting;
+        # the stages show where the time goes. Both device computations
+        # sit behind the device_execute seam: a transient dispatch
+        # failure is retried rather than killing the run.
+        with timer.stage("device_denominators"):
+            d = resilience.resilient_call(
+                "device_execute",
+                lambda: self.backend._denominators(self.variant),
+            )
+        with timer.stage("device_pairwise_row"):
+            row = resilience.resilient_call(
+                "device_execute",
+                lambda: self.backend.pairwise_row(source_index),
+            )
         source_label = self.index.labels[source_index]
         source_id = self.index.ids[source_index]
 
         logger.source_global_walk(_format_count(d[source_index]))
+        logger.metric(
+            event="source_global_walk",
+            source=source_id,
+            count=_format_count(d[source_index]),
+        )
 
         scores: dict[str, float] = {}
         global_walks: dict[str, int] = {}
         pairwise_walks: dict[str, int] = {}
         n = self.index.size
         d_src = float(d[source_index])
-        for t in range(n):
-            if t == source_index:
-                continue
-            stage_t0 = time.perf_counter()
-            target_id = self.index.ids[t]
-            pw = _format_count(row[t])
-            gw = _format_count(d[t])
-            denom = d_src + float(d[t])
-            score = 2.0 * float(row[t]) / denom if denom > 0 else 0.0
+        with timer.stage("emit_log"):
+            for t in range(n):
+                if t == source_index:
+                    continue
+                stage_t0 = time.perf_counter()
+                target_id = self.index.ids[t]
+                pw = _format_count(row[t])
+                gw = _format_count(d[t])
+                denom = d_src + float(d[t])
+                score = 2.0 * float(row[t]) / denom if denom > 0 else 0.0
 
-            logger.pairwise_walk(target_id, pw)
-            logger.target_global_walk(gw)
-            logger.sim_score(source_label, self.index.labels[t], score)
-            logger.stage_done(time.perf_counter() - stage_t0)
+                logger.pairwise_walk(target_id, pw)
+                logger.target_global_walk(gw)
+                logger.sim_score(source_label, self.index.labels[t], score)
+                logger.stage_done(time.perf_counter() - stage_t0)
 
-            scores[target_id] = score
-            global_walks[target_id] = gw
-            pairwise_walks[target_id] = pw
+                scores[target_id] = score
+                global_walks[target_id] = gw
+                pairwise_walks[target_id] = pw
 
         logger.overall_done()
         return SingleSourceResult(
@@ -117,7 +152,11 @@ class PathSimDriver:
     def run_all_pairs(self) -> np.ndarray:
         """All-pairs score matrix — the capability the reference
         extrapolates to ~24 h of joins (SURVEY.md §6)."""
-        return self.backend.all_pairs_scores(variant=self.variant)
+        with get_tracer().span("driver.run_all_pairs", n=self.index.size):
+            return resilience.resilient_call(
+                "device_execute",
+                lambda: self.backend.all_pairs_scores(variant=self.variant),
+            )
 
     def rank_all(self, k: int = 10, checkpoint_dir: str | None = None):
         """Per-source top-k ranking for EVERY node: (values [N, k] f64,
@@ -131,6 +170,10 @@ class PathSimDriver:
         the CUDA top-k kernels), else the dense score matrix + stable
         argsort (any backend).
         """
+        with get_tracer().span("driver.rank_all", k=k):
+            return self._rank_all(k, checkpoint_dir)
+
+    def _rank_all(self, k: int, checkpoint_dir: str | None):
         b = self.backend
         if hasattr(b, "topk_scores"):
             vals, idxs = b.topk_scores(
@@ -143,13 +186,20 @@ class PathSimDriver:
                 "(torch-sparse)"
             )
         if hasattr(b, "topk") and b.metapath.is_symmetric:
-            vals, idxs = b.topk(k=k, mask_self=True, variant=self.variant)
+            vals, idxs = resilience.resilient_call(
+                "device_execute",
+                lambda: b.topk(k=k, mask_self=True, variant=self.variant),
+            )
             return (
                 np.asarray(vals, dtype=np.float64),
                 np.asarray(idxs, dtype=np.int64),
             )
         scores = np.array(
-            b.all_pairs_scores(variant=self.variant), dtype=np.float64
+            resilience.resilient_call(
+                "device_execute",
+                lambda: b.all_pairs_scores(variant=self.variant),
+            ),
+            dtype=np.float64,
         )
         np.fill_diagonal(scores, -np.inf)
         idxs = np.argsort(-scores, axis=1, kind="stable")[:, :k]

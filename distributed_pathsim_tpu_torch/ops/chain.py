@@ -48,7 +48,10 @@ def check_exact_counts(max_count: float, dtype: Any) -> None:
     if max_count >= F32_EXACT_INT_MAX:
         raise OverflowError(
             "path counts exceed f32 exact-integer range (2^24); "
-            "construct with dtype=torch.float64"
+            "pass --approx (exact_counts=False) to waive the guard, or "
+            "construct with dtype=torch.float64 for exact counts, "
+            "single-source rows and rank-all on the CPU (rank-all and "
+            "all-pairs on the card stay f32 and keep this guard)"
         )
 
 

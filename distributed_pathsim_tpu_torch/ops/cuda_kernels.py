@@ -43,6 +43,13 @@ matmul on the card, and the backend refuses to run with it on
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 
+float64: the plain versions compute in float64 (a float64 backend on the
+CPU gives the JAX package's x64 results). The kernels stay f32-input: a
+float64 factor on the card is cast to f32 at the wrapper's entry
+(:func:`kernel_operands`), as the JAX package's Pallas wrappers cast on
+a TPU — after the f32 exact-count guard, which raises ``OverflowError``
+past 2²⁴ where the JAX package casts silently.
+
 The kernels are compiled at first use with ``nvcc`` into ``_build/``
 (listed in ``.gitignore``), one shared library per source with a plain C
 interface, loaded with ``ctypes``; each build and each load is recorded
@@ -266,10 +273,14 @@ def _launch(name: str, device: torch.device, *args) -> None:
 # -- input checks ----------------------------------------------------------
 
 
+_FACTOR_DTYPES = (torch.float32, torch.float64)
+
+
 def _check_factor(c: torch.Tensor, d: torch.Tensor) -> None:
-    if c.dtype != torch.float32 or d.dtype != torch.float32:
+    if c.dtype not in _FACTOR_DTYPES or d.dtype != c.dtype:
         raise TypeError(
-            f"kernels take float32 factors, got {c.dtype} / {d.dtype}"
+            "kernels take float32 (or float64) factors with denominators "
+            f"of the same dtype, got {c.dtype} / {d.dtype}"
         )
     if c.dim() != 2 or d.shape != (c.shape[0],):
         raise ValueError(
@@ -277,6 +288,30 @@ def _check_factor(c: torch.Tensor, d: torch.Tensor) -> None:
         )
     if c.device != d.device:
         raise ValueError(f"factor on {c.device}, denominators on {d.device}")
+
+
+def kernel_operands(c: torch.Tensor, d: torch.Tensor,
+                    exact_counts: bool = True):
+    """``(c, d)`` as a kernel launch takes them: unchanged on the CPU
+    (the plain versions compute in the input's dtype) and for f32; a
+    float64 pair on the card is cast to f32, as the JAX package's Pallas
+    wrappers cast at their entry on a TPU (pallas_kernels.py:163-164,
+    598-599, 806-807). The cast keeps every count exact only below 2²⁴,
+    so with ``exact_counts`` it is guarded first: ``max(d)`` bounds every
+    entry of M under both score variants (row sums directly, the diagonal
+    by Cauchy–Schwarz). This is stricter than the JAX package on a TPU,
+    which casts silently."""
+    if c.device.type != "cuda" or c.dtype == torch.float32:
+        return c, d
+    if exact_counts and d.numel() and float(d.max()) >= 2.0**24:
+        raise OverflowError(
+            "path counts exceed the f32 exact-integer range (2^24): on the "
+            "card rank-all and all-pairs run on the f32 kernels even for "
+            "a float64 backend; pass --approx (exact_counts=False) to rank "
+            "with correctly rounded counts, or use --backend torch-sparse, "
+            "whose exact rescore handles any count"
+        )
+    return c.to(torch.float32), d.to(torch.float32)
 
 
 def _device_kind(c: torch.Tensor) -> str:
@@ -457,16 +492,17 @@ def _scores_plain(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 def fused_scores_plain(c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """K2's function in plain torch: S [N, N] f32."""
+    """K2's function in plain torch: S [N, N] in the factor's dtype."""
     _check_factor(c, d)
     return _scores_plain(c, d)
 
 
 def fused_topk_twopass_plain(c: torch.Tensor, d: torch.Tensor, k: int = 10,
                              mask_self: bool = True):
-    """K1 + pass 2's function in plain torch: per-row top-k (values f32
-    [N, k], columns int64 [N, k]) ordered (descending score, ascending
-    column), self pairs at -inf when ``mask_self``."""
+    """K1 + pass 2's function in plain torch: per-row top-k (values
+    [N, k] in the factor's dtype, columns int64 [N, k]) ordered
+    (descending score, ascending column), self pairs at -inf when
+    ``mask_self``."""
     _check_factor(c, d)
     s = _scores_plain(c, d)
     if mask_self:
@@ -519,11 +555,11 @@ def _sorted_topk(s: torch.Tensor, k: int):
 
 def fused_topk_plain(c: torch.Tensor, d: torch.Tensor, k: int = 10,
                      mask_self: bool = True):
-    """K4's function in plain torch: per-row top-k (values f32 [N, k],
-    columns int64 [N, k]) ordered (descending score, ascending column),
-    self pairs at -inf when ``mask_self``; a row with fewer than k
-    finite scores gets distinct ascending -inf columns (padding columns
-    N, N+1, … past the real ones)."""
+    """K4's function in plain torch: per-row top-k (values [N, k] in
+    the factor's dtype, columns int64 [N, k]) ordered (descending score,
+    ascending column), self pairs at -inf when ``mask_self``; a row with
+    fewer than k finite scores gets distinct ascending -inf columns
+    (padding columns N, N+1, … past the real ones)."""
     _check_factor(c, d)
     if k < 1:
         raise ValueError("fused_topk needs k >= 1")
@@ -584,8 +620,8 @@ def topk_rect_candidates_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
 def fused_topk_twopass_rect_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
                                   k: int = 10, n_true_cols: int | None = None):
     """K3 + pass 2's function in plain torch: the per-row top-k (values
-    f32 [T, k], columns int64 [T, k]) of the [T, N] score block
-    ``2·(c_rows @ c_colsᵀ) / (d_rows ⊕ d_cols)`` with columns >=
+    [T, k] in the factor's dtype, columns int64 [T, k]) of the [T, N]
+    score block ``2·(c_rows @ c_colsᵀ) / (d_rows ⊕ d_cols)`` with columns >=
     ``n_true_cols`` and self pairs (column == ``row_ids[r]``) at -inf,
     ordered (descending score, ascending column). Scores blocks of at
     most about 2^27 entries at a time."""
@@ -600,7 +636,7 @@ def fused_topk_twopass_rect_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
         for r0 in range(0, t, step)
     ]
     if not outs:
-        return (torch.empty((0, k), dtype=torch.float32, device=c_rows.device),
+        return (torch.empty((0, k), dtype=c_rows.dtype, device=c_rows.device),
                 torch.empty((0, k), dtype=torch.int64, device=c_rows.device))
     return torch.cat([v for v, _ in outs]), torch.cat([p for _, p in outs])
 
@@ -628,6 +664,7 @@ def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
     ValueError for entries that are not integers in [0, 2²⁴)."""
     _check_factor(c, d)
     _check_kernel_input(c, d)
+    c, d = kernel_operands(c, d)
     if not 1 <= k <= CAND_MAX:
         raise ValueError(f"topk_twopass_candidates needs 1 <= k <= {CAND_MAX}")
     n = c.shape[0]
@@ -662,6 +699,7 @@ def fused_topk_twopass(c: torch.Tensor, d: torch.Tensor, k: int = 10,
         raise ValueError(f"fused_topk_twopass supports k <= {CAND_MAX}")
     if _device_kind(c) == "cpu":
         return fused_topk_twopass_plain(c, d, k=k, mask_self=mask_self)
+    c, d = kernel_operands(c, d)
     vals, cols = topk_twopass_candidates(c, d, k, mask_self, limbs=limbs)
     n = c.shape[0]
     fv, fc = sparse.chunked_row_topk(vals.view(n, -1), cols.view(n, -1), k)
@@ -677,6 +715,7 @@ def fused_scores(c: torch.Tensor, d: torch.Tensor,
     _check_factor(c, d)
     if _device_kind(c) == "cpu":
         return fused_scores_plain(c, d)
+    c, d = kernel_operands(c, d)
     _check_kernel_input(c, d)
     n = c.shape[0]
     out = torch.empty((n, n), dtype=torch.float32, device=c.device)
@@ -705,6 +744,8 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
     _check_rect(c_rows, c_cols, d_rows, d_cols, row_ids)
     _check_kernel_input(c_rows, d_rows)
     _check_kernel_input(c_cols, d_cols)
+    c_rows, d_rows = kernel_operands(c_rows, d_rows)
+    c_cols, d_cols = kernel_operands(c_cols, d_cols)
     if row_ids.dtype != torch.int32 or not row_ids.is_contiguous():
         raise ValueError("K3 takes contiguous int32 row ids")
     if not 1 <= k <= CAND_MAX:
@@ -759,6 +800,8 @@ def fused_topk_twopass_rect(c_rows, c_cols, d_rows, d_cols, row_ids,
             c_rows, c_cols, d_rows, d_cols, row_ids, k=k,
             n_true_cols=n_true_cols,
         )
+    c_rows, d_rows = kernel_operands(c_rows, d_rows)
+    c_cols, d_cols = kernel_operands(c_cols, d_cols)
     vals, cols = topk_rect_candidates(c_rows, c_cols, d_rows, d_cols,
                                       row_ids, k, n_true_cols, limbs=limbs)
     t = c_rows.shape[0]
@@ -779,6 +822,7 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
         raise ValueError("fused_topk needs k >= 1")
     if _device_kind(c) == "cpu":
         return fused_topk_plain(c, d, k=k, mask_self=mask_self)
+    c, d = kernel_operands(c, d)
     _check_kernel_input(c, d)
     n = c.shape[0]
     if max(n, k) >= 2**31 - TILE or n * k >= 2**31:

@@ -15,10 +15,10 @@ chain-fold primitives. Every ordering choice is **bit-invisible**: path
 counts are exact integers in every carry dtype the backends guard (f64 <
 2⁵³, f32 < 2²⁴), so any association order produces identical integers.
 
-The knobs take the JAX package's built-in heuristic defaults (density
-cutover 0.25, DP length cutoff 16) — the values it resolves with no
-tuning table installed. The tuning registry and the sub-chain memo are
-not ported yet.
+The knobs (density cutover, DP length cutoff) resolve through the tuning
+registry (``plan_density_cutover``, ``plan_dp_max_len``) with the JAX
+package's heuristic defaults, 0.25 and 16. The sub-chain memo is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,12 +32,6 @@ import numpy as np
 from . import chain
 from . import sparse as sp
 from .metapath import MetaPath, Step
-
-# The JAX package's heuristic knob defaults (what it resolves with no
-# tuning table installed): density above which a sparse join is costed
-# like a GEMM, and the longest chain the interval DP orders.
-DEFAULT_DENSITY_CUTOVER = 0.25
-DEFAULT_DP_MAX_LEN = 16
 
 # Log2 degree-histogram buckets: bucket b counts nodes with degree in
 # [2^(b-1), 2^b); bucket 0 counts degree-0 nodes. 24 buckets cover any
@@ -324,6 +318,35 @@ def _dp_order(leaves: list[PlanNode], dense_cutover: float,
     return best[(0, n)]
 
 
+def _plan_knobs(n: int, length: int, nnz: int) -> tuple[float, int]:
+    """(density cutover, DP length cutoff) via the tuning registry —
+    the heuristics are the documented defaults (a sparse join costed like
+    a GEMM above density 0.25; the interval DP orders chains of up to 16
+    factors), so an absent table means exactly the built-in behavior."""
+    from .. import tuning
+
+    cutover = float(
+        tuning.choose(
+            "plan_density_cutover", n=n, v=length, nnz=nnz, default=0.25
+        )
+    )
+    dp_max = int(
+        tuning.choose(
+            "plan_dp_max_len", n=n, v=length, nnz=nnz, default=16
+        )
+    )
+    return cutover, dp_max
+
+
+def _record_plan_metrics(plan: EvalPlan) -> None:
+    from ..obs.metrics import get_registry
+
+    get_registry().counter(
+        "dpathsim_plan_builds_total",
+        "evaluation plans compiled, by metapath and factorization mode",
+    ).inc(metapath=plan.metapath.name, mode=plan.mode)
+
+
 def plan_chain(
     stats: Sequence[FactorStats],
     steps: Sequence[Step | None] | None = None,
@@ -339,10 +362,12 @@ def plan_chain(
         raise ValueError("cannot plan an empty chain")
     if steps is None:
         steps = [None] * len(stats)
-    if dense_cutover is None:
-        dense_cutover = DEFAULT_DENSITY_CUTOVER
-    if dp_max_len is None:
-        dp_max_len = DEFAULT_DP_MAX_LEN
+    if dense_cutover is None or dp_max_len is None:
+        c, d = _plan_knobs(
+            stats[0].shape[0], len(stats), sum(s.nnz for s in stats)
+        )
+        dense_cutover = c if dense_cutover is None else dense_cutover
+        dp_max_len = d if dp_max_len is None else dp_max_len
     leaves = [_leaf(i, st, s) for i, (st, s) in enumerate(zip(steps, stats))]
     naive = _left_to_right(leaves, dense_cutover, cost)
     if len(leaves) <= 2 or len(leaves) > dp_max_len:
@@ -394,6 +419,7 @@ def plan_metapath(
         metapath=metapath, mode=mode, root=root, naive_flops=naive,
         dp=dp, labels=labels,
     )
+    _record_plan_metrics(plan)
     cache[ck] = plan
     return plan
 

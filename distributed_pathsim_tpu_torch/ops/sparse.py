@@ -98,8 +98,13 @@ def coo_matmul(a: COOMatrix, b: COOMatrix) -> COOMatrix:
 
 
 def matmul_summed(a: COOMatrix, b: COOMatrix) -> COOMatrix:
-    """One coalesced COO product (row-major sorted, exact integer
-    accumulation in f64)."""
+    """One coalesced COO product: the native C++ SpGEMM when it is built
+    (native/coo_fast.cpp; identical output: row-major sorted, exact
+    integer accumulation in f64), else the numpy join."""
+    from ..native import coo_native
+
+    if coo_native.available():
+        return coo_native.coo_matmul_summed(a, b)
     return coo_matmul(a, b).summed()
 
 
@@ -385,7 +390,7 @@ class TiledHalfChain:
 
     def __init__(self, c: COOMatrix, tile_rows: int = 4096,
                  dtype=torch.float32, device="cpu",
-                 exact_counts: bool = True):
+                 exact_counts: bool = True, nnz_bucket_floor: int = 1):
         from . import chain
 
         self.n, self.v = c.shape
@@ -403,14 +408,18 @@ class TiledHalfChain:
         tile_nnz = self._tile_stop - self._tile_start
         max_nnz = int(tile_nnz.max()) if self.n_tiles else 0
         # Every tile's scatter is padded to one power-of-two length, as in
-        # the JAX package (whose tuning registry's untuned floor is 1),
-        # where the pad is the compiled scatter's shape: the scatter's
-        # shapes stay fixed for the backend's life (what a CUDA graph
-        # capture needs). Pad entries carry weight 0 and land on distinct
-        # cells: index_put_'s accumulate sums duplicates of one index
-        # serially, and a million pad entries on one cell cost tens of ms
-        # a tile.
-        self._max_nnz = 1 << (max_nnz - 1).bit_length() if max_nnz else 0
+        # the JAX package, where the pad is the compiled scatter's shape:
+        # the scatter's shapes stay fixed for the backend's life (what a
+        # CUDA graph capture needs). The bucket's floor is the tuned
+        # ``sparse_nnz_floor`` (untuned: 1). Pad entries carry weight 0
+        # and land on distinct cells: index_put_'s accumulate sums
+        # duplicates of one index serially, and a million pad entries on
+        # one cell cost tens of ms a tile.
+        self._max_nnz = (
+            max(max(1, int(nnz_bucket_floor)),
+                1 << (max_nnz - 1).bit_length())
+            if max_nnz else 0
+        )
         # Bounded LRU of densified tiles: at most 256 MB of C tiles on the
         # device, so a streaming pass over a huge N never accumulates the
         # whole dense C.

@@ -1,4 +1,6 @@
-"""Fault-tolerance primitives of the serving path and the router tier.
+"""Fault-tolerance primitives: the batch CLI's failure seams (GEXF load,
+metapath compile, backend init, per-tile execute, checkpoint write,
+device execute), the serving path and the router tier.
 
 - :mod:`.policy` — :class:`RetryPolicy` (exponential backoff + jitter,
   exception-class filters, overall deadlines; env-tunable defaults) and
@@ -7,21 +9,24 @@
 - :mod:`.inject` — :class:`FaultInjector`: the deterministic chaos
   harness (``PATHSIM_FAULT_PLAN``) that raises, delays or requests
   preemption at the router tier's seams (``worker_dispatch``,
-  ``heartbeat``, ``delta_broadcast``), so every failover path runs on
-  the CPU in the tests;
+  ``heartbeat``, ``delta_broadcast``) and at the batch seams, so every
+  recovery path runs on the CPU in the tests;
+- :mod:`.degrade` — the backend step-down chain (``torch-sparse →
+  torch → numpy`` on the host; ``torch-sparse → torch`` on the card,
+  which never moves work to the host) and the loader fallback counter;
 - :mod:`.preemption` — SIGTERM/SIGINT → a latched stop request, which
-  ``serve`` and ``worker`` turn into a graceful drain.
+  ``serve`` and ``worker`` turn into a graceful drain and the streaming
+  sweep into a checkpoint flush and exit 75.
 
 The one-line integration surface for seams is :func:`resilient_call`.
-The JAX package's backend degradation chain (``degrade.py``) is not
-ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Callable, TypeVar
 
-from . import inject
+from . import degrade, inject
+from .degrade import backend_chain, create_backend_resilient
 from .inject import FaultInjector, InjectedCrash, InjectedFault
 from .policy import (
     Deadline,
@@ -44,6 +49,9 @@ __all__ = [
     "Preempted",
     "RetryPolicy",
     "TransientError",
+    "backend_chain",
+    "create_backend_resilient",
+    "degrade",
     "inject",
     "policy_from_env",
     "preemption_handler",

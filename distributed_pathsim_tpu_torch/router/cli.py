@@ -145,12 +145,13 @@ def worker_main(argv: list[str] | None = None) -> int:
 # flags forwarded verbatim from the router's command line to each
 # worker child (store-value flags; store-true flags handled below)
 _FORWARD_VALUE = (
-    "dataset", "backend", "metapath", "variant", "platform", "dtype",
-    "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
+    "dataset", "backend", "metapath", "variant", "loader", "platform",
+    "dtype", "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
     "cache_entries", "tile_cache_mb", "headroom", "delta_threshold",
-    "metrics_interval", "trace_sample",
+    "tuning_table", "metrics_interval", "trace_sample",
 )
-_FORWARD_TRUE = ("no_warm", "no_metrics", "approx", "batch_events")
+_FORWARD_TRUE = ("no_warm", "no_metrics", "no_tuning", "approx",
+                 "batch_events")
 # artifact-path flags forwarded with a per-worker suffix: a fleet run
 # with --metrics-file/--trace-out/--metrics must leave N+1 artifacts
 # (one per process), not N processes clobbering one path

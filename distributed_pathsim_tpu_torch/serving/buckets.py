@@ -23,26 +23,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..tuning.registry import resolve_ladder
+
 DEFAULT_BUCKETS: tuple[int, ...] = (1, 2, 4, 8, 16, 32)
-
-
-def resolve_ladder(geometry: str, max_batch: int) -> tuple[int, ...]:
-    """A bucket geometry → concrete ascending bucket ladder covering
-    ``max_batch``: 'pow2' (1, 2, 4, …; <2x pad waste) or 'coarse' (1 and
-    powers of 4; about half the buckets, <4x pad waste). The port has no
-    tuning table, so the service always resolves 'pow2'."""
-    if max_batch < 1:
-        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-    if geometry == "pow2":
-        step = 2
-    elif geometry == "coarse":
-        step = 4
-    else:
-        raise ValueError(f"unknown bucket geometry {geometry!r}")
-    ladder = [1]
-    while ladder[-1] < max_batch:
-        ladder.append(ladder[-1] * step)
-    return tuple(ladder)
 
 
 def bucket_ladder(max_batch: int) -> tuple[int, ...]:

@@ -35,13 +35,13 @@ from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
 # does not have yet: the ANN and learned lanes, secondary-metapath
-# engines, compaction, the tuning table, the sharded backend's device
-# count, compressed factor layouts and the native loader.
+# engines, compaction, the sharded backend's device count and compressed
+# factor layouts.
 NOT_PORTED_FLAGS = frozenset({
-    "--memo-budget-mb", "--max-metapaths", "--loader", "--n-devices",
+    "--memo-budget-mb", "--max-metapaths", "--n-devices",
     "--factor-format", "--no-compact", "--compact-chain-len",
     "--compact-headroom-frac", "--compact-headroom", "--compact-cooldown",
-    "--tuning-table", "--no-tuning", "--topk-mode", "--index",
+    "--topk-mode", "--index",
     "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
     "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
     "--learned-checkpoint", "--learned-dim", "--learned-steps",
@@ -68,6 +68,23 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="float32",
                    help="carry dtype of the backend (float32 or float64)")
+    p.add_argument(
+        "--loader", default="auto", choices=("auto", "python", "native"),
+        help="GEXF loader: 'native' requires the C++ parse+encode path, "
+        "'python' forces the pure-Python pipeline, 'auto' prefers native "
+        "with clean fallback",
+    )
+    p.add_argument(
+        "--tuning-table", default=None,
+        help="measured dispatch table (JSON; drives the tile and bucket "
+        "choices incl. the warmup ladder); unusable tables degrade to "
+        "heuristics with a tuning_fallback event. Default: the "
+        "PATHSIM_TUNING_TABLE env var when set",
+    )
+    p.add_argument(
+        "--no-tuning", action="store_true",
+        help="ignore any tuning table (env included)",
+    )
     p.add_argument(
         "--tile-rows", type=int, default=None,
         help="torch-sparse: rows per streaming tile",
@@ -196,6 +213,9 @@ def run_config(args, platform: str) -> RunConfig:
         tile_rows=args.tile_rows,
         approx=args.approx,
         headroom=args.headroom,
+        loader=args.loader,
+        tuning_table=args.tuning_table,
+        tuning=not args.no_tuning,
         echo=False,
     )
 

@@ -157,10 +157,23 @@ class PathSimService:
         # and a rebuild/reload swaps base_fp itself.
         self._row_ver = np.zeros(self.index.padded_size, dtype=np.int64)
         self._d = d
-        # The port has no tuning table: the heuristic pow2 ladder. The
-        # SAME ladder feeds warmup and the coalescer — a mismatch would
-        # dispatch a bucket warmup never drove.
-        self._bucket_ladder = resolve_ladder("pow2", self.config.max_batch)
+        # Bucket geometry through the tuning registry (untuned: the
+        # pow2 ladder). The SAME ladder feeds warmup and the coalescer —
+        # a mismatch would dispatch a bucket warmup never drove.
+        from .. import tuning
+
+        geometry = tuning.choose(
+            "serve_buckets", n=self.n, v=self.config.max_batch,
+            default="pow2",
+        )
+        if geometry not in tuning.KNOBS["serve_buckets"].candidates(
+            {"n": self.n}
+        ):
+            # unknown geometry from a stale table: heuristics, loudly
+            runtime_event("tuning_bad_choice", knob="serve_buckets",
+                          choice=geometry)
+            geometry = "pow2"
+        self._bucket_ladder = resolve_ladder(geometry, self.config.max_batch)
         coal = getattr(self, "coalescer", None)
         if coal is not None:
             coal.buckets = self._bucket_ladder

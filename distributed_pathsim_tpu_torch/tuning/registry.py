@@ -1,0 +1,115 @@
+"""Candidate registry: the port's measured decision points, as keyed
+knobs.
+
+Runtime code asks :func:`~distributed_pathsim_tpu_torch.tuning.choose`
+for a knob's value and passes its own heuristic as the default, so a
+missing or unusable table means exactly the untuned behavior. Each knob
+keeps the JAX package's name, key format and untuned default, and is
+registered here only where the port has its decision point today:
+
+- ``plan_density_cutover`` / ``plan_dp_max_len``: ops/planner.py;
+- ``sparse_tile_rows`` / ``sparse_nnz_floor`` / ``factor_format``:
+  backends/torch_sparse.py (the port holds COO factors only, so
+  ``factor_format`` has the one ``coo`` arm);
+- ``serve_buckets``: serving/service.py.
+
+The JAX package's Pallas tile and variant knobs (``scores_variant``,
+``scores_tile``, ``topk_rowtile``, ``k_tile``, ``ring_kernel``) have no
+port arm: an "xla" arm would put a kernel's plain version on the card's
+path, and the CUDA kernels' own configuration knobs come with the
+autotuner. The ANN, learned, compaction, batch and memo knobs come with
+their modules.
+
+Every knob is **bit-invisible by construction**: choices only move work
+between tilings that share the exact integer-count + f64-normalize
+scoring primitives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    """One tunable decision point: a name, a short contract, and
+    ``candidates``: context → the JSON-serializable choices an autotuner
+    may measure (context keys: n, v, nnz, dtype, max_batch)."""
+
+    name: str
+    doc: str
+    candidates: Callable[[dict], list[Any]]
+
+
+KNOBS: dict[str, Knob] = {
+    k.name: k
+    for k in (
+        Knob(
+            name="sparse_tile_rows",
+            doc="torch-sparse streaming row-tile height: rows of C per "
+            "K3 launch of the rank-all sweep and per densified tile "
+            "(memory/throughput trade at a given N, V, density).",
+            candidates=lambda ctx: [
+                t for t in (1024, 2048, 4096, 8192)
+                if ctx.get("n") is None or t <= 4 * int(ctx["n"])
+            ],
+        ),
+        Knob(
+            name="sparse_nnz_floor",
+            doc="floor of the pow-2 per-tile scatter-pad bucket in "
+            "TiledHalfChain: a higher floor wastes pad entries but keeps "
+            "more delta-drifted nnz inside one scatter shape.",
+            candidates=lambda ctx: [1, 1024, 4096, 16384],
+        ),
+        Knob(
+            name="plan_density_cutover",
+            doc="metapath planner cost model: intermediate density at "
+            "which a factor is costed as DENSE (2·m·r·n GEMM FLOPs) "
+            "instead of the sparse join estimate. Affects only the "
+            "plan's ORDER choice — integer path counts are "
+            "association-invariant, so every order is bit-identical.",
+            candidates=lambda ctx: [0.05, 0.1, 0.25, 0.5],
+        ),
+        Knob(
+            name="plan_dp_max_len",
+            doc="metapath planner DP size cutoff: chains longer than "
+            "this skip the O(L³) interval DP and evaluate left-to-right "
+            "(recorded on the plan as dp=False).",
+            candidates=lambda ctx: [4, 8, 16, 32],
+        ),
+        Knob(
+            name="factor_format",
+            doc="resident layout of the sparse half-chain factor. The "
+            "port holds COO only (24 B/nnz); the JAX package's blocked "
+            "and bitpacked layouts are not ported yet.",
+            candidates=lambda ctx: ["coo"],
+        ),
+        Knob(
+            name="serve_buckets",
+            doc="serving bucket-ladder geometry driven at warmup: "
+            "'pow2' (1,2,4,…; <2x pad waste, log2(B)+1 shapes) vs "
+            "'coarse' (1 + powers of 4; about half the shapes and warm "
+            "time, <4x pad waste).",
+            candidates=lambda ctx: ["pow2", "coarse"],
+        ),
+    )
+}
+
+
+def resolve_ladder(geometry: str, max_batch: int) -> tuple[int, ...]:
+    """A ``serve_buckets`` choice → concrete ascending bucket ladder
+    covering ``max_batch``. Shared by the serving warmup and the
+    coalescer so geometry names can never drift."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    if geometry == "pow2":
+        step = 2
+    elif geometry == "coarse":
+        step = 4
+    else:
+        raise ValueError(f"unknown bucket geometry {geometry!r}")
+    ladder = [1]
+    while ladder[-1] < max_batch:
+        ladder.append(ladder[-1] * step)
+    return tuple(ladder)

@@ -76,17 +76,28 @@ class CheckpointManager:
     def save_unit(self, key: str, **arrays: np.ndarray) -> None:
         """Persist a completed unit's arrays and mark it done (atomic:
         arrays land before the manifest references them, so a crash
-        mid-write leaves the previous manifest valid)."""
-        names = {}
-        for name, arr in arrays.items():
-            fname = f"{_safe(key)}.{name}.npy"
-            _atomic_save(self.dir / fname, arr)
-            names[name] = fname
-        self._done[key] = names
-        _atomic_write_text(
-            self._manifest_path,
-            json.dumps(self._done, indent=0, sort_keys=True),
-        )
+        mid-write leaves the previous manifest valid).
+
+        This is the ``checkpoint_write`` resilience seam: transient I/O
+        failures (including injected partial writes — which die before
+        the rename, so the previous manifest state stays valid) are
+        retried; the whole unit write is idempotent, so a retry simply
+        rewrites every array and the manifest."""
+        from .. import resilience
+
+        def write() -> None:
+            names = {}
+            for name, arr in arrays.items():
+                fname = f"{_safe(key)}.{name}.npy"
+                _atomic_save(self.dir / fname, arr)
+                names[name] = fname
+            self._done[key] = names
+            _atomic_write_text(
+                self._manifest_path,
+                json.dumps(self._done, indent=0, sort_keys=True),
+            )
+
+        resilience.resilient_call("checkpoint_write", write)
 
     def load_unit(self, key: str) -> dict[str, np.ndarray]:
         names = self._done[key]
@@ -98,10 +109,16 @@ def _safe(key: str) -> str:
 
 
 def _atomic_save(path: pathlib.Path, arr: np.ndarray) -> None:
+    from ..resilience import inject
+
     tmp = path.with_suffix(path.suffix + f".tmp{os.getpid()}")
     try:
         with open(tmp, "wb") as f:  # explicit handle: np.save won't append .npy
             np.save(f, arr)
+            # Chaos hook: a pending 'partial' rule truncates the temp
+            # file and raises HERE — before the rename — proving the
+            # final path never sees a torn write.
+            inject.corrupt_stream("checkpoint_write", f)
         os.replace(tmp, path)
     except BaseException:
         try:

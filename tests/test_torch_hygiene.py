@@ -62,7 +62,11 @@ def test_port_never_names_or_spawns_the_jax_package():
 
 def test_port_imports_no_jax_and_no_jax_package():
     names = _port_modules()
-    assert "distributed_pathsim_tpu_torch.ops.cuda_kernels" in names
+    for mod in ("ops.cuda_kernels", "native.build", "native.gexf_native",
+                "native.coo_native", "tuning.dispatch", "tuning.registry",
+                "tuning.table", "models.multipath", "bench",
+                "resilience.degrade"):
+        assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
@@ -147,3 +151,46 @@ def test_kernel_builds_key_on_every_header(tmp_path, monkeypatch):
     for name in ck.KERNELS:
         paths = {before[name], added[name], edited[name], gone[name]}
         assert len(paths) == 4, name
+
+
+def test_native_copies_build_only_into_the_build_dir():
+    """The C++ copies of native/ compile only into the package's
+    ``_build/`` (gitignored): the build never writes beside the source,
+    as the JAX package's does, and the library name carries the
+    source's digest."""
+    import pathlib
+
+    from distributed_pathsim_tpu_torch.native import build, coo_native
+    from distributed_pathsim_tpu_torch.ops import cuda_kernels as ck
+
+    root = pathlib.Path(port.__file__).parent
+    assert build.BUILD_DIR == ck.BUILD_DIR == root / "_build"
+    sources = sorted(p.name for p in (root / "native").glob("*.cpp"))
+    assert sources == ["coo_fast.cpp", "gexf_fast.cpp"]
+    for src in sources:
+        name = src[:-4]
+        assert build.lib_path(name).parent == build.BUILD_DIR
+        assert build.lib_path(name).name.startswith(f"lib{name}-")
+    assert coo_native.available()
+    built = [p for p in root.rglob("*.so")
+             if build.BUILD_DIR not in p.parents]
+    assert built == []
+    gitignore = (root.parent / ".gitignore").read_text().splitlines()
+    assert "distributed_pathsim_tpu_torch/_build/" in gitignore
+
+
+def test_bench_needs_a_card(no_cuda, capsys):
+    """``python -m distributed_pathsim_tpu_torch.bench`` measures the card
+    only: without one it exits 2 and prints no result. Its measurement
+    path runs on the CPU at a small size (the row check included) and
+    names the device it ran on."""
+    from distributed_pathsim_tpu_torch import bench
+
+    assert bench.main([]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+    record = bench.run_bench(600, "cpu", reps=2, n_papers=900, n_venues=24)
+    assert record["device"] == "cpu" and record["reps"] == 2
+    assert record["seconds_min"] <= record["seconds_median"] <= \
+        record["seconds_max"]
+    assert record["value"] == 600 * 599 / record["seconds_median"]

@@ -99,8 +99,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing(narrow):
 
 def test_input_checks():
     c = torch.zeros((5, 3))
-    with pytest.raises(TypeError):
-        ck.fused_scores(c.double(), torch.zeros(5, dtype=torch.float64))
+    with pytest.raises(TypeError):  # float64 runs; float16 refuses
+        ck.fused_scores(c.half(), torch.zeros(5, dtype=torch.float16))
     with pytest.raises(ValueError):
         ck.fused_scores(c, torch.zeros(4))
     with pytest.raises(ValueError, match="device"):

@@ -221,7 +221,7 @@ def test_serve_refuses_without_a_card_and_unported_flags(
     err = capsys.readouterr().err
     assert "no CUDA device is available" in err and "--platform cpu" in err
     for flag in (["--topk-mode", "ann"], ["--no-compact"],
-                 ["--index=idx.npz"], ["--loader", "native"]):
+                 ["--index=idx.npz"], ["--factor-format", "blocked"]):
         assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
                            *flag]) == 1
         assert "not ported yet" in capsys.readouterr().err, flag
