@@ -74,6 +74,26 @@ nonzero and no result line is printed):
    hedges, failovers, sheds and dispatches per worker, the fleet's cold
    QPS beside the single service's; ``dpathsim-torch router --workers 2
    --platform cuda`` as a subprocess with a short JSONL script;
+5b. the rest of the serving lanes on the card: a service over the bench
+   graph with 2048 topics (headroom 0.25, max_batch 32, compaction on with
+   a chain of 8 and no cooldown) under 32 client threads sending ``topk``
+   (k = 10) mixed over APVPA and the per-request metapaths APA and APTPA
+   (each its own engine and lane, all sharing the sub-chain memo) while a
+   firehose of 18 small updates lands: every update on the delta path, at
+   least one chain-triggered background compaction mid-load, sampled
+   answers of every lane, before and after the swaps, equal to the host
+   f64 oracle of the graph they were admitted on; then a forced
+   ``compact`` op through ``handle_request`` with the consistency token,
+   the fingerprint and the result-cache entries unchanged, 2 or more
+   compactions and none failed, 0 compiles from the end of warmup; K1
+   (k = 10), K4 (k = 20) and K2 on the compacted (pow-2 re-padded)
+   backend equal to a freshly built backend's and to the plain versions,
+   K1 on the APTPA engine's factor equal to its plain version; the
+   first-request latency of each engine, memo hits and misses, request
+   p50/p99 by lane, each swap's build and pause, update ms before and
+   after the first swap, K1's time on the factor before and after
+   compaction, the phase's peak device memory; its launches are
+   ``launches_serving_rest`` in the kernels line;
 6. BASELINE config 5 on the card at full size: 1048576 authors x 5242880
    papers x 64 venues (seed 42), ``torch-sparse`` with tile_rows 8192 and
    ``--approx`` semantics, ``PathSimDriver.rank_all(k=10)`` with a
@@ -101,7 +121,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import collections
 import filecmp
+import gc
 import json
 import pathlib
 import statistics
@@ -145,6 +167,19 @@ C5_SERVE_REQUESTS = 64
 # named on the wire), the serving phase's load and update.
 ROUTER_SPEC = (f"synthetic:authors={N_AUTHORS},papers={N_PAPERS},"
                f"venues={N_VENUES},seed={SEED},ids=1")
+
+# The rest of the serving lanes: the bench graph with topics (its own
+# graph), headroom 0.25, max_batch 32, compaction on with a chain of 8 and
+# no cooldown; 32 client threads sending topk (k = 10) mixed over the
+# three metapaths while a firehose of small updates lands (each one
+# author appended and wired to 3 papers, 6 author_of edges added between
+# existing nodes, 2 removed), then one forced compact op.
+SR_TOPICS, SR_TOPICS_PER_PAPER = 2048, 1.4
+SR_LANES = ("APVPA", "APA", "APTPA")
+SR_CHAIN_LEN, SR_UPDATES, SR_UPDATE_GAP_S = 8, 18, 0.12
+SR_CLIENTS, SR_MIN_PER_CLIENT = 32, 24
+SR_APPENDS, SR_ADDS, SR_REMOVES = 1, 6, 2
+SR_SAMPLES_PER_VERSION = 4
 
 REPS, WARMUP = 7, 2
 # K1's stripe widths timed beside the default (column tiles of 128).
@@ -2192,6 +2227,481 @@ def router_subprocess(workdir, card):
           f"{resps[2]['result']['applied']} ({card})")
 
 
+def sparse_f64_oracle(np, hin, mp):
+    """The host f64 oracle of one metapath on one graph, row by row: the
+    folded COO factor C in f64, M[r, :] = C[r] · Cᵀ from its entries
+    (exact integers), the row sums C · (Cᵀ · 1), the repo's f64 normalize
+    and (descending score, ascending column) top-k. No dense factor: APA's
+    is 32768 x 45000. Returns ``topk(row, k) -> (values, indices)`` and
+    the row sums."""
+    from distributed_pathsim_tpu_torch.ops import pathsim, planner
+
+    coo = planner.fold_half(hin, mp).summed()
+    n = hin.type_size(mp.source_type)
+    rows = np.asarray(coo.rows, dtype=np.int64)
+    cols = np.asarray(coo.cols, dtype=np.int64)
+    w = np.asarray(coo.weights, dtype=np.float64)
+    n_rows, n_cols = coo.shape
+    colsum = np.bincount(cols, weights=w, minlength=n_cols)
+    d = np.bincount(rows, weights=w * colsum[cols], minlength=n_rows)[:n]
+    by_row = np.argsort(rows, kind="stable")
+    row_ptr = np.searchsorted(rows[by_row], np.arange(n_rows + 1))
+    by_col = np.argsort(cols, kind="stable")
+    col_ptr = np.searchsorted(cols[by_col], np.arange(n_cols + 1))
+
+    def topk(row, k):
+        m = np.zeros(n)
+        for e in by_row[row_ptr[row]:row_ptr[row + 1]]:
+            seg = by_col[col_ptr[cols[e]]:col_ptr[cols[e] + 1]]
+            np.add.at(m, rows[seg], w[e] * w[seg])
+        sc = pathsim.score_rows(m[None, :], d[row:row + 1], d, xp=np)
+        sc[0, row] = -np.inf
+        v, i = pathsim.topk_from_score_rows(sc, min(k, n - 1))
+        return v[0], i[0]
+
+    return topk, d
+
+
+def firehose_records(np, hin, rng, tag):
+    """One small update of the firehose: SR_APPENDS authors appended,
+    each wired to 3 papers, SR_ADDS new author_of edges between existing
+    nodes and SR_REMOVES existing ones removed (raw rows on the wire)."""
+    blk = hin.blocks["author_of"]
+    n_a, n_p = hin.type_size("author"), hin.type_size("paper")
+    existing = set(zip(blk.rows.tolist(), blk.cols.tolist()))
+    rem = rng.choice(blk.nnz, SR_REMOVES, replace=False)
+    removes = [{"rel": "author_of", "src_row": int(blk.rows[i]),
+                "dst_row": int(blk.cols[i])} for i in rem]
+    new_ids = [f"{tag}_{i}" for i in range(SR_APPENDS)]
+    adds = [{"rel": "author_of", "src": a, "dst_row": int(p)}
+            for a in new_ids for p in rng.choice(n_p, 3, replace=False)]
+    while len(adds) < SR_APPENDS * 3 + SR_ADDS:
+        e = (int(rng.integers(0, n_a)), int(rng.integers(0, n_p)))
+        if e not in existing:
+            existing.add(e)
+            adds.append({"rel": "author_of", "src_row": e[0],
+                         "dst_row": e[1]})
+    return {"add_nodes": [{"type": "author", "id": a, "label": a}
+                          for a in new_ids],
+            "add_edges": adds, "remove_edges": removes}
+
+
+def pct(values, q):
+    """The q-quantile (nearest rank) of ``values`` in ms."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(int(round(q * len(v))) - 1, 0))] * 1e3
+
+
+def serving_rest(torch, ck, np, card):
+    """The rest of the serving lanes on the card: per-request secondary
+    metapaths (APA, APTPA) beside the served APVPA with the shared
+    sub-chain memo, and background compaction with its token-preserving
+    hot-swap, under 32 client threads and a firehose of updates; then a
+    forced compact op and K1, K4, K2 on the compacted backend and K1 on
+    the APTPA engine's factor. Returns this phase's launches per kernel
+    (counted apart from the main path's)."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+    from distributed_pathsim_tpu_torch.serving.protocol import handle_request
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+    from distributed_pathsim_tpu_torch.utils.logging import set_event_sink
+
+    phase(f"serving lanes, the rest: {N_AUTHORS}x{N_PAPERS}x{N_VENUES} with "
+          f"{SR_TOPICS} topics, headroom {SERVE_HEADROOM}, lanes "
+          f"{'/'.join(SR_LANES)}, {SR_CLIENTS} clients, {SR_UPDATES} "
+          f"updates, compaction chain {SR_CHAIN_LEN}, cooldown 0")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hin = tdl.with_headroom(synthetic_hin(
+        N_AUTHORS, N_PAPERS, N_VENUES, n_topics=SR_TOPICS,
+        topics_per_paper=SR_TOPICS_PER_PAPER, seed=SEED,
+        materialize_ids=True), SERVE_HEADROOM)
+    print(f"graph: {time.perf_counter() - t0:.3f} s; capacities "
+          f"{ {t: ix.padded_size for t, ix in hin.indices.items()} }")
+    mps = {lane: compile_metapath(lane, hin.schema) for lane in SR_LANES}
+    versions = {0: hin}
+    oracles = {}
+
+    def oracle(seq, lane):
+        if (seq, lane) not in oracles:
+            oracles[seq, lane] = sparse_f64_oracle(np, versions[seq],
+                                                   mps[lane])
+        return oracles[seq, lane]
+
+    sums = {lane: float(oracle(0, lane)[1].max()) for lane in SR_LANES}
+    if max(sums.values()) >= 2 ** 24:
+        raise AssertionError(f"a lane is past the 2^24 guard: {sums}")
+    print("largest row sums (host f64): " + ", ".join(
+        f"{lane} {v:.6g}" for lane, v in sums.items()))
+
+    events = []
+
+    class Sink:  # the service's structured events, kept for the report
+        def metric(self, event, **fields):
+            events.append((event, fields))
+
+    set_event_sink(Sink())
+    t0 = time.perf_counter()
+    svc = PathSimService(
+        create_backend("torch", hin, mps["APVPA"], device="cuda"),
+        config=ServeConfig(max_batch=SERVE_MAX_BATCH, k_default=TOP_K,
+                           compact_chain_len=SR_CHAIN_LEN,
+                           compact_cooldown_s=0.0))
+    try:
+        print(f"service start: {time.perf_counter() - t0:.3f} s")
+        c0, rs0 = svc.backend._half()
+        lim0 = svc.backend._limbs(c0)
+        k1_before = time_ms(torch, lambda: ck.topk_twopass_candidates(
+            c0, rs0, TOP_K, True, limbs=lim0))
+        shape_before = tuple(c0.shape)
+        del c0, rs0, lim0
+        first = {}
+        for lane in SR_LANES[1:]:
+            t0 = time.perf_counter()
+            svc.topk_index(0, TOP_K, metapath=lane)
+            first[lane] = (time.perf_counter() - t0) * 1e3
+        print("first request of each secondary engine (engine build + "
+              "bucket warm): " + ", ".join(
+                  f"{lane} {ms:.1f} ms" for lane, ms in first.items())
+              + f" ({card})")
+        comp_compiles0 = svc._compactor._m_compiles.get()
+        compiles = CompileCounter().__enter__()  # to the end of the phase
+        quiet = [quiet_update(np, svc, versions, handle_request, "q0")]
+        records, updates = serving_rest_load(
+            np, svc, versions, handle_request, card)
+        serving_rest_checks(np, svc, versions, oracle, records, updates,
+                            events, handle_request, card)
+        # after the swaps: C, its row sums and limbs patched at the
+        # compacted size (the kernel checks below rank this backend)
+        quiet.append(quiet_update(np, svc, versions, handle_request, "q1"))
+        print(f"update with no load (drain empty): {quiet[0][1]:.3f} ms on "
+              f"the {quiet[0][0]} factor before compaction, "
+              f"{quiet[1][1]:.3f} ms on the {quiet[1][0]} factor after "
+              f"(the service's own ms; {card})")
+        comp_compiles = svc._compactor._m_compiles.get() - comp_compiles0
+        backend = svc.backend
+        aptpa = svc._engines.get("APTPA")
+        if aptpa is None:
+            svc.topk_index(1, TOP_K, metapath="APTPA")
+            aptpa = svc._engines["APTPA"]
+        aptpa = aptpa.backend
+    finally:
+        svc.close()
+        set_event_sink(None)
+    del svc
+    gc.collect()  # the service's threads and compactor hold cycles
+    torch.cuda.empty_cache()
+    try:
+        launches = serving_rest_kernels(torch, ck, np, backend, aptpa,
+                                        k1_before, shape_before, card)
+    finally:
+        compiles.__exit__(None, None, None)
+    if compiles.count or comp_compiles:
+        raise AssertionError(f"{compiles.count} compiles after warmup "
+                             f"({compiles.by_kind}), {comp_compiles} in "
+                             "compaction builds")
+    print("compile counter: 0 kernel builds or loads from the end of warmup "
+          "to the end of the phase (dpathsim_compaction_compiles_total "
+          "unchanged)")
+    print(f"peak device memory of the phase: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated; {card})")
+    print(f"serving lanes phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def quiet_update(np, svc, versions, handle_request, tag):
+    """One firehose update with no load running: (the factor's shape, the
+    service's own ms)."""
+    shape = tuple(svc.backend._half()[0].shape)
+    recs = firehose_records(np, svc.hin, np.random.default_rng(SEED + 10),
+                            f"sr_{tag}")
+    resp = handle_request(svc, {"id": tag, "op": "update", **recs})
+    if not (resp["ok"] and resp["result"]["mode"] == "delta"):
+        raise AssertionError(f"quiet update {tag} did not patch: {resp}")
+    versions[resp["result"]["delta_seq"]] = svc.hin
+    return shape, resp["result"]["ms"]
+
+
+def serving_rest_load(np, svc, versions, handle_request, card):
+    """32 clients over the three lanes (rows drawn without repeats per
+    lane, so every request dispatches) while a firehose thread applies
+    SR_UPDATES updates; clients stop once the firehose is done. Returns
+    the answers (lane, row, delta_seq before and after, compactions
+    before and after, answer, seconds) and the update results."""
+    import threading
+
+    stop = threading.Event()
+    errors = []
+    rng = np.random.default_rng(SEED + 7)
+    pools = {lane: rng.permutation(N_AUTHORS) for lane in SR_LANES}
+    records = [[] for _ in range(SR_CLIENTS)]
+    updates = []
+
+    def client(c):
+        try:
+            it = {lane: iter(pools[lane][c::SR_CLIENTS]) for lane in SR_LANES}
+            i = 0
+            while i < SR_MIN_PER_CLIENT or not stop.is_set():
+                lane = SR_LANES[(c + i) % len(SR_LANES)]
+                row = next(it[lane], None)
+                if row is None:
+                    break
+                seq0, comp0 = svc._delta_seq, svc._compactor.compactions
+                t0 = time.perf_counter()
+                ans = svc.topk_index(
+                    int(row), TOP_K,
+                    metapath=None if lane == SR_LANES[0] else lane)
+                dt = time.perf_counter() - t0
+                records[c].append((lane, int(row), seq0, svc._delta_seq,
+                                   comp0, svc._compactor.compactions, ans,
+                                   dt))
+                i += 1
+        except Exception as exc:  # surfaced below, the phase fails
+            errors.append(exc)
+
+    def firehose():
+        try:
+            urng = np.random.default_rng(SEED + 8)
+            for i in range(SR_UPDATES):
+                time.sleep(SR_UPDATE_GAP_S)
+                recs = firehose_records(np, svc.hin, urng, f"sr_new_{i}")
+                comp = svc._compactor.compactions
+                resp = handle_request(svc, {"id": i, "op": "update", **recs})
+                if not resp["ok"]:
+                    raise AssertionError(f"update {i} failed: {resp}")
+                res = resp["result"]
+                versions[res["delta_seq"]] = svc.hin
+                updates.append((res["mode"], res["ms"], comp,
+                                res["engines_dropped"],
+                                res["memo_invalidated"]))
+        except Exception as exc:
+            errors.append(exc)
+        finally:
+            stop.set()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SR_CLIENTS)]
+    threads.append(threading.Thread(target=firehose))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load or firehose failed: {errors[:1]}")
+    if not svc._compactor._done.wait(300):
+        raise AssertionError("a background compaction did not finish")
+    flat = [r for per in records for r in per]
+    print(f"load: {len(flat)} topk in {wall:.3f} s -> "
+          f"{len(flat) / wall:.1f} QPS beside {len(updates)} updates; "
+          "request p50/p99 by lane (client clock, every request a "
+          "dispatch): " + "; ".join(
+              f"{lane} n={len(ts)} {pct(ts, 0.5):.3f}/{pct(ts, 0.99):.3f} ms"
+              for lane in SR_LANES
+              for ts in [[r[7] for r in flat if r[0] == lane]])
+          + f" ({card})")
+    return flat, updates
+
+
+def serving_rest_checks(np, svc, versions, oracle, records, updates, events,
+                        handle_request, card):
+    """The phase's gates on the load (sampled answers of every lane
+    against the oracle of the graph they were admitted on, before and
+    after the background swaps), then the forced compact op (token,
+    fingerprint and result-cache entries kept; answers after it against
+    the oracle) and the compaction accounting."""
+    if any(mode != "delta" for mode, *_ in updates):
+        raise AssertionError(f"an update did not patch: {updates}")
+    bg = [f for e, f in events if e == "serve_compact"]
+    if not any(str(f.get("reason", "")).startswith("delta chain")
+               for f in bg):
+        raise AssertionError(f"no chain-triggered compaction mid-load: {bg}")
+    picked = collections.defaultdict(list)
+    for lane, row, seq0, seq1, comp0, comp1, ans, _ in records:
+        if seq0 == seq1 and len(picked[lane, seq0]) < SR_SAMPLES_PER_VERSION:
+            picked[lane, seq0].append((row, comp0, comp1, ans))
+    for lane in SR_LANES:
+        n_before = n_after = n = 0
+        for (ln, seq), items in sorted(picked.items()):
+            if ln != lane:
+                continue
+            topk, _ = oracle(seq, lane)
+            for row, comp0, comp1, (v, i) in items:
+                ov, oi = topk(row, TOP_K)
+                if not (np.array_equal(v, ov) and np.array_equal(i, oi)):
+                    raise AssertionError(
+                        f"{lane} row {row} at delta_seq {seq} differs "
+                        "from the host f64 oracle")
+                n += 1
+                n_before += comp1 == 0
+                n_after += comp0 >= 1
+        if not (n_before and n_after):
+            raise AssertionError(f"{lane}: no sampled answer before "
+                                 f"({n_before}) or after ({n_after}) a swap")
+        print(f"{lane}: {n} sampled answers over "
+              f"{len({s for (ln, s) in picked if ln == lane})} graph versions "
+              f"({n_before} before the first swap, {n_after} after one) "
+              "equal to the host f64 oracle")
+
+    seq = svc._delta_seq
+    tok, fp, entries = svc.consistency_token, svc._fp, len(svc.result_cache)
+    resp = handle_request(svc, {"id": "compact", "op": "compact"})
+    res = resp.get("result") or {}
+    if not (resp["ok"] and res.get("swapped")):
+        raise AssertionError(f"forced compaction failed: {resp}")
+    if (svc.consistency_token, svc._fp, len(svc.result_cache)) != (
+            tok, fp, entries):
+        raise AssertionError("the forced compaction moved the token, the "
+                             "fingerprint or the result-cache entries")
+    print(f"forced compact op: swapped, capacity {res['capacity']}, token "
+          f"{list(tok)}, fingerprint and {entries} result-cache entries "
+          "unchanged")
+    rng = np.random.default_rng(SEED + 9)
+    for lane in SR_LANES:
+        topk, _ = oracle(seq, lane)
+        for row in rng.choice(svc.n, 6, replace=False):
+            v, i = svc.topk_index(int(row), TOP_K,
+                                  metapath=None if lane == SR_LANES[0]
+                                  else lane)
+            ov, oi = topk(int(row), TOP_K)
+            if not (np.array_equal(v, ov) and np.array_equal(i, oi)):
+                raise AssertionError(f"{lane} row {row} after the forced "
+                                     "compaction differs from the oracle")
+    print("after the forced compaction: 6 rows of every lane (appended "
+          "authors among the candidates) equal to the host f64 oracle")
+    st = svc.stats()
+    comp = st["compaction"]
+    if comp["compactions"] < 2 or comp["failures"]:
+        raise AssertionError(f"compaction accounting: {comp}")
+    swaps = [f for e, f in events if e == "serve_compact"]
+    print(f"compactions: {comp['compactions']} ({comp['abandoned']} "
+          f"abandoned, {comp['failures']} failed); per swap: " + "; ".join(
+              f"{f['reason'].split(' ')[0]} build {f['build_ms']:.1f} ms, "
+              f"pause {f['pause_ms']:.3f} ms, {f['replayed_deltas']} "
+              "replayed" for f in swaps) + f" ({card})")
+    first_swap = min((i for i, u in enumerate(updates) if u[2] >= 1),
+                     default=len(updates))
+    before = [u[1] for u in updates[:first_swap]]
+    after = [u[1] for u in updates[first_swap:]]
+    print(f"update ms (service's own): before the first swap median "
+          f"{statistics.median(before) if before else float('nan'):.3f} "
+          f"(n={len(before)}), after it median "
+          f"{statistics.median(after) if after else float('nan'):.3f} "
+          f"(n={len(after)}); engines dropped per update "
+          f"{sorted({u[3] for u in updates})}, memo entries invalidated "
+          f"{sorted({u[4] for u in updates})} ({card})")
+    builds = [f for e, f in events if e == "metapath_engine_ready"]
+    memo = st["plan"]["memo"]
+    print(f"engines built: {len(builds)} (rebuilt after each update), "
+          "startup s median by lane: " + ", ".join(
+              f"{lane} {statistics.median(ts):.3f}" for lane in SR_LANES[1:]
+              for ts in [[f['startup_s'] for f in builds
+                          if f['metapath'] == lane] or [float('nan')]])
+          + f"; memo hits {memo['hits']}, misses {memo['misses']}, "
+          f"evictions {memo['evictions']}, {memo['entries']} entries, "
+          f"{memo['bytes']} bytes ({card})")
+
+
+def serving_rest_kernels(torch, ck, np, backend, aptpa, k1_before,
+                         shape_before, card):
+    """K1 (k = 10), K4 (k = 20) and K2 on the compacted backend against a
+    backend freshly built for the compacted graph and the plain versions
+    on its logical rows (the padded rows carry no edges), and K1 on the
+    APTPA engine's factor against its plain version. Returns the
+    launches per kernel of the compacted and the APTPA backends' calls."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+
+    launches = collections.Counter()
+    fresh = create_backend("torch", backend.hin, backend.metapath,
+                           device="cuda")
+    n = backend.n_sources
+    c, rs = backend._half()
+    lim = backend._limbs(c)
+    for k, kernel, plain, label in (
+            (TOP_K, "topk_twopass_candidates", ck.fused_topk_twopass_plain,
+             "K1"),
+            (TOP_K_FOLD, "topk_fold", ck.fused_topk_plain, "K4")):
+        got, counts, _ = counted(
+            torch, ck, launches, lambda: backend.topk(k=k),
+            f"rank-all k={k} on the compacted backend")
+        if counts[kernel] < 1:
+            raise AssertionError(f"rank-all k={k} did not launch {label}")
+        want = fresh.topk(k=k)  # a comparison: not counted
+        pv, pi = plain(c[:n], rs[:n], k=k)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])
+                and np.array_equal(got[0], pv.cpu().numpy())
+                and np.array_equal(got[1], pi.cpu().numpy())):
+            raise AssertionError(f"{label} on the compacted backend differs "
+                                 "from the fresh backend or the plain "
+                                 "version")
+        del pv, pi
+        print(f"{label} (k={k}) on the compacted {tuple(c.shape)} factor "
+              "(patched once since its swap, limbs split anew): "
+              "bit-identical to the fresh backend and to the plain version "
+              f"on its {n} logical rows")
+    ce, rse = aptpa._half()
+    ne = aptpa.n_sources
+    got, counts, _ = counted(
+        torch, ck, launches, lambda: aptpa.topk(k=TOP_K),
+        f"rank-all k={TOP_K} on the APTPA engine's {tuple(ce.shape)} factor")
+    if counts["topk_twopass_candidates"] < 1:
+        raise AssertionError("the APTPA engine's rank-all did not launch K1")
+    pv, pi = ck.fused_topk_twopass_plain(ce[:ne], rse[:ne], k=TOP_K)
+    err = max_abs_err(torch, torch.as_tensor(got[0]), pv.cpu())
+    if not (np.array_equal(got[0], pv.cpu().numpy())
+            and np.array_equal(got[1], pi.cpu().numpy())):
+        raise AssertionError("K1 on the APTPA factor differs from the plain "
+                             "version")
+    lim_e = aptpa._limbs(ce)
+    print(f"K1 on the APTPA engine's {tuple(ce.shape)} factor (max count "
+          f"{float(ce.max()):.0f}, {lim_e.planes.shape[0]} limb planes): "
+          f"equal to the plain version (max abs err {err})")
+    del pv, pi, ce, rse, lim_e
+    torch.cuda.empty_cache()
+    got, counts, _ = counted(
+        torch, ck, launches, backend.all_pairs_scores,
+        "all-pairs scores on the compacted backend (host copy)")
+    if counts["fused_scores"] < 1:
+        raise AssertionError("all-pairs did not launch K2")
+    fc, frs = fresh._half()
+    want = ck.fused_scores(fc, frs, limbs=fresh._limbs(fc))[:n, :n].cpu()
+    del fc, frs, fresh
+    if not np.array_equal(got, want.numpy()):
+        raise AssertionError("K2 on the compacted backend differs from the "
+                             "fresh backend")
+    del want
+    plain = ck.fused_scores_plain(c[:n], rs[:n]).cpu()
+    if not np.array_equal(got, plain.numpy()):
+        raise AssertionError("K2 on the compacted backend differs from the "
+                             "plain version")
+    del got, plain
+    torch.cuda.empty_cache()
+    print(f"K2 on the compacted factor ({n}x{n} of the {c.shape[0]}-row "
+          "scores): equal to the fresh backend's and to the plain version")
+    k1_after = time_ms(torch, lambda: ck.topk_twopass_candidates(
+        c, rs, TOP_K, True, limbs=lim))
+    print(f"K1 topk_twopass_candidates k={TOP_K}: {k1_before:.3f} ms on the "
+          f"{shape_before} factor before compaction, {k1_after:.3f} ms on the "
+          f"compacted {tuple(c.shape)} factor (stripes of "
+          f"{ck.twopass_stripe_tiles(shape_before[0]) * ck.TILE} and "
+          f"{ck.twopass_stripe_tiles(c.shape[0]) * ck.TILE} columns; CUDA "
+          f"events, median of {REPS}; {card})")
+    return launches
+
+
 def serve_config5(np, backend, c64, d64, card):
     """The config 5 torch-sparse backend behind a service: 64 requests,
     3 seeded rows within C5_ATOL of host f64 arithmetic."""
@@ -2468,11 +2978,13 @@ def main() -> int:
         cold_qps = serving(torch, ck, np, launches, pathlib.Path(tmp), smi,
                            hin, hin_ap)
         router_fleet(np, pathlib.Path(tmp), smi, cold_qps)
+        sr_launches = serving_rest(torch, ck, np, smi)
         k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
-    for kern in kernels:  # the batch-CLI phase's own runs, counted apart
+    for kern in kernels:  # later phases' own runs, counted apart
         kern["launches_batch_cli"] = cli_launches[kern["name"]]
+        kern["launches_serving_rest"] = sr_launches[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

@@ -65,6 +65,9 @@ class PathSimBackend(abc.ABC):
         # Plan construction is memoized per (HIN, metapath), so N
         # backends over one graph share one stats scan.
         self.plan = planner.plan_metapath(hin, metapath)
+        # Workload-level sub-chain memo (serving passes the shared
+        # SubchainCache so concurrent metapath engines share folds).
+        self._subchain_memo = options.get("subchain_memo")
 
     def describe_plan(self) -> dict:
         """The auditable plan dump: association order + per-node cost

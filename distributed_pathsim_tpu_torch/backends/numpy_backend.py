@@ -26,7 +26,9 @@ class NumpyBackend(PathSimBackend):
             # integers to the historical dense half_product (path
             # counts are exact in f64 under any association order),
             # without ever materializing the [N, P] intermediate.
-            self._c = planner.dense_half(hin, metapath, dtype=dtype)
+            self._c = planner.dense_half(
+                hin, metapath, dtype=dtype, memo=self._subchain_memo
+            )
             self._blocks = None
         else:
             self._c = None

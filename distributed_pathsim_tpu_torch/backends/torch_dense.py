@@ -110,7 +110,8 @@ class TorchDenseBackend(PathSimBackend):
         if self._symmetric:
             # Only the folded COO crosses host→device (O(nnz), not
             # O(N·P) dense blocks); C is scatter-built on the device.
-            coo = planner.fold_half(hin, metapath, plan=self.plan)
+            coo = planner.fold_half(hin, metapath, memo=self._subchain_memo,
+                                    plan=self.plan)
             self._c_shape = coo.shape
             self._coo = (
                 torch.as_tensor(coo.rows, dtype=torch.int64,

@@ -115,7 +115,8 @@ class TorchSparseBackend(PathSimBackend):
             else int(dense_c_budget_bytes)
         )
         self._rect_kernel = rect_kernel
-        coo = planner.fold_half(hin, metapath, plan=self.plan)
+        coo = planner.fold_half(hin, metapath, memo=self._subchain_memo,
+                                plan=self.plan)
         # Knobs resolved ONCE, keyed on the folded factor's real (N, V,
         # density), and pinned: a delta rebind reuses them, so tile
         # shapes stay stable across updates.

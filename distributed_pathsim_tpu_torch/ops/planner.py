@@ -17,14 +17,23 @@ counts are exact integers in every carry dtype the backends guard (f64 <
 
 The knobs (density cutover, DP length cutoff) resolve through the tuning
 registry (``plan_density_cutover``, ``plan_dp_max_len``) with the JAX
-package's heuristic defaults, 0.25 and 16. The sub-chain memo is not
-ported yet.
+package's heuristic defaults, 0.25 and 16.
+
+:class:`SubchainCache` is the workload-level sub-chain memo a serving
+process shares across its metapath engines: folded sub-chain COO factors
+keyed by the content fingerprints of the factors they span, LRU under a
+byte budget (``plan_memo_budget_mb``, default 64 MB). It holds COO
+entries only; the JAX package's packed entry layouts come with the
+packed factor formats (ROADMAP A.3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
+import threading
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -425,6 +434,171 @@ def plan_metapath(
 
 
 # ---------------------------------------------------------------------------
+# Workload-level sub-chain memoization
+# ---------------------------------------------------------------------------
+
+
+def factor_fingerprint(hin, relationship: str) -> str:
+    """Content hash of one adjacency block (rows, cols, shape) —
+    memoized per HIN instance; a delta produces a new HIN, so patched
+    relationships re-hash while untouched ones reuse the parent's
+    arrays (same content → same digest → the memo keeps hitting)."""
+    cache = hin.__dict__.get("_block_fp_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(hin, "_block_fp_cache", cache)
+    fp = cache.get(relationship)
+    if fp is None:
+        b = hin.block(relationship)
+        h = hashlib.sha256()
+        h.update(f"{relationship}:{b.shape};".encode())
+        h.update(np.ascontiguousarray(b.rows, dtype=np.int64).tobytes())
+        h.update(np.ascontiguousarray(b.cols, dtype=np.int64).tobytes())
+        fp = cache[relationship] = h.hexdigest()[:16]
+    return fp
+
+
+def _span_key(node: PlanNode, steps: Sequence[Step], hin) -> tuple:
+    """Memo key of one plan node: the (relationship, orientation,
+    content-fingerprint) triple of every factor in its span, in order.
+    Content-addressed, so equal keys denote bit-identical sub-chain
+    results whatever plan (or graph epoch) produced them — two plans
+    that associate the same span differently still share the entry."""
+    return tuple(
+        (st.relationship, st.reverse, factor_fingerprint(hin, st.relationship))
+        for st in steps[node.lo: node.hi]
+    )
+
+
+class SubchainCache:
+    """Workload-level memo of folded sub-chain COO factors.
+
+    LRU under a byte budget; keys are content fingerprints (see
+    :func:`_span_key`), so correctness never depends on invalidation —
+    ``invalidate_relationships`` exists to *reclaim bytes* eagerly when
+    a delta makes entries unreachable, and to make the invalidation
+    rule auditable: only sub-chains whose factors changed are dropped.
+    Thread-safe: serving lanes fold concurrently. Entries are COO,
+    charged at their array bytes."""
+
+    def __init__(self, budget_bytes: int, factor_format: str = "coo"):
+        if factor_format != "coo":
+            raise ValueError(
+                f"sub-chain memo factor_format {factor_format!r} is not "
+                "ported: the memo holds COO entries; the packed layouts "
+                "come with the packed factor formats (ROADMAP A.3)"
+            )
+        self.factor_format = factor_format
+        self.budget_bytes = int(budget_bytes)
+        self._lock = threading.Lock()
+        self._d: OrderedDict[tuple, sp.COOMatrix] = OrderedDict()
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        from ..obs.metrics import get_registry
+
+        reg = get_registry()
+        self._m_hits = reg.counter(
+            "dpathsim_plan_memo_hits_total", "sub-chain memo hits"
+        ).labels()
+        self._m_misses = reg.counter(
+            "dpathsim_plan_memo_misses_total", "sub-chain memo misses"
+        ).labels()
+        self._m_evict = reg.counter(
+            "dpathsim_plan_memo_evictions_total",
+            "sub-chain memo evictions (budget pressure)",
+        ).labels()
+        self._m_bytes = reg.gauge(
+            "dpathsim_plan_memo_bytes", "sub-chain memo resident bytes"
+        ).labels()
+
+    @staticmethod
+    def _nbytes(c: sp.COOMatrix) -> int:
+        return int(c.rows.nbytes + c.cols.nbytes + c.weights.nbytes)
+
+    def get(self, key: tuple) -> sp.COOMatrix | None:
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is None:
+                self.misses += 1
+                self._m_misses.inc()
+                return None
+            self._d.move_to_end(key)
+            self.hits += 1
+            self._m_hits.inc()
+            return hit
+
+    def put(self, key: tuple, c: sp.COOMatrix) -> None:
+        if self.budget_bytes <= 0:
+            return
+        # An entry bigger than half the budget (a huge leaf factor at
+        # full graph scale) would evict every interior fold the memo
+        # exists for just to store one array the HIN already holds —
+        # skip it; the fold recomputes it in O(nnz).
+        if 2 * self._nbytes(c) > self.budget_bytes:
+            return
+        with self._lock:
+            if key not in self._d:
+                self._bytes += self._nbytes(c)
+            self._d[key] = c
+            self._d.move_to_end(key)
+            while self._bytes > self.budget_bytes and len(self._d) > 1:
+                _, dropped = self._d.popitem(last=False)
+                self._bytes -= self._nbytes(dropped)
+                self.evictions += 1
+                self._m_evict.inc()
+            self._m_bytes.set(self._bytes)
+
+    def invalidate_relationships(self, rels) -> int:
+        """Drop every entry whose span touches a changed relationship
+        — the delta-update invalidation rule. Entries over untouched
+        factors survive (and keep hitting, because their content
+        fingerprints did not move)."""
+        rels = set(rels)
+        if not rels:
+            return 0
+        with self._lock:
+            doomed = [
+                key for key in self._d
+                if any(rel in rels for rel, _, _ in key)
+            ]
+            for key in doomed:
+                self._bytes -= self._nbytes(self._d[key])
+                del self._d[key]
+            self._m_bytes.set(self._bytes)
+            return len(doomed)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+            self._bytes = 0
+            self._m_bytes.set(0)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._d),
+                "bytes": self._bytes,
+                "budget_bytes": self.budget_bytes,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+
+def default_memo_budget_bytes(n: int) -> int:
+    """The tuned ``plan_memo_budget_mb`` knob → bytes (heuristic
+    default 64 MB — comfortably holds every DBLP-schema sub-chain at
+    dblp_large scale while staying irrelevant next to the factor
+    itself)."""
+    from .. import tuning
+
+    mb = float(tuning.choose("plan_memo_budget_mb", n=n, default=64.0))
+    return int(mb * (1 << 20))
+
+
+# ---------------------------------------------------------------------------
 # Execution: the chain-evaluation doorway
 # ---------------------------------------------------------------------------
 
@@ -440,24 +614,40 @@ def _oriented_coo(hin, st: Step) -> sp.COOMatrix:
 
 
 def _eval_coo_node(
-    node: PlanNode, steps: Sequence[Step], hin
+    node: PlanNode,
+    steps: Sequence[Step],
+    hin,
+    memo: SubchainCache | None = None,
 ) -> sp.COOMatrix:
+    key = _span_key(node, steps, hin) if memo is not None else None
+    if memo is not None:
+        hit = memo.get(key)
+        if hit is not None:
+            return hit
     if node.is_leaf:
-        return _oriented_coo(hin, steps[node.lo])
-    a = _eval_coo_node(node.left, steps, hin)
-    b = _eval_coo_node(node.right, steps, hin)
-    return sp.matmul_summed(a, b)
+        out = _oriented_coo(hin, steps[node.lo])
+    else:
+        a = _eval_coo_node(node.left, steps, hin, memo)
+        b = _eval_coo_node(node.right, steps, hin, memo)
+        out = sp.matmul_summed(a, b)
+    if memo is not None:
+        memo.put(key, out)
+    return out
 
 
 def fold_half(
-    hin, metapath: MetaPath, plan: EvalPlan | None = None
+    hin,
+    metapath: MetaPath,
+    memo: SubchainCache | None = None,
+    plan: EvalPlan | None = None,
 ) -> sp.COOMatrix:
     """Plan-ordered sparse fold of the symmetric half chain → the COO
     factor C every backend binds. Bit-compatible with the historical
     left-to-right fold: single-step halves return the raw oriented
     block (unsummed, exactly as before), multi-step folds coalesce at
     every product, and integer weights make every association order
-    produce identical coalesced content."""
+    produce identical coalesced content. ``memo`` shares sub-chain
+    folds across calls (a warm fold equals the cold one bit for bit)."""
     if plan is None:
         plan = plan_metapath(hin, metapath)
     if plan.mode != "half":
@@ -465,11 +655,14 @@ def fold_half(
             f"metapath {metapath.name} is not symmetric; "
             "fold_half requires the half-chain factorization"
         )
-    return _eval_coo_node(plan.root, plan.steps(), hin)
+    return _eval_coo_node(plan.root, plan.steps(), hin, memo)
 
 
 def fold_general(
-    hin, metapath: MetaPath, plan: EvalPlan | None = None
+    hin,
+    metapath: MetaPath,
+    memo: SubchainCache | None = None,
+    plan: EvalPlan | None = None,
 ) -> sp.COOMatrix:
     """Plan-ordered sparse fold of the FULL chain (general metapaths):
     the commuting matrix M as coalesced COO."""
@@ -478,13 +671,13 @@ def fold_general(
     steps = plan.steps()
     if plan.mode == "half":
         # M = C·Cᵀ: fold the half, join it with its transpose.
-        c = fold_half(hin, metapath, plan=plan)
+        c = fold_half(hin, metapath, memo=memo, plan=plan)
         ct = sp.COOMatrix(
             rows=c.cols, cols=c.rows, weights=c.weights,
             shape=(c.shape[1], c.shape[0]),
         )
         return sp.matmul_summed(c, ct)
-    return _eval_coo_node(plan.root, steps, hin)
+    return _eval_coo_node(plan.root, steps, hin, memo)
 
 
 def fold_blocks(
@@ -493,7 +686,8 @@ def fold_blocks(
 ) -> sp.COOMatrix:
     """Plan-ordered fold of pre-oriented COO blocks (the delta
     algebra's general-chain refold and any caller that already
-    materialized its factors). Stats come from the blocks themselves."""
+    materialized its factors). Stats come from the blocks themselves;
+    no memoization (callers hold transient deltas, not graph state)."""
     if len(blocks) == 1:
         return blocks[0]
     stats = [
@@ -509,11 +703,16 @@ def fold_blocks(
     return ev(root)
 
 
-def dense_half(hin, metapath: MetaPath, dtype=np.float32) -> np.ndarray:
+def dense_half(
+    hin,
+    metapath: MetaPath,
+    dtype=np.float32,
+    memo: SubchainCache | None = None,
+) -> np.ndarray:
     """Dense [N, V] half-chain factor via the plan-ordered sparse fold
     (the dense [N, P] intermediate of a naive chain product never
     exists)."""
-    coo = fold_half(hin, metapath).summed()
+    coo = fold_half(hin, metapath, memo=memo).summed()
     c = np.zeros(coo.shape, dtype=dtype)
     c[coo.rows, coo.cols] = coo.weights
     return c

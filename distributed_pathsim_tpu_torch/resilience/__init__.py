@@ -26,7 +26,7 @@ from __future__ import annotations
 from typing import Callable, TypeVar
 
 from . import degrade, inject
-from .degrade import backend_chain, create_backend_resilient
+from .degrade import backend_chain, create_backend_resilient, engine_fallback
 from .inject import FaultInjector, InjectedCrash, InjectedFault
 from .policy import (
     Deadline,
@@ -52,6 +52,7 @@ __all__ = [
     "backend_chain",
     "create_backend_resilient",
     "degrade",
+    "engine_fallback",
     "inject",
     "policy_from_env",
     "preemption_handler",

@@ -93,6 +93,24 @@ def _options_for(name: str, options: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
+def engine_fallback(
+    name: str, options: dict[str, Any], platform: str = "cpu"
+) -> tuple[str, dict[str, Any]] | None:
+    """The backend, with its options, that a serving engine steps down
+    to when ``name`` refuses a metapath's chain (an asymmetric chain on
+    ``torch-sparse``): the end of ``platform``'s chain, which runs any
+    chain. On the card that is ``torch``, given the options it
+    understands; on the host the numpy f64 oracle, given only the
+    sub-chain memo, as the JAX service builds it. None when ``name`` is
+    already the end."""
+    to = backend_chain(name, platform)[-1]
+    if to == name:
+        return None
+    if to == "numpy":
+        return to, {k: v for k, v in options.items() if k == "subchain_memo"}
+    return to, _options_for(to, options)
+
+
 def _never_retried() -> tuple[type[BaseException], ...]:
     import torch
 

@@ -149,9 +149,11 @@ _FORWARD_VALUE = (
     "dtype", "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
     "cache_entries", "tile_cache_mb", "headroom", "delta_threshold",
     "tuning_table", "metrics_interval", "trace_sample",
+    "compact_chain_len", "compact_headroom_frac", "compact_headroom",
+    "compact_cooldown",
 )
 _FORWARD_TRUE = ("no_warm", "no_metrics", "no_tuning", "approx",
-                 "batch_events")
+                 "batch_events", "no_compact")
 # artifact-path flags forwarded with a per-worker suffix: a fleet run
 # with --metrics-file/--trace-out/--metrics must leave N+1 artifacts
 # (one per process), not N processes clobbering one path

@@ -38,7 +38,9 @@ one process no longer being one failure domain. The design center is
   affected-row set; a replica that missed a broadcast is *fenced* —
   never handed a query for an affected row — until catch-up (ordered
   replay of the missed updates, idempotent by request id) brings its
-  token to the head. No stale row can escape.
+  token to the head. The set is the served metapath's; a request
+  naming a ``metapath`` can change outside it, so while any fence is
+  active it goes only to caught-up replicas. No stale row can escape.
 
 Chaos seams: ``heartbeat`` (a probe that never happened) and
 ``delta_broadcast`` (a worker missing an update) fire here;
@@ -551,6 +553,10 @@ class Router:
         """Pick the next replica for ``p`` under the lock. Returns
         (worker_id, reason-if-none)."""
         saturated = fenced = exhausted = 0
+        # an epoch's affected set is the served metapath's: a secondary
+        # metapath's answer can change outside it, so it is fenced as a
+        # label query is (every lagging replica)
+        fence_row = None if p.req.get("metapath") else p.row
         for wid in self.policy.preference(p.key):
             # the policy can briefly lag membership (reaped workers
             # stay in the last ring until a live set exists again) —
@@ -561,7 +567,7 @@ class Router:
             if wid in exclude:
                 exhausted += 1  # alive, but this request already tried it
                 continue
-            if self._fenced(w, p.row):
+            if self._fenced(w, fence_row):
                 fenced += 1
                 self._m_fence_skips.inc()
                 continue

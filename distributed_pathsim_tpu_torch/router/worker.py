@@ -27,9 +27,13 @@ Robustness contracts implemented here:
   hedging exists for); ``crash`` → the process dies like a real kill.
 
 The port serves the exact lane: a ``topk`` with ``"mode": "ann"`` or
-``"learned"``, or a ``metapath`` other than the served one, answers the
-same per-request "not ported yet" error as ``serve``; so do the
-partition-exchange ops and ``batch_blocks`` (serving/protocol.py).
+``"learned"`` answers the same per-request "not ported yet" error as
+``serve``; so do the partition-exchange ops and ``batch_blocks``
+(serving/protocol.py). A ``topk`` naming another closed ``metapath``
+answers through the service's engine for it, as ``serve`` does (the JAX
+package's worker reads no ``metapath`` field on its async ``topk`` path
+and answers the served metapath). The router sends such a request only
+to a replica that has every update (router/core.py, delta fencing).
 """
 
 from __future__ import annotations
@@ -199,19 +203,23 @@ class WorkerRuntime:
         if deadline is not None and deadline.expired:
             fail("deadline expired on arrival", deadline_exceeded=True)
             return
+        metapath = req.get("metapath")
         try:
+            # the id-mapping type is read BEFORE dispatch (an update
+            # racing the request may drop the metapath's engine)
+            node_type = self.service.source_type(metapath)
             row = self.service.resolve(
                 source=req.get("source"), source_id=req.get("source_id"),
-                row=req.get("row"),
+                row=req.get("row"), metapath=metapath,
             )
-        except KeyError as exc:
+        except (KeyError, ValueError) as exc:
             fail(str(exc.args[0] if exc.args else exc))
             return
         k = int(req.get("k") or self.service.config.k_default)
         try:
-            # a lane the port does not serve (ann / learned, a secondary
-            # metapath) is refused per request, exactly as serve does
-            check_lane(self.service, req)
+            # a lane the port does not serve (ann / learned) is refused
+            # per request, exactly as serve does
+            check_lane(req)
         except (KeyError, ValueError) as exc:
             fail(str(exc.args[0] if exc.args else exc))
             return
@@ -237,7 +245,8 @@ class WorkerRuntime:
             with tracer.activate(ctx) if ctx is not None else _NULL_CTX:
                 future = resilient_call(
                     "worker_dispatch",
-                    lambda: self.service.submit_topk(row, k),
+                    lambda: self.service.submit_topk(
+                        row, k, metapath=metapath),
                     policy,
                 )
         except LoadShedError:
@@ -248,6 +257,12 @@ class WorkerRuntime:
             return
         except inject.InjectedFault as exc:
             fail(str(exc), transient=True)
+            return
+        except (KeyError, ValueError, OverflowError) as exc:
+            # a request this replica refuses deterministically (an open
+            # metapath, the engine limit, the exact-count guard): every
+            # replica would refuse it the same way
+            fail(str(exc.args[0] if exc.args else exc))
             return
         token = object()
         self._track(token)
@@ -263,7 +278,7 @@ class WorkerRuntime:
                 for v, i in zip(vals, idxs):
                     if not np.isfinite(v):
                         continue
-                    i_id, lab = self.service._ident(int(i))
+                    i_id, lab = self.service._ident(int(i), node_type)
                     hits.append(
                         {"id": i_id, "label": lab, "score": float(v)}
                     )

@@ -8,6 +8,10 @@ Public surface:
   lifecycle failures callers handle (coalescer.py);
 - :func:`graph_fingerprint` / :func:`chain_fingerprint` — the
   cache-identity hashes (cache.py);
+- :class:`MetapathEngine` — a secondary metapath's warm engine
+  (service.py);
+- :class:`Compactor` / :func:`compact_hin` — background compaction and
+  its re-encode (compact.py);
 - :func:`~.protocol.serve_loop` / :func:`~.protocol.handle_request` —
   the JSONL protocol; the ``dpathsim-torch serve`` subcommand lives in
   cli.py.
@@ -15,12 +19,21 @@ Public surface:
 
 from .cache import chain_fingerprint, graph_fingerprint
 from .coalescer import LoadShedError, ServiceClosed
-from .service import PathSimService, ServeConfig, build_service
+from .compact import Compactor, compact_hin
+from .service import (
+    MetapathEngine,
+    PathSimService,
+    ServeConfig,
+    build_service,
+)
 
 __all__ = [
+    "Compactor",
+    "MetapathEngine",
     "PathSimService",
     "ServeConfig",
     "build_service",
+    "compact_hin",
     "LoadShedError",
     "ServiceClosed",
     "chain_fingerprint",

@@ -13,8 +13,11 @@ Without a card and without ``--platform cpu`` it refuses to start.
 Structured events (bucket warm times, batch accounting, sheds, updates)
 ride the ``--metrics`` JSONL channel; ``--metrics-file`` keeps a
 Prometheus textfile of the live registry, rewritten every
-``--metrics-interval`` seconds. Flags of the JAX package's ``serve``
-that belong to lanes not ported yet are refused by name.
+``--metrics-interval`` seconds. Per-request metapaths share a sub-chain
+memo (``--memo-budget-mb``, ``--max-metapaths``); background compaction
+runs by default (``--no-compact``, ``--compact-*``). Flags of the JAX
+package's ``serve`` that belong to lanes not ported yet are refused by
+name.
 
 The setup helpers here (:func:`parse_known`, :func:`prepare_platform`,
 :func:`run_config`, :func:`serve_config`, :func:`serving_process`) are
@@ -34,13 +37,10 @@ from ..ops.pathsim import VARIANTS
 from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
-# does not have yet: the ANN and learned lanes, secondary-metapath
-# engines, compaction, the sharded backend's device count and compressed
-# factor layouts.
+# does not have yet: the ANN and learned lanes, the sharded backend's
+# device count and compressed factor layouts.
 NOT_PORTED_FLAGS = frozenset({
-    "--memo-budget-mb", "--max-metapaths", "--n-devices",
-    "--factor-format", "--no-compact", "--compact-chain-len",
-    "--compact-headroom-frac", "--compact-headroom", "--compact-cooldown",
+    "--n-devices", "--factor-format",
     "--topk-mode", "--index",
     "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
     "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
@@ -59,7 +59,20 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dataset", required=True, help="GEXF file path")
     p.add_argument("--backend", default="torch", choices=available_backends())
-    p.add_argument("--metapath", default="APVPA", help="served metapath")
+    p.add_argument(
+        "--metapath", default="APVPA",
+        help="default served metapath; requests may override per query "
+        "via the protocol's 'metapath' field (closed metapaths only)",
+    )
+    p.add_argument(
+        "--memo-budget-mb", type=float, default=None,
+        help="sub-chain memo budget shared by all metapath engines "
+        "(default: the tuned plan_memo_budget_mb knob; 0 disables)",
+    )
+    p.add_argument(
+        "--max-metapaths", type=int, default=8,
+        help="bound on lazily-built per-request metapath engines",
+    )
     p.add_argument("--variant", default="rowsum", choices=list(VARIANTS))
     p.add_argument(
         "--platform", default="cuda", choices=("cuda", "cpu"),
@@ -143,6 +156,34 @@ def build_serve_parser() -> argparse.ArgumentParser:
         "--delta-threshold", type=float, default=0.05,
         help="'update' batches changing more than this fraction of "
         "edges rebuild instead of patching",
+    )
+    p.add_argument(
+        "--no-compact", action="store_true",
+        help="disable automatic background compaction (the 'compact' "
+        "op still works on demand); without it, headroom exhaustion "
+        "falls back to the synchronous inline rebuild",
+    )
+    p.add_argument(
+        "--compact-chain-len", type=int, default=None,
+        help="deltas absorbed since the last re-encode before a "
+        "background compaction triggers (default: the tuned "
+        "compact_chain_len knob)",
+    )
+    p.add_argument(
+        "--compact-headroom-frac", type=float, default=0.10,
+        help="compact when the capacity reserve falls below this "
+        "fraction of the logical size (types that reserved headroom "
+        "at build only)",
+    )
+    p.add_argument(
+        "--compact-headroom", type=float, default=None,
+        help="fresh capacity reserve of a compaction re-encode, as a "
+        "fraction of size, padded to pow-2 (default: the tuned "
+        "compact_headroom knob)",
+    )
+    p.add_argument(
+        "--compact-cooldown", type=float, default=5.0,
+        help="seconds between background compactions",
     )
     p.add_argument(
         "--trace-out", default=None,
@@ -231,6 +272,13 @@ def serve_config(args) -> ServeConfig:
         warm=not args.no_warm,
         batch_events=args.batch_events,
         delta_threshold=args.delta_threshold,
+        memo_budget_mb=args.memo_budget_mb,
+        max_metapaths=args.max_metapaths,
+        compact_auto=not args.no_compact,
+        compact_chain_len=args.compact_chain_len,
+        compact_headroom_frac=args.compact_headroom_frac,
+        compact_headroom=args.compact_headroom,
+        compact_cooldown_s=args.compact_cooldown,
     )
 
 

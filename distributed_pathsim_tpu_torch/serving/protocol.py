@@ -21,6 +21,9 @@ Requests::
     {"id": 12, "op": "topk", "row": 17, "request_id": "r42",
      "deadline_ms": 250.0}
     {"id": 13, "op": "trace", "limit": 1000}
+    {"id": 14, "op": "topk", "row": 17, "metapath": "APTPA"}
+    {"id": 15, "op": "scores", "row": 17, "metapath": "APA"}
+    {"id": 16, "op": "compact"}
     {"id": 8, "op": "update",
      "add_nodes": [{"type": "author", "id": "a_new", "label": "A. New"}],
      "add_edges": [{"rel": "author_of", "src": "a_new", "dst": "paper_7"}],
@@ -28,9 +31,14 @@ Requests::
 
 Not ported yet, each answered with a per-request error that says so
 (never a silent exact answer, never a process exit): ``topk``'s
-``"mode": "ann"`` / ``"learned"``, a ``metapath`` field other than the
-served one, and the ops ``refresh_index``, ``refresh_towers``,
-``compact``, ``batch_blocks`` and the partition-exchange ops.
+``"mode": "ann"`` / ``"learned"``, and the ops ``refresh_index``,
+``refresh_towers``, ``batch_blocks`` and the partition-exchange ops.
+
+A ``metapath`` field on ``topk`` or ``scores`` answers through that
+closed metapath's engine (built on first use, bounded by
+``--max-metapaths``); the ``compact`` op forces one background-style
+compaction synchronously (re-encode with fresh pow-2 headroom, hot-swap,
+token and caches preserved) and answers its accounting.
 
 Three optional fields extend EVERY request, defaulted so clients that
 never send them keep working unchanged:
@@ -91,13 +99,13 @@ _QUERY_KEYS = ("source", "source_id", "row")
 # handled by serve_loop itself).
 PROTOCOL_OPS = frozenset({
     "ping", "stats", "metrics", "health", "invalidate", "topk",
-    "update", "scores", "trace",
+    "update", "scores", "trace", "compact",
 })
 
 # Ops of the JAX package's protocol whose lanes are not ported yet: each
 # answers a per-request "not ported yet" error.
 NOT_PORTED_OPS = frozenset({
-    "refresh_index", "refresh_towers", "compact", "batch_blocks",
+    "refresh_index", "refresh_towers", "batch_blocks",
     "resolve", "part_info", "set_colsum", "tile_pull", "partial_topk",
     "partial_scores", "part_update",
 })
@@ -182,21 +190,9 @@ class NotPorted(KeyError):
     protocol that the port does not serve yet."""
 
 
-def check_lane(service: PathSimService, req: dict,
-                topk: bool = True) -> None:
+def check_lane(req: dict) -> None:
     """Refuse, per request, what only an unported lane could answer: a
-    ``metapath`` other than the served one, and for ``topk`` a non-exact
-    ``mode`` (``scores`` has no mode field)."""
-    metapath = req.get("metapath")
-    if metapath is not None and str(metapath).strip() not in (
-        "", service.metapath.name
-    ):
-        raise NotPorted(
-            f"per-request metapath {metapath!r} is not ported yet; this "
-            f"service serves {service.metapath.name!r}"
-        )
-    if not topk:
-        return
+    ``topk`` with a non-exact ``mode``."""
     mode = req.get("mode")
     if mode in _NOT_PORTED_MODES:
         raise NotPorted(
@@ -228,13 +224,14 @@ def _dispatch_op(
         service.invalidate()
         return {"invalidated": True}
     if op == "topk":
-        check_lane(service, req)
+        check_lane(req)
         kwargs = {key: req.get(key) for key in _QUERY_KEYS}
         if all(v is None for v in kwargs.values()):
             raise KeyError("topk needs one of source / source_id / row")
         hits = service.topk(
             k=req.get("k"),
             timeout_s=deadline.remaining_s() if deadline else None,
+            metapath=req.get("metapath"),
             **kwargs,
         )
         return {
@@ -242,6 +239,13 @@ def _dispatch_op(
                 {"id": i, "label": lab, "score": s} for i, lab, s in hits
             ]
         }
+    if op == "compact":
+        # force one background-style compaction synchronously
+        # (serving/compact.py): re-encode with fresh pow-2 headroom,
+        # hot-swap under the swap lock, token and caches preserved.
+        # Idempotent by construction — re-running it re-encodes the
+        # same logical graph — so router retries need no dedup.
+        return service.compact()
     if op == "trace":
         # the span-ring scrape; bounded payload — the ring can hold
         # 200k spans and the wire is one JSON line
@@ -260,13 +264,18 @@ def _dispatch_op(
         )
         return service.update(delta, want_rows=bool(req.get("want_rows")))
     if op == "scores":
-        check_lane(service, req, topk=False)
         row = service.resolve(
             source=req.get("source"),
             source_id=req.get("source_id"),
             row=req.get("row"),
+            metapath=req.get("metapath"),
         )
-        return {"row": row, "scores": service.scores_index(row).tolist()}
+        return {
+            "row": row,
+            "scores": service.scores_index(
+                row, metapath=req.get("metapath")
+            ).tolist(),
+        }
     if op in NOT_PORTED_OPS:
         raise NotPorted(f"op {op!r} is not ported yet")
     raise KeyError(f"unknown op {op!r}")

@@ -21,11 +21,16 @@ counts in f32 below the 2^24 guard, any summation order), f64
 normalization on the host and the (descending score, ascending column)
 tie order — verified by test, padding and batching included.
 
+Beside the primary metapath, a request may name another closed metapath
+(``metapath=``): it is answered by a lazily built :class:`MetapathEngine`
+on its own coalescer lane, every engine folding through one shared
+workload-level sub-chain memo (``ops/planner.SubchainCache``). Background
+compaction (``serving/compact.py``) re-encodes the graph with fresh
+capacity headroom off the serving path and hot-swaps it with the
+consistency token and both cache tiers intact.
+
 The port serves the EXACT lane of the JAX package's service. Its ANN
-and learned lanes, per-request secondary metapaths, the router batch
-op and background compaction are not ported yet; ``update`` falls back
-to the synchronous rebuild when headroom runs out, as the JAX service
-does with compaction off.
+and learned lanes and the router batch op are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..backends.base import PathSimBackend
 from ..obs.metrics import get_registry
 from ..obs.trace import get_tracer
 from ..ops import pathsim
+from ..ops import planner
 from ..utils.compile_counter import (
     compiles_total,
     install_compile_metrics,
@@ -51,6 +57,37 @@ from ..utils.logging import runtime_event
 from .buckets import resolve_ladder
 from .cache import HotTileCache, ResultCache, graph_fingerprint
 from .coalescer import BatchStats, Coalescer, Request
+
+# Lane prefix of secondary-metapath dispatches: the coalescer never
+# mixes lanes in one batch, so each metapath's queries pad into their
+# own batched GEMM against that metapath's engine.
+_MP_LANE = "mp:"
+
+# The compaction-swap doorway surface: these internals perform the
+# token-preserving hot-swap and are only sound inside _apply_compaction
+# under the swap lock with the mid-build replay log in hand.
+# serving/compact.py is the one sanctioned caller; everything else
+# compacts via service.compact() or the 'compact' protocol op.
+COMPACTION_SURFACE = frozenset({
+    "_apply_compaction",
+    "_swap_compacted",
+})
+
+
+@dataclasses.dataclass
+class MetapathEngine:
+    """One lazily-built secondary-metapath serving engine: a warm
+    backend for a non-default metapath, sharing the service's
+    sub-chain memo, caches, and coalescer. ``fallback_from`` records a
+    backend-class degrade (an asymmetric chain that torch-sparse
+    refuses, served by ``torch`` on the card or ``numpy`` on the host)
+    — results are bit-identical either way."""
+
+    metapath: object
+    backend: PathSimBackend
+    d: np.ndarray  # f64 denominators, prefetched like the primary's
+    n: int
+    fallback_from: str | None = None
 
 
 @dataclasses.dataclass
@@ -71,6 +108,33 @@ class ServeConfig:
     # graph's edges (or exhausting index headroom) rebuilds instead of
     # patching — past it the O(Δ) machinery converges on rebuild cost.
     delta_threshold: float = 0.05
+    # -- multi-metapath workload ---------------------------------------
+    # Sub-chain memo budget shared by every metapath engine (None →
+    # the tuned ``plan_memo_budget_mb`` knob; 0 disables memoization).
+    memo_budget_mb: float | None = None
+    # Bound on lazily-built secondary metapath engines: each holds a
+    # warm backend (a device factor), so the set must not grow with
+    # request fields.
+    max_metapaths: int = 8
+    # -- background compaction (serving/compact.py) --------------------
+    # Re-encode with fresh pow-2 headroom and hot-swap in the
+    # background when the capacity reserve runs low or the delta chain
+    # grows long — the firehose alternative to the synchronous
+    # headroom-exhausted rebuild. The swap preserves the consistency
+    # token and both cache tiers (the logical graph is unchanged).
+    compact_auto: bool = True
+    # deltas absorbed since the last re-encode before a chain-triggered
+    # compaction (None → the tuned ``compact_chain_len`` knob)
+    compact_chain_len: int | None = None
+    # trigger when min type headroom falls below this fraction of the
+    # logical size (only for types that reserved capacity at build)
+    compact_headroom_frac: float = 0.10
+    # fresh capacity reserve of the re-encode (None → the tuned
+    # ``compact_headroom`` knob); padded to pow-2 buckets either way
+    compact_headroom: float | None = None
+    compact_cooldown_s: float = 5.0
+    # bounded build retries when deltas keep landing mid-build
+    compact_attempts: int = 3
 
 
 class PathSimService:
@@ -93,13 +157,16 @@ class PathSimService:
         )
         self._bucket_hist: dict[int, int] = {}
         self._wait_ms_sum = 0.0
-        # update()'s full-rebuild fallback needs a fresh backend for the
-        # delta-applied graph. The default rebuilds with the incumbent's
-        # class and pass-through options; build_service installs a
-        # factory that replays the full RunConfig knobs.
+        # update()'s full-rebuild fallback (and compaction) needs a
+        # fresh backend for a new encoding. The default rebuilds with the
+        # incumbent's class and pass-through options, the sub-chain memo
+        # threaded in so a refold hits the still-valid entries;
+        # build_service installs a factory that replays the full
+        # RunConfig knobs.
         self._backend_factory = backend_factory or (
             lambda hin: type(self.backend)(
-                hin, self.metapath, **self.backend.options
+                hin, self.metapath,
+                **{**self.backend.options, "subchain_memo": self.memo},
             )
         )
         self._update_stats = {"deltas": 0, "rebuilds": 0, "purged_rows": 0}
@@ -120,7 +187,38 @@ class PathSimService:
         # compiles visible live: a steady-state serving process whose
         # counter moves is violating the shape-bucket contract
         install_compile_metrics()
+        # Workload-level sub-chain memo + lazily-built per-metapath
+        # engines (per-request ``metapath`` field). Built BEFORE the
+        # backend install so a rebuild-time engine flush finds them.
+        n0 = backend.hin.type_size(backend.metapath.source_type)
+        budget = (
+            planner.default_memo_budget_bytes(n0)
+            if self.config.memo_budget_mb is None
+            else int(self.config.memo_budget_mb * (1 << 20))
+        )
+        memo_fmt = (backend.factor_info() or {}).get("format", "coo")
+        self.memo = (
+            planner.SubchainCache(budget, factor_format=memo_fmt)
+            if budget > 0 else None
+        )
+        # _engines is read on coalescer threads mid-dispatch, where
+        # taking _swap_lock would deadlock against update()'s
+        # hold-and-drain — so the dict gets its own LEAF lock (never
+        # held across another acquisition; builds still serialize
+        # under _swap_lock, only the dict ops take this one).
+        self._engines_lock = threading.Lock()
+        self._engines: dict[str, MetapathEngine] = {}
+        self._m_engines = reg.counter(
+            "dpathsim_plan_engines_total",
+            "secondary metapath engines built, by metapath",
+        )
         self._install_backend(backend, warm=self.config.warm)
+        # background compaction: triggered per absorbed delta under
+        # _swap_lock; built AFTER the first install so its tuned
+        # thresholds see the real n
+        from .compact import Compactor
+
+        self._compactor = Compactor(self)
         self.coalescer = Coalescer(
             issue=self._issue,
             complete=self._complete,
@@ -140,9 +238,20 @@ class PathSimService:
         denominators come first: a graph past the backend's exactness
         guard raises here, before the service's state is touched."""
         d = np.asarray(backend._denominators(self.variant), dtype=np.float64)
+        # a wholesale install re-bases the consistency token: the
+        # compaction chain restarts and any in-flight build is stale
+        # (absent only during the constructor's first install)
+        compactor = getattr(self, "_compactor", None)
+        if compactor is not None:
+            compactor.note_rebuild()
         self.backend = backend
         self.hin = backend.hin
         self.metapath = backend.metapath
+        # Secondary engines bind the OLD hin/backend generation: drop
+        # them (they rebuild lazily against the new graph, re-hitting
+        # the sub-chain memo for factors whose content didn't change).
+        with self._engines_lock:
+            self._engines.clear()
         self.node_type = backend.metapath.source_type
         self.index = self.hin.indices[self.node_type]
         self.n = self.index.size
@@ -197,20 +306,137 @@ class PathSimService:
             int(self._row_ver[row]),
         )
 
+    # -- secondary metapath engines (per-request ``metapath`` field) -------
+
+    def _canon_metapath(self, metapath: str | None) -> str:
+        """Per-request metapath name → canonical name (None → the
+        service default). Cheap; full validation happens at engine
+        build."""
+        if metapath is None:
+            return self.metapath.name
+        name = str(metapath).strip()
+        if not name:
+            return self.metapath.name
+        return name
+
+    def _mp_epoch(self, name: str) -> tuple:
+        """Cache-identity prefix of a secondary metapath's entries:
+        the CHAINED fingerprint (not the base) — any delta advances it,
+        so secondary answers invalidate wholesale per delta while the
+        primary keeps its row-granular story. Coarse but sound: the
+        affected-row analysis is derived per half-chain, and secondary
+        engines rebuild lazily anyway."""
+        return (self._fp, name, self.variant)
+
+    def _engine_for(self, name: str) -> MetapathEngine:
+        """Get or lazily build the serving engine for a non-default
+        metapath. Caller holds ``_swap_lock`` (engine builds must not
+        interleave with a backend swap) — so a FIRST build of a new
+        metapath blocks admissions for its backend init + warmup, the
+        same stall discipline a reload already has. The engine shares
+        the service's sub-chain memo, so concurrent metapath lanes share
+        common sub-chain folds (APVPA/APA/APTPA all reuse the A·P
+        factor). An engine whose chain trips the exact-count guard
+        raises to its request and is never kept."""
+        with self._engines_lock:
+            eng = self._engines.get(name)
+            n_engines = len(self._engines)
+        if eng is not None:
+            return eng
+        if n_engines >= self.config.max_metapaths:
+            raise ValueError(
+                f"metapath engine limit ({self.config.max_metapaths}) "
+                "reached; raise --max-metapaths or restart with the "
+                "needed default"
+            )
+        from ..backends.base import create_backend
+        from ..ops.metapath import compile_metapath
+        from ..resilience.degrade import engine_fallback
+
+        t0 = time.perf_counter()
+        mp = compile_metapath(name, self.hin.schema)
+        if mp.source_type != mp.target_type:
+            raise ValueError(
+                f"metapath {name!r} is not closed "
+                f"({mp.source_type!r} → {mp.target_type!r}); serving "
+                "scores rows of the source type against itself, so a "
+                "served metapath must start and end on one type"
+            )
+        options = dict(self.backend.options)
+        options["subchain_memo"] = self.memo
+        fallback_from = None
+        try:
+            backend = create_backend(
+                self.backend.name, self.hin, mp, **options
+            )
+        except ValueError as exc:
+            # e.g. an asymmetric-but-closed chain on torch-sparse:
+            # degrade THIS engine only — bit-identical results. Work
+            # asked for on the card stays there (torch), the host steps
+            # down to the numpy oracle as the JAX service does.
+            device = getattr(self.backend, "device", None)
+            step = engine_fallback(
+                self.backend.name, options,
+                "cpu" if device is None else device.type,
+            )
+            if step is None:
+                raise
+            to, opts = step
+            fallback_from = self.backend.name
+            runtime_event(
+                "metapath_engine_fallback", metapath=name,
+                from_=self.backend.name, to=to, reason=str(exc),
+            )
+            backend = create_backend(to, self.hin, mp, **opts)
+        # the exactness guard first: a chain past it raises here,
+        # before the engine is kept or warmed
+        d = np.asarray(backend._denominators(self.variant), dtype=np.float64)
+        if self.config.warm:
+            warm_compile_cache(
+                backend, self._bucket_ladder,
+                k=self.config.k_default, variant=self.variant,
+            )
+        eng = MetapathEngine(
+            metapath=mp, backend=backend, d=d, n=backend.n_sources,
+            fallback_from=fallback_from,
+        )
+        with self._engines_lock:
+            self._engines[name] = eng
+        self._m_engines.inc(metapath=name)
+        runtime_event(
+            "metapath_engine_ready",
+            metapath=name, backend=backend.name, n=eng.n,
+            order=backend.plan.order(),
+            est_flops=round(float(backend.plan.est_flops), 1),
+            startup_s=round(time.perf_counter() - t0, 3),
+        )
+        return eng
+
     # -- dispatch plumbing (runs on coalescer threads) ---------------------
 
-    def _issue(self, rows_padded: np.ndarray, k: int, lane: str = "exact"):
-        """Dispatcher-thread half of a batch: returns the in-flight
-        counts handle. The torch backend returns a handle on a GEMM
-        queued on its serving stream (the double buffer overlaps the
-        host copy with the next bucket's GEMM); others return host
-        counts directly."""
-        issue_device = getattr(self.backend, "pairwise_rows_device", None)
+    @staticmethod
+    def _issue_on(backend: PathSimBackend, rows_padded: np.ndarray):
+        """The torch backend returns a handle on a GEMM queued on its
+        serving stream (the double buffer overlaps the host copy with
+        the next bucket's GEMM); others return host counts directly."""
+        issue_device = getattr(backend, "pairwise_rows_device", None)
         if issue_device is not None:
             handle = issue_device(rows_padded)
             if handle is not None:
                 return handle
-        return self.backend.pairwise_rows(rows_padded)
+        return backend.pairwise_rows(rows_padded)
+
+    def _issue(self, rows_padded: np.ndarray, k: int, lane: str = "exact"):
+        """Dispatcher-thread half of a batch: returns the in-flight
+        counts handle. A secondary-metapath lane issues against its
+        engine (present by construction — submit built it under the
+        swap lock, and update/reload/compaction drain the pipeline
+        before dropping engines)."""
+        if lane.startswith(_MP_LANE):
+            with self._engines_lock:
+                eng = self._engines[lane[len(_MP_LANE):]]
+            return self._issue_on(eng.backend, rows_padded)
+        return self._issue_on(self.backend, rows_padded)
 
     def _complete(
         self,
@@ -222,26 +448,39 @@ class PathSimService:
     ) -> None:
         """Completion-thread half: fetch counts, normalize in f64, top-k
         per request (each gets the k-prefix it asked for), fill both
-        cache tiers, resolve futures. The tracer spans opened here
-        parent into the batch's ``serve.complete`` span — the coalescer
-        activated its context on this thread before calling."""
+        cache tiers, resolve futures. A secondary-metapath lane runs the
+        same arithmetic against its engine's counts and denominators
+        under the metapath's own cache epoch. The tracer spans opened
+        here parent into the batch's ``serve.complete`` span — the
+        coalescer activated its context on this thread before calling."""
+        span_args = {}
+        if lane.startswith(_MP_LANE):
+            name = lane[len(_MP_LANE):]
+            with self._engines_lock:
+                eng = self._engines[name]
+            n, d, mp_epoch = eng.n, eng.d, self._mp_epoch(name)
+            epoch_of = lambda row: mp_epoch  # noqa: E731
+            span_args["metapath"] = name
+        else:
+            n, d, epoch_of = self.n, self._d, self._epoch_for
         tracer = get_tracer()
-        with tracer.child_span("serve.host_transfer", n=int(rows.shape[0])):
+        with tracer.child_span("serve.host_transfer", n=int(rows.shape[0]),
+                               **span_args):
             # column trim to the logical width: handles from a
             # capacity-padded backend carry zero-count pad columns.
             # np.asarray is where a device handle actually blocks — the
             # transfer segment of the trace.
             counts = np.asarray(handle, dtype=np.float64)[
-                : rows.shape[0], : self.n
+                : rows.shape[0], : n
             ]
-        scores = pathsim.score_rows(counts, self._d[rows], self._d, xp=np)
+        scores = pathsim.score_rows(counts, d[rows], d, xp=np)
         masked = scores.copy()
         masked[np.arange(rows.shape[0]), rows] = -np.inf
-        k_eff = min(k, max(self.n - 1, 1))
+        k_eff = min(k, max(n - 1, 1))
         vals, idxs = pathsim.topk_from_score_rows(masked, k_eff)
         with tracer.child_span("serve.cache_fill", n=len(batch)):
             for b, req in enumerate(batch):
-                epoch = self._epoch_for(int(rows[b]))
+                epoch = epoch_of(int(rows[b]))
                 # copy, not a view: a cached view would pin the whole
                 # [B, N] batch array long past the byte budget's
                 # accounting
@@ -282,48 +521,69 @@ class PathSimService:
 
     def resolve(self, source: str | None = None,
                 source_id: str | None = None,
-                row: int | None = None) -> int:
-        """Label / node-id / raw row → dense row index."""
+                row: int | None = None,
+                metapath: str | None = None) -> int:
+        """Label / node-id / raw row → dense row index (in the
+        requested metapath's SOURCE type space — a per-request
+        ``metapath`` may start on a different node type than the
+        service default)."""
+        name = self._canon_metapath(metapath)
+        if name == self.metapath.name:
+            node_type, n = self.node_type, self.n
+        else:
+            # compile only: source type and row bound need the SPEC,
+            # not an engine — building one here would stall admissions
+            # (and burn an engine slot) just to range-check a row
+            from ..ops.metapath import compile_metapath
+
+            node_type = compile_metapath(
+                name, self.hin.schema
+            ).source_type
+            n = self.hin.type_size(node_type)
         if row is not None:
-            if not 0 <= int(row) < self.n:
-                raise KeyError(f"row {row} out of range [0, {self.n})")
+            if not 0 <= int(row) < n:
+                raise KeyError(f"row {row} out of range [0, {n})")
             return int(row)
         return self.hin.resolve_source(
-            self.node_type, label=source, node_id=source_id
+            node_type, label=source, node_id=source_id
         )
 
-    def submit_topk(self, row: int, k: int | None = None) -> Future:
+    def submit_topk(self, row: int, k: int | None = None,
+                    metapath: str | None = None) -> Future:
         """Admit a top-k query; returns a Future of (values, indices).
         Cache hits resolve immediately; misses ride the coalescer.
         Raises :class:`coalescer.LoadShedError` at the queue bound.
+        ``metapath`` (None → the served one) answers through that
+        metapath's engine and lane.
 
         Every admission opens a root ``serve.request`` span: cache hits
         finish it here; coalesced misses carry it across the
         dispatcher/completer thread hop, so one request = one connected
         trace (enqueue → dispatch → device → transfer → cache fill)."""
         k = int(k or self.config.k_default)
+        name = self._canon_metapath(metapath)
         tracer = get_tracer()
         root = tracer.start_span(
             "serve.request", row=int(row), k=k, mode="exact",
-            metapath=self.metapath.name,
+            metapath=name,
         )
         t0 = time.monotonic()
         try:
             with self._swap_lock:
+                if name != self.metapath.name:
+                    return self._submit_metapath_locked(
+                        int(row), k, name, root, t0
+                    )
                 return self._submit_topk_locked(int(row), k, root, t0)
         except BaseException as exc:
             tracer.finish(root, outcome=type(exc).__name__)
             raise
 
-    def _submit_topk_locked(self, row: int, k: int, root=None,
-                            t0: float = 0.0) -> Future:
-        # Under _swap_lock: an update/reload drains the pipeline then
-        # swaps or patches the backend — admissions must not interleave
-        # with that (the drain would never finish, and a request could
-        # resolve rows against one graph and dispatch against another).
+    def _answer_cached(self, key: tuple, epoch: tuple, row: int, k: int,
+                       n: int, root, t0: float) -> Future | None:
+        """Tiers 1 and 2 of an admission: a result-LRU hit, or a known
+        score row re-selected for this k on the host. None on a miss."""
         tracer = get_tracer()
-        epoch = self._epoch_for(row)
-        key = (*epoch, int(row), k)
         hit = self.result_cache.get(key)
         if hit is not None:
             fut: Future = Future()
@@ -331,24 +591,55 @@ class PathSimService:
             self._m_latency["hit_result"].observe(time.monotonic() - t0)
             tracer.finish(root, outcome="hit_result")
             return fut
-        srow = self.tile_cache.get_row(epoch, int(row))
-        if srow is not None:
-            masked = srow.copy()
-            masked[int(row)] = -np.inf
-            k_eff = min(k, max(self.n - 1, 1))
-            vals, idxs = pathsim.topk_from_score_rows(
-                masked[None, :], k_eff
-            )
-            self.result_cache.put(key, vals[0], idxs[0])
-            fut = Future()
-            fut.set_result((vals[0], idxs[0]))
-            self._m_latency["hit_tile"].observe(time.monotonic() - t0)
-            tracer.finish(root, outcome="hit_tile")
+        srow = self.tile_cache.get_row(epoch, row)
+        if srow is None:
+            return None
+        masked = srow.copy()
+        masked[row] = -np.inf
+        k_eff = min(k, max(n - 1, 1))
+        vals, idxs = pathsim.topk_from_score_rows(masked[None, :], k_eff)
+        self.result_cache.put(key, vals[0], idxs[0])
+        fut = Future()
+        fut.set_result((vals[0], idxs[0]))
+        self._m_latency["hit_tile"].observe(time.monotonic() - t0)
+        tracer.finish(root, outcome="hit_tile")
+        return fut
+
+    def _submit_metapath_locked(self, row: int, k: int, name: str,
+                                root=None, t0: float = 0.0) -> Future:
+        """Secondary-metapath admission (under ``_swap_lock``): same
+        three tiers as the primary path — result LRU, hot-tile
+        re-select, coalesced dispatch on the metapath's own lane."""
+        eng = self._engine_for(name)
+        if not 0 <= row < eng.n:
+            raise KeyError(f"row {row} out of range [0, {eng.n})")
+        epoch = self._mp_epoch(name)
+        fut = self._answer_cached(
+            (*epoch, row, k), epoch, row, k, eng.n, root, t0
+        )
+        if fut is not None:
             return fut
-        return self.coalescer.submit(int(row), k, span=root, t_submit=t0)
+        return self.coalescer.submit(
+            row, k, span=root, t_submit=t0, lane=f"{_MP_LANE}{name}"
+        )
+
+    def _submit_topk_locked(self, row: int, k: int, root=None,
+                            t0: float = 0.0) -> Future:
+        # Under _swap_lock: an update/reload drains the pipeline then
+        # swaps or patches the backend — admissions must not interleave
+        # with that (the drain would never finish, and a request could
+        # resolve rows against one graph and dispatch against another).
+        epoch = self._epoch_for(row)
+        fut = self._answer_cached(
+            (*epoch, row, k), epoch, row, k, self.n, root, t0
+        )
+        if fut is not None:
+            return fut
+        return self.coalescer.submit(row, k, span=root, t_submit=t0)
 
     def topk_index(self, row: int, k: int | None = None,
-                   timeout_s: float | None = None):
+                   timeout_s: float | None = None,
+                   metapath: str | None = None):
         """Synchronous top-k by dense row index → (values, indices).
         ``timeout_s`` caps the wait below the service-wide default —
         the protocol's ``deadline_ms`` budget lands here, so a request
@@ -356,36 +647,83 @@ class PathSimService:
         timeout = self.config.request_timeout_s
         if timeout_s is not None:
             timeout = min(timeout, max(timeout_s, 0.0))
-        return self.submit_topk(row, k).result(timeout=timeout)
+        return self.submit_topk(row, k, metapath=metapath).result(
+            timeout=timeout
+        )
 
-    def _ident(self, i: int) -> tuple[str, str]:
+    def _ident(self, i: int, node_type: str | None = None) -> tuple[str, str]:
         """(id, label) for a dense index — huge synthetic graphs carry
         implicit range ids (TypeIndex.size_override, no string tables),
         so serving must synthesize the canonical name rather than index
         an empty tuple."""
-        idx = self.hin.indices[self.node_type]
+        node_type = node_type or self.node_type
+        idx = self.hin.indices[node_type]
         if i < len(idx.ids):
             return idx.ids[i], idx.labels[i]
-        return f"{self.node_type}_{i}", f"{self.node_type}_{i}"
+        return f"{node_type}_{i}", f"{node_type}_{i}"
+
+    def source_type(self, metapath: str | None = None) -> str:
+        """The node type a request's rows index: the served metapath's
+        source type, or a per-request metapath's (compiled, not built)."""
+        name = self._canon_metapath(metapath)
+        if name == self.metapath.name:
+            return self.node_type
+        from ..ops.metapath import compile_metapath
+
+        return compile_metapath(name, self.hin.schema).source_type
 
     def topk(self, source: str | None = None, source_id: str | None = None,
              row: int | None = None, k: int | None = None,
-             timeout_s: float | None = None):
+             timeout_s: float | None = None,
+             metapath: str | None = None):
         """Synchronous top-k by label / id / row, resolved to ids:
-        list of (target_id, target_label, score)."""
-        r = self.resolve(source=source, source_id=source_id, row=row)
-        vals, idxs = self.topk_index(r, k, timeout_s=timeout_s)
+        list of (target_id, target_label, score). ``metapath``
+        overrides the served chain per request (default: the service's
+        ``--metapath``)."""
+        name = self._canon_metapath(metapath)
+        # node_type is captured BEFORE dispatch: an update()/reload
+        # racing the request may drop the engine dict entry after the
+        # future resolves, and a successfully-answered query must not
+        # crash on the id-mapping step
+        node_type = self.source_type(name)
+        r = self.resolve(
+            source=source, source_id=source_id, row=row, metapath=name
+        )
+        vals, idxs = self.topk_index(
+            r, k, timeout_s=timeout_s, metapath=name
+        )
         return [
-            (*self._ident(int(i)), float(v))
+            (*self._ident(int(i), node_type), float(v))
             for v, i in zip(vals, idxs)
             if np.isfinite(v)
         ]
 
-    def scores_index(self, row: int) -> np.ndarray:
+    def scores_index(self, row: int,
+                     metapath: str | None = None) -> np.ndarray:
         """Full normalized score row (self pair included, as the
         driver's all-pairs row would have it). Tile-cache hit or one
         coalesced dispatch."""
         row = int(row)
+        name = self._canon_metapath(metapath)
+        if name != self.metapath.name:
+            with self._swap_lock:
+                self._engine_for(name)
+            srow = self.tile_cache.get_row(self._mp_epoch(name), row)
+            if srow is not None:
+                return srow.copy()
+            self.topk_index(row, self.config.k_default, metapath=name)
+            # re-fetch engine AND epoch: a delta racing the dispatch
+            # advanced _fp and dropped the engine — reading the
+            # pre-dispatch snapshot here would serve pre-delta scores
+            # as the current answer
+            with self._swap_lock:
+                eng = self._engine_for(name)
+            srow = self.tile_cache.get_row(self._mp_epoch(name), row)
+            if srow is not None:
+                return srow.copy()
+            return eng.backend.scores_rows(
+                np.asarray([row]), variant=self.variant
+            )[0]
         # copies on the hit paths: callers mutate score rows (self-
         # masking is the natural first move), and handing out the
         # cache's own array would poison every later tier-2 hit
@@ -405,10 +743,16 @@ class PathSimService:
 
     # -- lifecycle ---------------------------------------------------------
 
-    def invalidate(self) -> None:
-        """Drop both cache tiers (explicit operator action or reload)."""
+    def invalidate(self, memo: bool = True) -> None:
+        """Drop both cache tiers (explicit operator action or reload).
+        ``memo=False`` keeps the sub-chain memo — update()'s rebuild
+        path uses it after SELECTIVELY invalidating the changed
+        factors, so the rebuild's refold still hits the entries whose
+        content did not move."""
         self.result_cache.clear()
         self.tile_cache.clear()
+        if memo and self.memo is not None:
+            self.memo.clear()
         runtime_event("serve_invalidate", fingerprint=self._fp)
 
     @property
@@ -435,6 +779,13 @@ class PathSimService:
             "delta_seq": self._delta_seq,
             "fingerprint": self._fp,
             "backend": self.backend.name,
+            # compaction heartbeat bits: a router (or operator) can see
+            # a replica mid-build — the token above is UNCHANGED by a
+            # compaction swap, so fencing never reacts to one
+            "compaction": {
+                "inflight": self._compactor.inflight,
+                "count": self._compactor.compactions,
+            },
             # per-mode epoch map: the exact lane is the only one ported
             "modes": {
                 "exact": {
@@ -467,11 +818,22 @@ class PathSimService:
         exactness guard (f32 counts ≥ 2^24) is refused with
         OverflowError before anything changes: the backend, its factor,
         the graph, the denominators, the consistency token and both
-        cache tiers stay as they were. (The JAX package's service
-        patches first and raises after, leaving a half-applied state.)
+        cache tiers stay as they were. On the patch path the check runs
+        before anything changes, so the sub-chain memo and the secondary
+        metapath engines stay as they were too; on the rebuild path
+        (the guard runs on the new backend) the memo entries over the
+        changed factors and the engines are gone — caches both, rebuilt
+        on demand. (The JAX package's service patches first and raises
+        after, leaving a half-applied state.)
+
+        Every update drops the memo entries over the factors it changed
+        and every secondary engine (they rebuild lazily), and feeds the
+        compactor: an in-flight build's replay log, the chain counter
+        and the headroom trigger.
 
         Returns an accounting dict (mode, affected rows, purges,
-        chained fingerprint) — also the JSONL ``update`` op's result."""
+        chained fingerprint, memo entries and engines dropped) — also
+        the JSONL ``update`` op's result."""
         from ..backends.base import DeltaUnsupported
         from ..data.delta import plan_delta
 
@@ -496,13 +858,30 @@ class PathSimService:
                     mode, reason = "rebuild", str(exc)
             else:
                 mode = "rebuild"
+            # Sub-chain memo: drop exactly the entries whose factors
+            # changed (keys are content fingerprints, so untouched
+            # sub-chains keep hitting across the delta); secondary
+            # engines bind the pre-delta graph and rebuild lazily.
+            changed_rels = sorted({e.relationship for e in delta.edges})
+            memo_dropped = (
+                self.memo.invalidate_relationships(changed_rels)
+                if self.memo is not None else 0
+            )
+            with self._engines_lock:
+                engines_dropped = len(self._engines)
+                self._engines.clear()
             affected_list: list[int] | None = None
             if mode == "rebuild":
                 self._install_backend(
                     self._backend_factory(plan.hin_new),
                     warm=self.config.warm,
                 )
-                self.invalidate()
+                # answer caches go wholesale; the sub-chain memo was
+                # already SELECTIVELY invalidated above — its surviving
+                # entries are content-addressed (still bit-valid for
+                # untouched factors), and the rebuild's refold just
+                # hit them through the factory's threaded memo
+                self.invalidate(memo=False)
                 self._update_stats["rebuilds"] += 1
                 affected_n, purged = self.n, -1  # everything went
             else:
@@ -528,6 +907,10 @@ class PathSimService:
                     affected_list = [int(r) for r in affected]
                 self._update_stats["deltas"] += 1
                 self._update_stats["purged_rows"] += purged
+            # compaction bookkeeping + trigger check (we hold the swap
+            # lock): a patch feeds an in-flight build's replay log; a
+            # long chain or thin headroom spawns the background build
+            self._compactor.note_update(delta, mode)
             ms = round((time.perf_counter() - t0) * 1e3, 3)
             self._m_updates.inc(mode=mode)
             get_registry().histogram(
@@ -553,6 +936,8 @@ class PathSimService:
                 "node_appends": plan.delta.n_node_appends,
                 "affected_rows": affected_n,
                 "purged_entries": purged,
+                "memo_invalidated": memo_dropped,
+                "engines_dropped": engines_dropped,
                 "delta_seq": self._delta_seq,
                 "base_fp": self._base_fp,
                 "fingerprint": self._fp,
@@ -581,6 +966,111 @@ class PathSimService:
                 to_fingerprint=self._fp,
             )
 
+    def _apply_compaction(self, backend: PathSimBackend, hin_c,
+                          token0: tuple) -> dict:
+        """The compaction-swap doorway: the ONLY path by which a
+        compaction-built backend enters service (serving/compact.py is
+        the sole caller). Under the swap lock: verify the build's token
+        snapshot still chains to the live token (a reload/rebuild
+        re-based it → abandon), replay the deltas that landed mid-build
+        onto the new backend (O(Δ) each; the build pre-folded the half
+        chain), drain the pipeline, and hot-swap. The drain comes before
+        the swap, so no batch in flight on the old backend outlives its
+        buffers. Returns either ``{"abandoned": reason}`` or the swap
+        accounting (replayed count, pause seconds, new capacities)."""
+        from ..backends.base import DeltaUnsupported
+        from ..data.delta import plan_delta
+
+        comp = self._compactor
+        with self._swap_lock:
+            log = comp._log
+            want = (
+                (token0[0], token0[1] + len(log))
+                if log is not None else None
+            )
+            if want is None or self.consistency_token != want:
+                return {"abandoned": "token moved during build"}
+            t_pause = time.perf_counter()
+            hin_cur = hin_c
+            for delta in log:
+                plan = plan_delta(
+                    hin_cur, delta, self.metapath,
+                    max_delta_fraction=self.config.delta_threshold,
+                )
+                if plan.fallback:
+                    return {"abandoned": "replayed delta fell back"}
+                try:
+                    backend.apply_delta(plan)
+                except DeltaUnsupported:
+                    return {"abandoned": "replayed delta unsupported"}
+                hin_cur = plan.hin_new
+            with get_tracer().child_span(
+                "compact.swap", replayed=len(log)
+            ):
+                self.coalescer.drain()
+                self._swap_compacted(backend, hin_cur)
+            comp._chain = 0
+            return {
+                "replayed_deltas": len(log),
+                "pause_s": time.perf_counter() - t_pause,
+                "capacity": {
+                    t: idx.padded_size
+                    for t, idx in hin_cur.indices.items()
+                    if idx.capacity is not None
+                },
+                "token": list(self.consistency_token),
+            }
+
+    def _swap_compacted(self, backend: PathSimBackend, hin) -> None:
+        """Install a compaction-built backend for the SAME logical
+        graph. Caller (:meth:`_apply_compaction`) holds ``_swap_lock``
+        with the pipeline drained. Unlike :meth:`_install_backend`
+        this preserves the consistency token, the chained fingerprint,
+        the per-row cache versions, and BOTH cache tiers — the graph
+        content did not change, only its physical padding — so router
+        fencing sees nothing and every warm entry stays servable. The
+        bucket ladder is untouched (keyed on the unchanged logical n),
+        and no rewarm runs here: the build thread warmed the new
+        padded shapes before taking the lock."""
+        d = np.asarray(backend._denominators(self.variant), dtype=np.float64)
+        self.backend = backend
+        self.hin = hin
+        # engines bind the old hin generation; they rebuild lazily
+        with self._engines_lock:
+            self._engines.clear()
+        self.index = self.hin.indices[self.node_type]
+        self.n = self.index.size
+        old_ver = self._row_ver
+        new_ver = np.zeros(self.index.padded_size, dtype=np.int64)
+        m = min(old_ver.shape[0], new_ver.shape[0])
+        new_ver[:m] = old_ver[:m]
+        self._row_ver = new_ver
+        self._d = d
+
+    def compact(self, wait_s: float = 300.0) -> dict:
+        """Force one compaction now (the ``compact`` protocol op): the
+        same build-then-hot-swap the automatic triggers run, executed
+        synchronously. Returns the compaction accounting (``swapped``,
+        replayed deltas, build/pause ms, compile count, new per-type
+        capacities). Serving keeps flowing during the build; only the
+        swap itself (drain + replay + install) pauses admissions."""
+        return self._compactor.compact_now(
+            reason="requested", wait_s=wait_s
+        )
+
+    def _engine_summaries(self) -> dict:
+        with self._engines_lock:
+            engines = sorted(self._engines.items())
+        return {
+            name: {
+                "backend": eng.backend.name,
+                "n": eng.n,
+                "fallback_from": eng.fallback_from,
+                **eng.backend.plan.summary(),
+            }
+            for name, eng in engines
+        }
+
     def stats(self) -> dict:
         c = self.coalescer
         batches = max(c.batch_count, 1)
@@ -595,19 +1085,35 @@ class PathSimService:
                     "p95_ms": round(cell.quantile(0.95) * 1e3, 4),
                     "p99_ms": round(cell.quantile(0.99) * 1e3, 4),
                 }
+        from .. import tuning
+
+        table = tuning.active_table()
         return {
             "obs": {
                 "latency": lat,
                 "tracing": get_tracer().enabled,
                 "metrics": get_registry().enabled,
-                "buckets": list(self._bucket_ladder),
+                "tuning": {
+                    "table": table.digest if table is not None else None,
+                    "lookups": tuning.lookup_stats(),
+                    "buckets": list(self._bucket_ladder),
+                },
             },
             "n": self.n,
             "metapath": self.metapath.name,
             "variant": self.variant,
             "backend": self.backend.name,
             "fingerprint": self._fp,
-            "plan": {"primary": self.backend.plan.summary()},
+            # the primary plan's association order + cost estimates,
+            # every live secondary engine's, and the sub-chain memo
+            # accounting
+            "plan": {
+                "primary": self.backend.plan.summary(),
+                "engines": self._engine_summaries(),
+                "memo": (
+                    self.memo.stats() if self.memo is not None else None
+                ),
+            },
             "factor": self.backend.factor_info(),
             "topk_mode": "exact",
             "delta": {
@@ -616,6 +1122,9 @@ class PathSimService:
                 "headroom": self.index.headroom,
                 **self._update_stats,
             },
+            # background compaction: trigger state, swap/abandon/failure
+            # counters, and the last swap's build/pause/compile numbers
+            "compaction": self._compactor.snapshot(),
             "result_cache": {
                 "hits": self.result_cache.hits,
                 "misses": self.result_cache.misses,
@@ -639,7 +1148,13 @@ class PathSimService:
         }
 
     def close(self) -> None:
+        # an in-flight compaction build finishes (swap or abandon) before
+        # the pipeline closes under it
+        self._compactor._done.wait(self.config.request_timeout_s)
         self.coalescer.close()
+        # a closed service answers nothing: its engines' device factors go
+        with self._engines_lock:
+            self._engines.clear()
 
 
 def build_service(
@@ -660,9 +1175,13 @@ def build_service(
         backend,
         variant=config.variant,
         config=serve_config,
-        # delta-fallback rebuilds replay the full RunConfig knobs
+        # delta-fallback rebuilds and compactions replay the full
+        # RunConfig knobs, with the service's sub-chain memo threaded in
+        # so a refold hits the entries the delta did not invalidate
         backend_factory=lambda hin: create_backend(
-            config.backend, hin, metapath, **backend_options(config)
+            config.backend, hin, metapath,
+            subchain_memo=service.memo,
+            **backend_options(config),
         ),
     )
     runtime_event(

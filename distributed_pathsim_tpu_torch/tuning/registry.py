@@ -11,14 +11,17 @@ registered here only where the port has its decision point today:
 - ``sparse_tile_rows`` / ``sparse_nnz_floor`` / ``factor_format``:
   backends/torch_sparse.py (the port holds COO factors only, so
   ``factor_format`` has the one ``coo`` arm);
-- ``serve_buckets``: serving/service.py.
+- ``serve_buckets``: serving/service.py;
+- ``plan_memo_budget_mb``: the serving sub-chain memo
+  (ops/planner.py ``default_memo_budget_bytes``);
+- ``compact_chain_len`` / ``compact_headroom``: background compaction
+  (serving/compact.py).
 
 The JAX package's Pallas tile and variant knobs (``scores_variant``,
 ``scores_tile``, ``topk_rowtile``, ``k_tile``, ``ring_kernel``) have no
 port arm: an "xla" arm would put a kernel's plain version on the card's
 path, and the CUDA kernels' own configuration knobs come with the
-autotuner. The ANN, learned, compaction, batch and memo knobs come with
-their modules.
+autotuner. The ANN, learned and batch knobs come with their modules.
 
 Every knob is **bit-invisible by construction**: choices only move work
 between tilings that share the exact integer-count + f64-normalize
@@ -79,11 +82,42 @@ KNOBS: dict[str, Knob] = {
             candidates=lambda ctx: [4, 8, 16, 32],
         ),
         Knob(
+            name="plan_memo_budget_mb",
+            doc="workload-level sub-chain memo budget (MB): folded "
+            "sub-chain COO factors shared across concurrent metapath "
+            "lanes (ops/planner.SubchainCache). Bigger budgets keep "
+            "more shared prefixes resident across deltas; keys are "
+            "content fingerprints, so the budget trades bytes for "
+            "hit rate, never correctness.",
+            candidates=lambda ctx: [16.0, 64.0, 256.0],
+        ),
+        Knob(
             name="factor_format",
             doc="resident layout of the sparse half-chain factor. The "
             "port holds COO only (24 B/nnz); the JAX package's blocked "
             "and bitpacked layouts are not ported yet.",
             candidates=lambda ctx: ["coo"],
+        ),
+        Knob(
+            name="compact_chain_len",
+            doc="background-compaction chain trigger (serving/"
+            "compact.py): deltas absorbed since the last re-encode "
+            "before a compaction is scheduled. Shorter chains bound "
+            "cache-version drift and keep the replay log tiny but pay "
+            "the off-path rebuild more often. Bit-invisible: "
+            "compaction re-encodes the SAME logical graph (token, "
+            "fingerprints and caches preserved).",
+            candidates=lambda ctx: [64, 256, 1024],
+        ),
+        Knob(
+            name="compact_headroom",
+            doc="fresh capacity reserve of a compaction re-encode, as "
+            "a fraction of the logical size (padded to pow-2 "
+            "buckets): more headroom buys fewer headroom-triggered "
+            "compactions per appended node at more resident padding. "
+            "Results bit-identical by the padding invariant "
+            "(data/delta.py with_headroom).",
+            candidates=lambda ctx: [0.25, 0.5, 1.0],
         ),
         Knob(
             name="serve_buckets",

@@ -1,6 +1,7 @@
 """Port hygiene: the PyTorch port imports neither JAX nor the JAX
 package, and it never carries on quietly on the host — without a CUDA
-device its entry points raise unless the CPU is asked for."""
+device its entry points raise unless the CPU is asked for. The
+compaction hot-swap is reached only through the service's doorway."""
 
 import json
 import pkgutil
@@ -58,6 +59,32 @@ def test_port_never_names_or_spawns_the_jax_package():
     assert argv[1:6] == ["-m", "distributed_pathsim_tpu_torch.cli",
                          "worker", "--worker-id", "w3"]
     assert argv[argv.index("--platform") + 1] == "cuda"
+
+
+def test_compaction_swap_only_through_the_service_doorway():
+    """The swap internals named in ``COMPACTION_SURFACE`` keep the token,
+    the fingerprint and both cache tiers only inside
+    ``PathSimService._apply_compaction`` under the swap lock: no port
+    module but ``serving/service.py`` and its one sanctioned caller,
+    ``serving/compact.py``, names them."""
+    import ast
+    import pathlib
+
+    from distributed_pathsim_tpu_torch.serving.service import (
+        COMPACTION_SURFACE,
+    )
+
+    root = pathlib.Path(port.__file__).parent
+    allowed = {root / "serving" / "service.py",
+               root / "serving" / "compact.py"}
+    reached = {}
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Attribute)
+                    and node.attr in COMPACTION_SURFACE):
+                reached.setdefault(path, []).append(node.lineno)
+    assert set(reached) <= allowed, reached
+    assert root / "serving" / "compact.py" in reached
 
 
 def test_port_imports_no_jax_and_no_jax_package():

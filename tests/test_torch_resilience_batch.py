@@ -43,6 +43,20 @@ def test_chain_on_cpu_and_cuda_as_data():
     for steps in degrade.BACKEND_DEGRADATION.values():
         assert "numpy" not in steps  # the oracle is every chain's floor
     assert "numpy" not in degrade.BACKEND_DEGRADATION["cuda"].values()
+    # a serving engine's step-down is its chain's end: torch on the card
+    # with the options it understands, the numpy oracle on the host with
+    # the memo alone (as the JAX service), and none from a chain's end
+    memo = object()
+    opts = {"device": "cuda", "dtype": "float32", "tile_rows": 64,
+            "subchain_memo": memo}
+    assert resilience.engine_fallback("torch-sparse", opts, "cuda") == (
+        "torch", {"device": "cuda", "dtype": "float32",
+                  "subchain_memo": memo})
+    assert resilience.engine_fallback(
+        "torch-sparse", {**opts, "device": "cpu"}, "cpu") == (
+        "numpy", {"subchain_memo": memo})
+    assert resilience.engine_fallback("torch", opts, "cuda") is None
+    assert resilience.engine_fallback("numpy", {}, "cpu") is None
 
 
 @pytest.mark.parametrize("device,want", [

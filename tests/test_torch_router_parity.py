@@ -5,7 +5,9 @@ graph, on the CPU. ``topk`` and ``scores`` answers are bit-identical
 both fleets hold the same consistency token and answer every row (the
 appended one included) the same; the routed answers equal one port service's. The JAX
 services run with the tuning table off and compaction off, the
-configuration the port mirrors."""
+configuration the port mirrors. A routed per-request ``metapath`` is
+held against one port service, also while a replica that missed an
+update is fenced."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,9 @@ from distributed_pathsim_tpu.router import WorkerRuntime as JRuntime
 from distributed_pathsim_tpu.serving import PathSimService as JService
 from distributed_pathsim_tpu.serving import ServeConfig as JConfig
 from distributed_pathsim_tpu.tuning import dispatch as jtuning
+from distributed_pathsim_tpu.data import synthetic as jsyn
 from distributed_pathsim_tpu_torch.backends.base import create_backend
+from distributed_pathsim_tpu_torch.data.delta import with_headroom
 from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 from distributed_pathsim_tpu_torch.router import (
     InprocTransport,
@@ -27,8 +31,10 @@ from distributed_pathsim_tpu_torch.router import (
     RouterConfig,
     WorkerRuntime,
 )
+from distributed_pathsim_tpu_torch.resilience import inject
 from distributed_pathsim_tpu_torch.serving import PathSimService, ServeConfig
-from torch_port_util import delta_graphs
+from distributed_pathsim_tpu_torch.serving.protocol import handle_request
+from torch_port_util import delta_graphs, port_hin
 
 CFG = {"max_batch": 8, "max_wait_ms": 1.0, "warm": False}
 # quiet maintenance: no hedges (each answer from its primary) and no
@@ -58,13 +64,14 @@ def _jax_fleet(jhin, n=3):
     return r, ts
 
 
-def _port_fleet(thin, n=3):
+def _port_fleet(thin, n=3, **router):
     mp = compile_metapath("APVPA", thin.schema)
     ts = {f"w{i}": InprocTransport(f"w{i}", WorkerRuntime(
         PathSimService(create_backend("torch", thin, mp, device="cpu"),
-                       config=ServeConfig(**CFG)), f"w{i}"))
+                       config=ServeConfig(compact_auto=False, **CFG)),
+        f"w{i}"))
         for i in range(n)}
-    r = Router(ts, RouterConfig(**ROUTER))
+    r = Router(ts, RouterConfig(**{**ROUTER, **router}))
     r.start()
     return r, ts
 
@@ -170,4 +177,109 @@ def test_routed_answers_equal_one_port_service():
             assert res["result"]["scores"] == svc.scores_index(r).tolist()
     finally:
         svc.close()
+        _close(tr, tts)
+
+
+def test_routed_per_request_metapath_equals_one_port_service():
+    """A ``metapath`` field rides the routed ``topk`` and ``scores`` to
+    the worker, whose engine for it answers as one service's does (the
+    JAX package's worker answers ``topk`` for the served metapath
+    whatever the field says, so this is held against the port only)."""
+    _, thin = delta_graphs(seed=5)
+    mp = compile_metapath("APVPA", thin.schema)
+    svc = PathSimService(create_backend("torch", thin, mp, device="cpu"),
+                         config=ServeConfig(compact_auto=False, **CFG))
+    tr, tts = _port_fleet(thin, n=2)
+    try:
+        rows = np.arange(svc.n)
+        got = _answers(tr, [{"id": int(r), "op": "topk", "row": int(r),
+                             "k": 6, "metapath": "APA"} for r in rows])
+        for r, res in zip(rows, got):
+            want = [{"id": i, "label": lab, "score": s} for i, lab, s in
+                    svc.topk(row=int(r), k=6, metapath="APA")]
+            assert res == {"row": int(r), "topk": want}
+        assert got != _answers(tr, [{"id": int(r), "op": "topk",
+                                     "row": int(r), "k": 6} for r in rows])
+        for r in (0, 5, 40):
+            res = tr.request({"op": "scores", "row": r, "metapath": "APA"},
+                             timeout=60)
+            assert res["result"]["scores"] == svc.scores_index(
+                r, metapath="APA").tolist()
+        bad = tr.request({"op": "topk", "row": 1, "metapath": "APV"},
+                         timeout=60)
+        assert not bad["ok"] and "not closed" in bad["error"]
+        for t in tts.values():
+            assert "APA" in t.runtime.service.stats()["plan"]["engines"]
+    finally:
+        svc.close()
+        _close(tr, tts)
+
+
+def _edge_update(thin, rel, rng, n):
+    """An update request of ``n`` added and ``n`` removed ``rel`` edges,
+    by row."""
+    b = thin.blocks[rel]
+    have = set(zip(b.rows.tolist(), b.cols.tolist()))
+    adds = []
+    while len(adds) < n:
+        e = (int(rng.integers(0, thin.type_size(b.src_type))),
+             int(rng.integers(0, thin.type_size(b.dst_type))))
+        if e not in have:
+            have.add(e)
+            adds.append(e)
+    rem = rng.choice(b.nnz, size=n, replace=False)
+    return {"id": 9, "op": "update",
+            "add_edges": [{"rel": rel, "src_row": s, "dst_row": d}
+                          for s, d in adds],
+            "remove_edges": [{"rel": rel, "src_row": int(b.rows[i]),
+                              "dst_row": int(b.cols[i])} for i in rem]}
+
+
+@pytest.mark.parametrize("rel,n", [("has_topic", 6), ("author_of", 1)])
+def test_routed_metapath_fenced_on_a_lagging_replica(rel, n):
+    """A replica that missed a broadcast update is fenced only from the
+    rows the served metapath (APVPA) changed; an APTPA answer can change
+    outside that set (a topic-only update changes no APVPA row at all).
+    The replica made to miss the update is the first choice of a row
+    whose APTPA answer changed outside that set, and every routed APTPA
+    answer must still equal a caught-up service's: a request naming a
+    metapath goes only to caught-up replicas while any fence is active.
+    Heartbeats are slow enough that the lagging replica is not caught up
+    during the test. The graph has many venues, so one author_of edge
+    leaves APVPA rows unaffected whose APTPA answers change."""
+    thin = with_headroom(port_hin(jsyn.synthetic_hin(
+        128, 100, 64, n_topics=6, topics_per_paper=1.4, seed=4,
+        materialize_ids=True)), 0.3)
+    mp = compile_metapath("APVPA", thin.schema)
+    ref = PathSimService(create_backend("torch", thin, mp, device="cpu"),
+                         config=ServeConfig(compact_auto=False, **CFG))
+    upd = _edge_update(thin, rel, np.random.default_rng(7), n=n)
+    rows = range(ref.n)
+    before = {r: ref.topk(row=r, k=5, metapath="APTPA") for r in rows}
+    out = handle_request(ref, {**upd, "want_rows": True})
+    assert out["ok"], out
+    affected = set(out["result"]["affected_row_list"])
+    if rel == "has_topic":
+        assert not affected
+    want = {r: ref.topk(row=r, k=5, metapath="APTPA") for r in rows}
+    stale = [r for r in rows if r not in affected and want[r] != before[r]]
+    assert stale
+    tr, tts = _port_fleet(thin, n=3, heartbeat_interval_s=60.0)
+    lag = tr.policy.preference(stale[0])[0]
+    inject.install_plan(
+        f"delta_broadcast:error:1@{list(tr.workers).index(lag)}")
+    try:
+        res = tr.request(dict(upd), timeout=60)
+        assert res["ok"], res
+        assert res["result"]["lagging"] == [lag]
+        got = _answers(tr, [{"id": r, "op": "topk", "row": r, "k": 5,
+                             "metapath": "APTPA"} for r in rows])
+        for r, g in zip(rows, got):
+            assert g == {"row": r, "topk": [
+                {"id": i, "label": lab, "score": s}
+                for i, lab, s in want[r]]}, r
+        assert tr.workers[lag].epoch < len(tr._epochs) - 1  # still fenced
+    finally:
+        inject.reset()
+        ref.close()
         _close(tr, tts)

@@ -111,7 +111,7 @@ def test_router_cli_answers_match_jax_router_cli():
         {"id": 7, "op": "drain"},
     ]
     port = _run_router("distributed_pathsim_tpu_torch.cli",
-                       ["--backend", "torch"], script)
+                       ["--backend", "torch", "--no-compact"], script)
     jax = _run_router("distributed_pathsim_tpu.cli",
                       ["--backend", "jax", "--no-tuning", "--no-compact"],
                       script)

@@ -45,7 +45,8 @@ def _services(jhin, thin, port_backend="torch", **cfg):
                         compile_metapath("APVPA", thin.schema),
                         **OPTS[port_backend])
     return (JService(jb, config=JConfig(compact_auto=False, **cfg)),
-            PathSimService(tb, config=ServeConfig(**cfg)))
+            PathSimService(tb, config=ServeConfig(compact_auto=False,
+                                                  **cfg)))
 
 
 def _assert_answers_equal(js, ts, k, rows):
