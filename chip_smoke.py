@@ -106,6 +106,33 @@ nonzero and no result line is printed):
    limb products, and K3's time at tile 0 (the Zipf head) and at a
    middle tile; the same backend behind a service, 64 requests, 3 rows
    within 1e-6 of host f64 arithmetic;
+6b. compressed factors, the symmetric half-sweep and the batch tier:
+   config 5's graph through ``torch-sparse`` with the ``blocked`` and
+   ``bitpacked`` layouts (K3 once per row tile, rank-all values and
+   indices equal to the COO run's; factor bytes, bytes/nnz, init and
+   rank-all seconds per format); a bitpacked ``torch-sparse`` service
+   beside a COO one at the bench shape (headroom 0.25), sampled answers
+   equal to the host f64 oracle and to each other before and after the
+   serving phase's update, K3 on both patched backends equal, and
+   ``dpathsim-torch router --workers 1 --backend torch-sparse
+   --factor-format bitpacked`` answering the same; the symmetric
+   half-sweep (``topk_scores(symmetric=True)``, approx) on config 5's
+   shape cut to 786432 authors against the full sweep (K3) by config 5's
+   rule (values within 1e-6, the same columns where the k-th and
+   (k+1)-th scores are further apart), seconds and ms per tile pair, a
+   child process running it SIGTERMed mid-sweep (exit 75) and the resume
+   from its ``sym_partials`` snapshot returning the same arrays;
+   ``dpathsim-torch batch topk-all`` on the bench graph against the main
+   path's K1 rank-all for every row, the device share of its wall time
+   (CUDA events over the block GEMMs); on the 8192-author graph
+   ``--factor-format bitpacked`` and ``--workers 2`` with the bytes of
+   the coo run, a SIGTERM mid-campaign (exit 75) and ``resume`` with
+   sha256-identical ``--out`` and ``--emit-pairs``, ``simjoin`` at tau
+   0.5 and 0.02 with degree and natural grouping the same pair set;
+   every campaign's seconds and author-pairs/s,
+   ``dpathsim_batch_score_backend_total`` on the card arm only; 0
+   compiles; its launches are ``launches_packed_sym_batch`` in the
+   kernels line;
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -180,6 +207,26 @@ SR_CHAIN_LEN, SR_UPDATES, SR_UPDATE_GAP_S = 8, 18, 0.12
 SR_CLIENTS, SR_MIN_PER_CLIENT = 32, 24
 SR_APPENDS, SR_ADDS, SR_REMOVES = 1, 6, 2
 SR_SAMPLES_PER_VERSION = 4
+
+# Compressed factors, the symmetric half-sweep and the batch tier: config
+# 5's graph through the packed layouts; a bitpacked service and router at
+# the bench shape under the serving phase's update (PK_SERVE_SAMPLES rows
+# sampled before it); the symmetric half-sweep on config 5's shape cut to
+# SYM_AUTHORS authors (3/4 of config 5: ~10.7 ms a tile pair on an H100
+# 80GB HBM3 at 700 W puts its 4656 pairs near 60 s; papers cut with them;
+# 64 venues, 8192-row tiles and approx kept), SIGTERMed after
+# SYM_KILL_AFTER row units; the first batch campaign on the bench graph,
+# the others on the 8192-author all-pairs graph (a campaign is host-bound:
+# 47-63 s at the bench shape, ~3 s there, on that card's host), one of
+# them SIGTERMed after BATCH_KILL_AFTER blocks of
+# BATCH_KILL_BLOCK_ROWS rows; simjoin at each of BATCH_TAUS (0.5 finds no
+# pair on that graph, 0.02 finds some).
+PACKED_FORMATS = ("blocked", "bitpacked")
+PK_SERVE_SAMPLES = 64
+SYM_AUTHORS = 786_432
+SYM_PAPERS = SYM_AUTHORS * (C5_PAPERS // C5_AUTHORS)
+SYM_KILL_AFTER = 8
+BATCH_TAUS, BATCH_KILL_AFTER, BATCH_KILL_BLOCK_ROWS = (0.5, 0.02), 40, 32
 
 REPS, WARMUP = 7, 2
 # K1's stripe widths timed beside the default (column tiles of 128).
@@ -1328,7 +1375,8 @@ def c5_folds(np, hin, mp, backend, graph_s, init_s, card):
 
 def config5(torch, ck, np, launches, workdir, card):
     """BASELINE config 5 through torch-sparse on the card. Returns K3's
-    numbers at its row tile (the kernels line)."""
+    numbers at its row tile (the kernels line) and the graph with its COO
+    rank-all (the packed arms are held against it)."""
     from distributed_pathsim_tpu_torch.backends.base import create_backend
     from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
     from distributed_pathsim_tpu_torch.driver import PathSimDriver
@@ -1532,10 +1580,13 @@ def config5(torch, ck, np, launches, workdir, card):
           f"ms); K3 + pass 2 per tile {k3_ms + pass2_ms:.3f} ms; plain "
           f"{k3_plain_ms:.3f} ms; library (matmul+normalize+topk, 1024-row "
           f"chunks) {k3_lib_ms:.3f} ms")
+    c5 = {"hin": hin, "mp": mp, "vals": vals, "idxs": idxs,
+          "rank_s": rank_s, "init_s": init_s, "tiles": tiles,
+          "factor": backend.factor_info()}
     return {"ms": k3_ms, "ms_tile0": k3_ms0, "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound, "bound_by": k3_by, "bound_f32_ms": k3_f32,
             "bound_int8_ms": k3_bound, "library_ms": k3_lib_ms,
-            "c5_err": c5_err}
+            "c5_err": c5_err}, c5
 
 
 # -- serving on the card ------------------------------------------------------
@@ -2745,6 +2796,499 @@ def serve_config5(np, backend, c64, d64, card):
         svc.close()
 
 
+# -- compressed factors, the symmetric half-sweep, the batch tier -------------
+
+
+def sha256_file(path) -> str:
+    import hashlib
+
+    return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
+
+
+def packed_sym_batch(torch, ck, np, workdir, card, hin, dense_backend, c5):
+    """Phase 6b: the packed arms of torch-sparse at config 5 against its
+    COO run, a bitpacked service and router under the serving phase's
+    update, the symmetric half-sweep against the full sweep (K3) with a
+    SIGTERM and a resume, and the batch tier's campaigns on the bench
+    graph. Returns the phase's launches per kernel."""
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+
+    phase("compressed factors, symmetric half-sweep, batch tier")
+    launches = {name: 0 for name in ck.LAUNCHES}
+    t0 = time.perf_counter()
+    with CompileCounter() as compiles:
+        packed_config5(torch, ck, np, launches, card, c5)
+        packed_serving(torch, ck, np, launches, workdir, card, hin)
+        symmetric_sweep(torch, ck, np, launches, workdir, card)
+        batch_tier(torch, ck, np, workdir, card, hin, dense_backend)
+    if compiles.count:
+        raise AssertionError(
+            f"{compiles.count} compiles in the phase: {compiles.by_kind}")
+    print(f"phase: {time.perf_counter() - t0:.1f} s, 0 compiles, launches "
+          f"{launches}")
+    return launches
+
+
+def packed_config5(torch, ck, np, launches, card, c5):
+    """torch-sparse with the blocked and bitpacked layouts on config 5's
+    graph: rank-all element for element equal to the COO run, K3 once
+    per row tile."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.driver import PathSimDriver
+
+    coo = c5["factor"]
+    print(f"config 5 coo: {coo['bytes']} B for {coo['nnz']} nnz "
+          f"({coo['bytes'] / coo['nnz']:.3f} B/nnz), backend init "
+          f"{c5['init_s']:.3f} s, rank-all {c5['rank_s']:.3f} s")
+    for fmt in PACKED_FORMATS:
+        t0 = time.perf_counter()
+        b = create_backend("torch-sparse", c5["hin"], c5["mp"],
+                           tile_rows=C5_TILE_ROWS, exact_counts=False,
+                           factor_format=fmt)
+        init_s = time.perf_counter() - t0
+        (vals, idxs), counts, rank_s = counted(
+            torch, ck, launches,
+            lambda: PathSimDriver(b).rank_all(k=TOP_K),
+            f"config 5 rank_all k={TOP_K} {fmt}")
+        if counts["topk_rect_candidates"] != c5["tiles"]:
+            raise AssertionError(
+                f"{fmt}: K3 launched {counts['topk_rect_candidates']} times "
+                f"for {c5['tiles']} row tiles")
+        if not (np.array_equal(vals, c5["vals"])
+                and np.array_equal(idxs, c5["idxs"])):
+            raise AssertionError(f"config 5 {fmt} rank-all differs from coo")
+        info = b.factor_info()
+        if info["nnz"] != coo["nnz"] or info["bytes"] >= coo["bytes"]:
+            raise AssertionError(f"config 5 {fmt} factor: {info}")
+        print(f"config 5 {fmt}: {info['bytes']} B ({info['bytes'] / info['nnz']:.3f}"
+              f" B/nnz, {coo['bytes'] / info['bytes']:.2f}x less than coo), "
+              f"backend init {init_s:.3f} s (fold + pack; K3's dense copy "
+              f"decoded in the rank-all), rank-all {rank_s:.3f} s, K3 "
+              f"launches {counts['topk_rect_candidates']}: values and "
+              f"indices equal to the coo run's ({card})")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def packed_serving(torch, ck, np, launches, workdir, card, hin):
+    """A bitpacked torch-sparse service beside a coo one at the bench
+    shape (headroom 0.25): sampled answers equal to the host f64 oracle
+    and to each other before and after the serving phase's update; K3 on
+    both patched backends equal; then ``dpathsim-torch router --workers
+    1 --backend torch-sparse --factor-format bitpacked`` as a subprocess
+    answering the same."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+    from distributed_pathsim_tpu_torch.serving.protocol import handle_request
+
+    hin_h = tdl.with_headroom(hin, SERVE_HEADROOM)
+    mp = compile_metapath("APVPA", hin_h.schema)
+    svcs = {}
+    for fmt in ("bitpacked", "coo"):
+        t0 = time.perf_counter()
+        svcs[fmt] = PathSimService(
+            create_backend("torch-sparse", hin_h, mp, device="cuda",
+                           factor_format=fmt),
+            config=ServeConfig(max_batch=SERVE_MAX_BATCH, k_default=TOP_K))
+        print(f"torch-sparse {fmt} service start: "
+              f"{time.perf_counter() - t0:.3f} s, factor "
+              f"{svcs[fmt].stats()['factor']}")
+    try:
+        svc, ref = svcs["bitpacked"], svcs["coo"]
+        if svc.memo is not None and svc.memo.factor_format != "bitpacked":
+            raise AssertionError("the service's memo does not follow the "
+                                 "backend's factor format")
+        rng = np.random.default_rng(SEED + 3)
+        rows = rng.integers(0, svc.n, PK_SERVE_SAMPLES)
+
+        def sample(rows, oracle, label):
+            got = [svc.topk_index(int(r), TOP_K) for r in rows]
+            want = [ref.topk_index(int(r), TOP_K) for r in rows]
+            check_served(np, got, rows, oracle, TOP_K, f"bitpacked {label}")
+            if any(not (np.array_equal(a[0], b[0])
+                        and np.array_equal(a[1], b[1]))
+                   for a, b in zip(got, want)):
+                raise AssertionError(f"bitpacked {label}: differs from coo")
+            return got
+
+        oracle, _ = f64_topk(np, svc.hin, mp)
+        before = sample(rows, oracle, "before the update")
+        recs = update_records(np, svc.hin, np.random.default_rng(SEED + 1),
+                              "packed_new")
+        res = {}
+        for fmt, s in svcs.items():
+            resp = handle_request(s, {"id": 1, "op": "update", **recs,
+                                      "want_rows": True})
+            if not resp["ok"] or resp["result"]["mode"] != "delta":
+                raise AssertionError(f"{fmt} update did not patch: {resp}")
+            res[fmt] = resp["result"]
+        r = res["bitpacked"]
+        print(f"bitpacked update: {r['edge_changes']} edge changes, "
+              f"{r['node_appends']} appended, mode {r['mode']}, "
+              f"{r['affected_rows']} affected rows, {r['ms']:.3f} ms "
+              f"(coo: {res['coo']['ms']:.3f} ms); factor after "
+              f"{svc.stats()['factor']} ({card})")
+        n0 = hin_h.type_size("author")
+        affected = np.asarray(r["affected_row_list"], dtype=np.int64)
+        probe = np.unique(np.concatenate(
+            [rows, affected[:PK_SERVE_SAMPLES], np.arange(n0, svc.n)]))
+        new_oracle, _ = f64_topk(np, svc.hin, mp)
+        after = sample(probe, new_oracle, "after the update")
+        (got, want), counts, _ = counted(
+            torch, ck, launches,
+            lambda: (svc.backend.topk_scores(k=TOP_K),
+                     ref.backend.topk_scores(k=TOP_K)),
+            "rank-all on the patched bitpacked and coo backends")
+        if counts["topk_rect_candidates"] < 2:
+            raise AssertionError("the patched backends did not launch K3")
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError("K3 on the patched bitpacked backend "
+                                 "differs from coo")
+        print("K3 rank-all on the patched bitpacked backend (u8 limbs "
+              "split anew after the patch): equal to the patched coo one")
+        packed_router(np, workdir, card, recs, rows, before, probe, after,
+                      svc.hin.indices["author"].ids)
+    finally:
+        for s in svcs.values():
+            s.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def packed_router(np, workdir, card, recs, rows, before, probe, after, ids):
+    """The router with one bitpacked torch-sparse worker on the bench
+    GEXF: its answers before and after the same update equal the
+    in-process bitpacked service's."""
+    script = [{"id": 100 + j, "op": "topk", "row": int(r), "k": TOP_K}
+              for j, r in enumerate(rows[:8])]
+    script.append({"id": 1, "op": "update", **recs})
+    script += [{"id": 200 + j, "op": "topk", "row": int(r), "k": TOP_K}
+               for j, r in enumerate(probe[-8:])]
+    script.append({"id": 2, "op": "shutdown"})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "router",
+         "--workers", "1", "--platform", "cuda", "--backend", "torch-sparse",
+         "--factor-format", "bitpacked", "--headroom", str(SERVE_HEADROOM),
+         "--dataset", str(workdir / "bench.gexf")],
+        input="\n".join(json.dumps(r) for r in script) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"router exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    resps = {r["id"]: r for r in map(json.loads, proc.stdout.splitlines())}
+    if not all(r["ok"] for r in resps.values()) or len(resps) != len(script):
+        raise AssertionError(f"router responses: {list(resps.values())[:3]}")
+    if resps[1]["result"]["applied"] != ["w0"]:
+        raise AssertionError(f"router update: {resps[1]}")
+    want = [(100 + j, before[j]) for j in range(8)]
+    want += [(200 + j, after[len(after) - 8 + j]) for j in range(8)]
+    for rid, (v, i) in want:
+        got = [(e["id"], e["score"]) for e in resps[rid]["result"]["topk"]]
+        if got != [(ids[j], float(x)) for x, j in zip(v, i)]:
+            raise AssertionError(f"router answer {rid} differs: {got}")
+    print(f"dpathsim-torch router --workers 1 --backend torch-sparse "
+          f"--factor-format bitpacked: exit 0 in {wall:.1f} s, 16 answers "
+          f"before and after the update equal to the in-process bitpacked "
+          f"service's ({card})")
+
+
+SYM_CHILD = """
+import sys
+from distributed_pathsim_tpu_torch.backends.base import create_backend
+from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+from distributed_pathsim_tpu_torch.ops import cuda_kernels
+from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+from distributed_pathsim_tpu_torch.resilience import (
+    PREEMPTED_EXIT_CODE, Preempted, preemption_handler)
+cuda_kernels.true_f32()
+a, p, v, seed, t, k = map(int, sys.argv[2:8])
+hin = synthetic_hin(a, p, v, seed=seed)
+b = create_backend("torch-sparse", hin, compile_metapath("APVPA", hin.schema),
+                   tile_rows=t, exact_counts=False)
+preemption_handler.install()
+print("sweeping", flush=True)
+try:
+    b.topk_scores(k=k, checkpoint_dir=sys.argv[1], symmetric=True)
+except Preempted:
+    sys.exit(PREEMPTED_EXIT_CODE)
+"""
+
+
+def symmetric_sweep(torch, ck, np, launches, workdir, card):
+    """torch-sparse's symmetric half-sweep on config 5's shape cut to
+    SYM_AUTHORS authors, approx like config 5: against the full sweep
+    (K3) by config 5's rule — values within C5_ATOL, the same columns
+    wherever the full sweep's k-th and (k+1)-th scores differ by more
+    (K3 sums exact integer counts, the sweep's f32 GEMM rounds past
+    2^24) — and timed per tile pair; a child process running it with a
+    checkpoint directory is sent SIGTERM mid-sweep (exit 75) and the
+    resume from its sym_partials snapshot returns the same arrays."""
+    import signal
+
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    hin = synthetic_hin(SYM_AUTHORS, SYM_PAPERS, C5_VENUES, seed=SEED)
+    b = create_backend("torch-sparse", hin,
+                       compile_metapath("APVPA", hin.schema),
+                       tile_rows=C5_TILE_ROWS, exact_counts=False)
+    tiles = b._n_live_tiles
+    pairs = tiles * (tiles + 1) // 2
+    (fv, fi), counts, full_s = counted(
+        torch, ck, launches, lambda: b.topk_scores(k=TOP_K + 1),
+        f"full sweep {SYM_AUTHORS} authors, k={TOP_K + 1}")
+    if counts["topk_rect_candidates"] != tiles:
+        raise AssertionError("the full sweep did not run K3 on every tile")
+    (sv, si), counts, sym_s = counted(
+        torch, ck, launches, lambda: b.topk_scores(k=TOP_K, symmetric=True),
+        f"symmetric half-sweep {SYM_AUTHORS} authors")
+    if any(counts.values()):
+        raise AssertionError(f"the symmetric sweep launched {counts}")
+    err = float(np.abs(sv - fv[:, :TOP_K]).max())
+    clear = (fv[:, TOP_K - 1] - fv[:, TOP_K]) > C5_ATOL
+    same = (np.sort(si, 1) == np.sort(fi[:, :TOP_K], 1)).all(1)
+    exact = ((sv == fv[:, :TOP_K]) & (si == fi[:, :TOP_K])).all(1)
+    if err > C5_ATOL or not same[clear].all():
+        raise AssertionError(
+            f"symmetric vs full sweep: max |diff| {err}, "
+            f"{int((~same & clear).sum())} rows with other columns")
+    print(f"symmetric half-sweep {SYM_AUTHORS}x{SYM_PAPERS}x{C5_VENUES}, "
+          f"tile_rows {C5_TILE_ROWS}: {sym_s:.3f} s for {pairs} tile pairs "
+          f"({sym_s / pairs * 1e3:.2f} ms a pair) against the full sweep's "
+          f"{full_s:.3f} s (K3, {tiles} row tiles); max |diff| {err:.3g}, "
+          f"columns equal in all {int(clear.sum())} rows whose k-th and "
+          f"(k+1)-th full-sweep scores differ by more than {C5_ATOL}; "
+          f"{int(exact.sum())} of {exact.shape[0]} rows bit-identical "
+          f"({card})")
+
+    ckdir = workdir / "sym_ckpt"
+    child = subprocess.Popen(
+        [sys.executable, "-c", SYM_CHILD, str(ckdir), str(SYM_AUTHORS),
+         str(SYM_PAPERS), str(C5_VENUES), str(SEED), str(C5_TILE_ROWS),
+         str(TOP_K)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        if child.stdout.readline().strip() != "sweeping":
+            raise AssertionError(f"sweep child: {child.stderr.read()[-2000:]}")
+        manifest = ckdir / "manifest.json"
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and child.poll() is None:
+            done = (json.loads(manifest.read_text())
+                    if manifest.exists() else {})
+            if sum(key.startswith("topk") for key in done) >= SYM_KILL_AFTER:
+                break
+            time.sleep(0.05)
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 75:
+        raise AssertionError(f"sweep child exited {rc}, want 75: "
+                             f"{child.stderr.read()[-2000:]}")
+    keys = CheckpointManager(ckdir).done_keys()
+    snaps = [key for key in keys if key.startswith("sym_partials_after_")]
+    if len(snaps) != 1:
+        raise AssertionError(f"after SIGTERM the checkpoint holds {snaps}")
+    t0 = time.perf_counter()
+    rv, ri = b.topk_scores(k=TOP_K, checkpoint_dir=str(ckdir), symmetric=True)
+    resume_s = time.perf_counter() - t0
+    if not (np.array_equal(rv, sv) and np.array_equal(ri, si)):
+        raise AssertionError("the resumed symmetric sweep differs")
+    print(f"symmetric sweep SIGTERM: exit 75 with {snaps[0]} and "
+          f"{len(keys) - 1} row units; the resume ({resume_s:.3f} s) returns "
+          "the same arrays")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def batch_argv(gexf, *extra):
+    return ["batch", *extra, "--dataset", str(gexf), "--platform", "cuda"]
+
+
+def batch_tier(torch, ck, np, workdir, card, hin, dense_backend):
+    """``dpathsim-torch batch`` on the bench graph: topk-all equal to the
+    main path's K1 rank-all for every row; a SIGTERM mid-campaign (exit
+    75) and ``resume`` giving sha256-identical --out and --emit-pairs.
+    Cut to the 8192-author all-pairs graph (the campaign is host-bound):
+    bitpacked and --workers 2 the same bytes
+    as coo; simjoin with degree and natural grouping the same pair set.
+    Every GEMM on the card."""
+    import signal
+
+    from distributed_pathsim_tpu_torch.cli import main as cli_main
+    from distributed_pathsim_tpu_torch.obs.metrics import get_registry
+    from distributed_pathsim_tpu_torch.ops import pathsim
+
+    gexf, small = workdir / "bench.gexf", workdir / "allpairs.gexf"
+    gemm_ms = []
+    device_counts = pathsim.device_counts
+
+    def timed_counts(a, b_dev):
+        """The port's own device arm between CUDA events: the block's
+        upload, the f64 GEMM and the fetch, so the share counts the
+        copies too."""
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = device_counts(a, b_dev)
+        e1.record()
+        e1.synchronize()
+        gemm_ms.append(e0.elapsed_time(e1))
+        return out
+
+    get_registry().enabled = True  # the arms' counter below counts
+    backend_total = get_registry().counter(
+        "dpathsim_batch_score_backend_total")
+    backend_total.reset()
+
+    def run(label, graph, n, *argv):
+        t0 = time.perf_counter()
+        rc = cli_main(batch_argv(graph, *argv))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"batch {label}: exit {rc}")
+        print(f"batch {label} ({n} authors): {wall:.3f} s -> "
+              f"{float(n) * (n - 1) / wall:.4g} author-pairs/s ({card})")
+        return wall
+
+    out = {name: workdir / f"batch_{name}" for name in (
+        "a.npz", "a.jsonl", "b.npz", "b.jsonl", "s.npz", "s.jsonl", "p.npz",
+        "p.jsonl", "w.npz", "w.jsonl", "deg.jsonl", "nat.jsonl")}
+    n, n_small = hin.type_size("author"), N_AUTHORS_ALL_PAIRS
+    pathsim.device_counts = timed_counts
+    try:
+        wall = run(f"topk-all k={TOP_K}", gexf, n, "topk-all", "--k",
+                   str(TOP_K), "--out", str(out["a.npz"]), "--emit-pairs",
+                   str(out["a.jsonl"]))
+    finally:
+        pathsim.device_counts = device_counts
+    share = sum(gemm_ms) / 1e3 / wall
+    print(f"batch topk-all: {len(gemm_ms)} blocks through the card's "
+          f"arm (upload, f64 GEMM, fetch), {sum(gemm_ms):.1f} ms of "
+          f"CUDA-event time: a device share of {share:.4f} of the "
+          "campaign's wall time")
+    res = np.load(out["a.npz"])
+    batch_vs_k1(np, res["vals"], res["idxs"], dense_backend)
+
+    for name, extra in (("s", ()), ("p", ("--factor-format", "bitpacked")),
+                        ("w", ("--workers", "2"))):
+        run(f"topk-all k={TOP_K} {' '.join(extra)}".rstrip(), small, n_small,
+            "topk-all", "--k", str(TOP_K), *extra, "--out",
+            str(out[f"{name}.npz"]), "--emit-pairs",
+            str(out[f"{name}.jsonl"]))
+
+    # SIGTERM mid-campaign (a child process; 32-row blocks, so the signal
+    # lands well before the last of them), then resume
+    ckdir = workdir / "batch_ckpt"
+    child = subprocess.Popen(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli",
+         *batch_argv(small, "topk-all"), "--k", str(TOP_K), "--block-rows",
+         str(BATCH_KILL_BLOCK_ROWS), "--checkpoint-dir", str(ckdir), "--out",
+         str(out["b.npz"]), "--emit-pairs", str(out["b.jsonl"])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        manifest = ckdir / "manifest.json"
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and child.poll() is None:
+            done = (json.loads(manifest.read_text())
+                    if manifest.exists() else {})
+            if sum(key.startswith("b") for key in done) >= BATCH_KILL_AFTER:
+                break
+            time.sleep(0.02)
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 75:
+        raise AssertionError(f"batch child exited {rc}, want 75: "
+                             f"{child.stderr.read()[-2000:]}")
+    done = sum(key.startswith("b") for key in
+               json.loads((ckdir / "manifest.json").read_text()))
+    run("resume", small, n_small, "resume", "--checkpoint-dir", str(ckdir),
+        "--out", str(out["b.npz"]), "--emit-pairs", str(out["b.jsonl"]))
+    for x, y in (("s.npz", "b.npz"), ("s.jsonl", "b.jsonl")):
+        if sha256_file(out[x]) != sha256_file(out[y]):
+            raise AssertionError(f"resumed {y} differs from {x}")
+    print(f"batch SIGTERM mid-campaign: exit 75 after {done} of "
+          f"{-(-n_small // BATCH_KILL_BLOCK_ROWS)} blocks; resume gives "
+          "sha256-identical --out and --emit-pairs")
+    for x in ("p", "w"):
+        for ext in ("npz", "jsonl"):
+            if sha256_file(out[f"s.{ext}"]) != sha256_file(out[f"{x}.{ext}"]):
+                raise AssertionError(f"batch {x}.{ext} differs from s.{ext}")
+    print("batch bitpacked and --workers 2: sha256-identical to the coo "
+          "single-host run")
+
+    for tau in BATCH_TAUS:
+        for grouping in ("degree", "natural"):
+            run(f"simjoin --tau {tau} --grouping {grouping}", small,
+                n_small, "simjoin", "--tau", str(tau), "--grouping",
+                grouping, "--out", str(out[f"{grouping[:3]}.jsonl"]))
+        sets = [sorted(out[f].read_text().splitlines())
+                for f in ("deg.jsonl", "nat.jsonl")]
+        if sets[0] != sets[1]:
+            raise AssertionError(f"simjoin tau {tau}: degree and natural "
+                                 "pair sets differ")
+        print(f"batch simjoin tau {tau}: {len(sets[0])} pairs, the same set "
+              "with degree and natural grouping")
+    arms = {dict(key).get("backend"): cell.value
+            for key, cell in backend_total.cells() if cell.value}
+    if set(arms) != {"cuda"}:
+        raise AssertionError(f"batch GEMM arms: {arms}")
+    print(f"dpathsim_batch_score_backend_total: {arms} (the card only)")
+
+
+def batch_vs_k1(np, vals, idxs, dense_backend):
+    """The campaign's f64 top-k against the main path's K1 rank-all (f32
+    scores of the same exact counts): every value rounds to K1's, and the
+    indices are K1's wherever f32 rounding does not tie scores that
+    differ in f64."""
+    kv, ki = dense_backend.topk(k=TOP_K)
+    kv, ki = np.asarray(kv), np.asarray(ki)
+    if vals.shape != kv.shape:
+        raise AssertionError(f"batch {vals.shape} vs K1 {kv.shape}")
+    if not np.array_equal(vals.astype(np.float32), kv.astype(np.float32)):
+        raise AssertionError("batch values do not round to K1's")
+    diff = np.flatnonzero((idxs != ki).any(axis=1))
+    for r in diff:
+        f32 = kv[r].astype(np.float32)
+        for p in np.flatnonzero(idxs[r] != ki[r]):
+            # a differing position lies in a run of f32-equal values: at
+            # the k boundary (K1 may keep other columns of the f32 tie),
+            # or inside the list with the same columns as a set and f64
+            # values that differ (f64 order against K1's column order)
+            grp = f32 == f32[p]
+            if grp[-1]:
+                continue
+            if (np.unique(vals[r][grp]).shape[0] < 2
+                    or sorted(idxs[r][grp]) != sorted(ki[r][grp])):
+                raise AssertionError(f"batch row {r} differs from K1")
+    print(f"batch topk-all vs the main path's K1 rank-all: all {vals.shape[0]}"
+          f" rows' values round to K1's f32; indices equal in "
+          f"{vals.shape[0] - diff.shape[0]} rows, the other {diff.shape[0]} "
+          "differ only inside f32 ties of distinct f64 scores")
+
+
 def square_bounds(lim, n, v, out_bytes):
     """A square kernel's least times on this factor: at the int8 tensor
     cores, the limb products of the N(N+1)/2 pairs of the symmetric S (2 v
@@ -2979,12 +3523,16 @@ def main() -> int:
                            hin, hin_ap)
         router_fleet(np, pathlib.Path(tmp), smi, cold_qps)
         sr_launches = serving_rest(torch, ck, np, smi)
-        k3 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
+        k3, c5 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
+        pk_launches = packed_sym_batch(torch, ck, np, pathlib.Path(tmp), smi,
+                                       hin, backend, c5)
+        del c5
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
         kern["launches_batch_cli"] = cli_launches[kern["name"]]
         kern["launches_serving_rest"] = sr_launches[kern["name"]]
+        kern["launches_packed_sym_batch"] = pk_launches[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

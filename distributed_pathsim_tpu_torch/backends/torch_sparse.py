@@ -1,8 +1,10 @@
 """Streaming sparse backend on torch (BASELINE.json config 5 path).
 
-The port of the JAX package's ``jax-sparse`` backend, for a COO factor.
-The half-chain factor C is folded sparsely on the host
-(ops/planner.py); the device holds row tiles of C, densified on demand
+The port of the JAX package's ``jax-sparse`` backend. The half-chain
+factor C is folded sparsely on the host (ops/planner.py) and held there
+as COO or, behind the ``factor_format`` knob, as a compressed
+``blocked`` / ``bitpacked`` factor (ops/packed.py) whose chunks are the
+row tiles; the device holds row tiles of C, densified on demand
 (ops/sparse.TiledHalfChain), or the whole dense C when it fits
 :attr:`TorchSparseBackend._DENSE_C_DEVICE_BUDGET`. Rank-all
 (:meth:`TorchSparseBackend.topk_scores`) streams row tiles: each row
@@ -16,6 +18,11 @@ and a candidate buffer within budget; the scanned fold (a loop of tile
 GEMMs + sorts over the device-resident dense C) otherwise; the per-tile
 fold over the LRU of densified tiles when the dense C is over budget.
 ``compute_path`` in the checkpoint identity records which arm ran.
+``topk_scores(symmetric=True)`` runs the JAX package's symmetric
+half-sweep instead (ops/sparse.stream_merge_topk_pair): each (i, j ≥ i)
+tile pair is scored once and folded into both row blocks, resumable
+from rolling ``sym_partials_after_{i}`` snapshots; its checkpoints
+(``stream-topk-v3-sym``) never mix with the full sweep's.
 
 The sweep has the JAX package's resilience seams: each row tile's launch
 is one ``tile_execute`` attempt (retried alone under the retry policy;
@@ -27,7 +34,9 @@ each checkpoint write retries transient I/O faults.
 The tile height, the scatter-pad floor and the factor format resolve
 through the tuning registry (``sparse_tile_rows``, default 4096;
 ``sparse_nnz_floor``, default 1; ``factor_format``, ``coo``), once at
-build and pinned for the backend's life.
+build and pinned for the backend's life: a delta patches the same
+representation (``packed.patch_factor`` for a packed one). The gauge
+``dpathsim_factor_bytes{format}`` reports the resident factor bytes.
 
 Past the f32 exact-integer range (row sums ≥ 2^24) with
 ``exact_counts=True`` the f32 pass runs as a candidate prefilter and an
@@ -45,6 +54,7 @@ import torch
 from .. import resilience
 from ..ops import chain, planner
 from ..ops import cuda_kernels as ck
+from ..ops import packed as pkd
 from ..ops import sparse as sp
 from ..ops.metapath import MetaPath
 from ..resilience.preemption import handler as _preemption
@@ -104,7 +114,6 @@ class TorchSparseBackend(PathSimBackend):
         }
         if not metapath.is_symmetric:
             raise ValueError("torch-sparse requires a symmetric metapath")
-        _require_coo(factor_format)
         if self.device.type == "cuda":
             ck.check_true_f32()
         self.exact_counts = exact_counts
@@ -133,16 +142,27 @@ class TorchSparseBackend(PathSimBackend):
         if factor_format is None:
             factor_format = str(
                 tuning.choose("factor_format", default="coo", **shape))
-        _require_coo(factor_format)
+        if factor_format not in pkd.FACTOR_FORMATS:
+            raise ValueError(
+                f"unknown factor_format {factor_format!r}; choose from "
+                f"{pkd.FACTOR_FORMATS}"
+            )
         self._factor_format = factor_format
         self._bind_factor(coo)
 
-    def _bind_factor(self, factor: sp.COOMatrix) -> None:
-        """Bind the half-chain factor: overflow-mode detection, tiling,
-        cache reset."""
+    def _bind_factor(self, factor) -> None:
+        """Bind the half-chain factor: a COO (packed here when the
+        ``factor_format`` knob says so) or an already-patched packed one
+        from the delta path. Overflow-mode detection, tiling, cache
+        reset. The chunk height is the tile height, so every tile decode
+        touches exactly its own chunks."""
         self.n = self.hin.type_size(self.metapath.source_type)
         tile_rows_eff = min(self._tile_rows_req, max(int(factor.shape[0]), 8))
-        self._c = factor
+        if not pkd.is_packed(factor) and self._factor_format != "coo":
+            factor = pkd.make_factor(factor, self._factor_format,
+                                     chunk_rows=tile_rows_eff)
+        self._factor = factor
+        self._c = None if pkd.is_packed(factor) else factor
         # Overflow detection (cheap bound, then the tight per-row check):
         # the outcome is a MODE, not a refusal. d_i >= M[i,j] >= every
         # partial sum (non-negative data), so max rowsum < 2^24 proves
@@ -150,12 +170,9 @@ class TorchSparseBackend(PathSimBackend):
         self._exact_rescore = False
         self._host_rowsums = None
         if self.exact_counts and chain._is_float32(self._dtype):
-            colsum = np.zeros(factor.shape[1], dtype=np.float64)
-            np.add.at(colsum, factor.cols, factor.weights)
+            colsum = np.asarray(pkd.factor_colsum(factor), dtype=np.float64)
             if float((colsum**2).sum()) >= chain.F32_EXACT_INT_MAX:
-                rs = np.zeros(factor.shape[0], dtype=np.float64)
-                np.add.at(rs, factor.rows, factor.weights * colsum[factor.cols])
-                rs = rs[: self.n]
+                rs = pkd.factor_rowsums_weighted(factor, colsum)[: self.n]
                 if rs.max(initial=0.0) >= chain.F32_EXACT_INT_MAX:
                     self._exact_rescore = True
                     self._host_rowsums = rs
@@ -175,22 +192,41 @@ class TorchSparseBackend(PathSimBackend):
         self._m: np.ndarray | None = None
         self._c_sum = None
         self._indptr = None
+        # memory-headroom visibility (what the layouts are about): the
+        # resident factor bytes, labeled by format
+        from ..obs.metrics import get_registry
+
+        get_registry().gauge(
+            "dpathsim_factor_bytes",
+            "resident half-chain factor bytes by layout format",
+        ).labels(format=self._factor_format).set(
+            float(pkd.factor_bytes(factor)))
 
     def _apply_delta_impl(self, plan) -> None:
-        """Rebind to the plan's already-patched COO factor (ΔC came from
-        the product rule — the chain is never refolded) and rebuild the
-        tiling. Host cost is one O(nnz) re-sort; device tiles re-densify
-        lazily at unchanged shapes (tile_rows and V are fixed by the
-        capacity invariant)."""
+        """Rebind to the patched factor (ΔC came from the product rule —
+        the chain is never refolded) and rebuild the tiling. A COO factor
+        takes the plan's patched COO (one O(nnz) re-sort); a packed one
+        is patched chunk by chunk (``packed.patch_factor``, O(Δ +
+        touched chunks), the same content). The patch is done twice for
+        a packed factor: ``data.delta.plan_delta`` always builds the
+        patched COO too (the affected-row set is computed from the old
+        and new COO, as in the JAX package) and seeds it into
+        ``hin_new``'s factor cache, so after any delta ``self.hin`` keeps
+        the 24-byte/nnz COO resident beside the packed factor. Device
+        tiles re-densify lazily at unchanged shapes (tile_rows and V are
+        fixed by the capacity invariant), and K3's kernel-ready copy, its
+        u8 limbs included, is rebuilt on the next sweep."""
         self.hin = plan.hin_new  # logical n may have grown (appends)
-        self._bind_factor(plan.half_new)
+        if self._c is None and plan.delta_c is not None:
+            self._bind_factor(pkd.patch_factor(self._factor, plan.delta_c))
+        else:
+            self._bind_factor(plan.half_new)
 
     def factor_info(self) -> dict:
-        nnz = int(self._c.rows.shape[0])
+        nnz = pkd.factor_nnz(self._factor)
         return {
             "format": self._factor_format,
-            "bytes": int(self._c.rows.nbytes + self._c.cols.nbytes
-                         + self._c.weights.nbytes),
+            "bytes": pkd.factor_bytes(self._factor),
             "nnz": nnz,
             "coo_bytes": 24 * nnz,  # int64 rows + int64 cols + f64 w
         }
@@ -284,12 +320,10 @@ class TorchSparseBackend(PathSimBackend):
 
     def diag_walks(self) -> np.ndarray:
         """diag(M)[i] = Σ_v C[i,v]² — the textbook-PathSim denominator,
-        straight from the summed COO (O(nnz), no dense C, no M)."""
+        straight from the factor in either layout (O(nnz), no dense C,
+        no M)."""
         if self._diag is None:
-            s = self._c.summed()
-            self._diag = np.bincount(
-                s.rows, weights=s.weights**2, minlength=self.n
-            ).astype(np.float64)
+            self._diag = pkd.factor_diag(self._factor)[: self.n]
         return self._diag
 
     # -- streaming rank-all ------------------------------------------------
@@ -300,21 +334,29 @@ class TorchSparseBackend(PathSimBackend):
             return "rect"
         return "scan-fold" if scanned else "tile-fold"
 
-    def _run_config(self, k: int, variant: str = "rowsum") -> dict:
+    def _run_config(self, k: int, variant: str = "rowsum",
+                    symmetric: bool = False) -> dict:
         """Checkpoint identity: graph fingerprint + tiling + k + score
-        variant + compute path. A reused directory from a different run
-        must fail, not resume."""
+        variant + compute path + sweep protocol. A reused directory from
+        a different run must fail, not resume."""
         c = self._c
-        h = hashlib.sha256()
-        h.update(np.ascontiguousarray(c.rows, dtype=np.int64).tobytes())
-        h.update(np.ascontiguousarray(c.cols, dtype=np.int64).tobytes())
-        h.update(np.ascontiguousarray(c.weights, dtype=np.float64).tobytes())
+        if c is not None:
+            # the raw arrays' digest (pre-canonicalization order), as the
+            # JAX package keeps it for COO directories
+            h = hashlib.sha256()
+            h.update(np.ascontiguousarray(c.rows, dtype=np.int64).tobytes())
+            h.update(np.ascontiguousarray(c.cols, dtype=np.int64).tobytes())
+            h.update(np.ascontiguousarray(c.weights,
+                                          dtype=np.float64).tobytes())
+            digest = h.hexdigest()[:16]
+        else:
+            digest = pkd.content_digest(self._factor)
         return {
             "n": int(self.n),
-            "v": int(c.shape[1]),
-            "nnz": int(c.rows.shape[0]),
+            "v": int(self._factor.shape[1]),
+            "nnz": pkd.factor_nnz(self._factor),
             "factor_format": self._factor_format,
-            "digest": h.hexdigest()[:16],
+            "digest": digest,
             "tile_rows": int(self.tiled.tile_rows),
             "k": int(k),
             "metapath": self.metapath.name,
@@ -325,45 +367,56 @@ class TorchSparseBackend(PathSimBackend):
             # folds' may round differently past 2^24, so a run started
             # on one arm must not resume on another and mix numerics
             # across row tiles.
-            "compute_path": self._compute_path(k),
+            "compute_path": "sym" if symmetric else self._compute_path(k),
             # Bump whenever the numeric regime or the resume protocol of
-            # the saved units changes.
-            "format": "stream-topk-v2",
+            # the saved units changes: v2 = the full sweep, per-row-tile
+            # units resumed independently; v3-sym = the symmetric
+            # half-sweep, resumed from its rolling sym_partials unit.
+            "format": "stream-topk-v3-sym" if symmetric else "stream-topk-v2",
         }
 
     def topk_scores(self, k: int = 10, variant: str = "rowsum",
-                    checkpoint_dir: str | None = None):
+                    checkpoint_dir: str | None = None,
+                    symmetric: bool = False):
         """Streaming per-source top-k: (values f64 [N, k], indices int64
         [N, k]), self pairs excluded. In exact-rescore mode (counts past
         2^24, ``exact_counts=True``) the f32 pass runs widened to k_cand
         candidates per row and the exact host phase reduces them to the
-        true top-k — bit-exact vs f64 arithmetic, certified per row."""
+        true top-k — bit-exact vs f64 arithmetic, certified per row.
+        ``symmetric=True``: the symmetric half-sweep (see
+        :meth:`_topk_scores_symmetric`) instead of the full sweep."""
         if not self._exact_rescore:
-            return self._topk_scores_f32(k, variant, checkpoint_dir)
+            return self._topk_scores_f32(k, variant, checkpoint_dir,
+                                         symmetric)
         # k+5 keeps k=10 inside K3's k < 16 gate (the candidate set is
         # certified per row afterwards, so the margin affects fallback
         # cost, never correctness)
         k_cand = min(max(k + 5, (3 * k) // 2), max(self.n - 1, 1))
-        cv, ci = self._topk_scores_f32(k_cand, variant, checkpoint_dir)
+        cv, ci = self._topk_scores_f32(k_cand, variant, checkpoint_dir,
+                                       symmetric)
         return self._exact_topk_rescore(k, cv, ci, variant)
 
     def _topk_scores_f32(self, k: int = 10, variant: str = "rowsum",
-                         checkpoint_dir: str | None = None):
+                         checkpoint_dir: str | None = None,
+                         symmetric: bool = False):
         """The full sweep over row tiles: each tile's [tile, k] winners
         come back to the host, nothing larger. ``checkpoint_dir``:
         persist each completed row tile and resume on restart (tiles are
-        independent units)."""
+        independent units; the symmetric pass also rolls a
+        ``sym_partials`` unit)."""
         ckpt = None
         if checkpoint_dir is not None:
             from ..utils.checkpoint import CheckpointManager
 
             ckpt = CheckpointManager(
                 checkpoint_dir,
-                config=self._run_config(k, variant),
+                config=self._run_config(k, variant, symmetric),
                 config_defaults={"dtype": "float32", "exact_counts": True,
                                  "variant": "rowsum",
                                  "factor_format": "coo"},
             )
+        if symmetric:
+            return self._topk_scores_symmetric(k, ckpt, variant)
         t = self.tiled
         denoms = self._denoms_device_padded(variant)
         vals, idxs = self._empty_result(k)
@@ -508,6 +561,149 @@ class TorchSparseBackend(PathSimBackend):
             np.zeros((self.n, k), dtype=np.int64),
         )
 
+    # -- symmetric half-sweep ------------------------------------------------
+
+    _PARTIALS_PREFIX = "sym_partials_after_"
+    # Partials snapshot cadence: a resume redoes at most this many outer
+    # tiles; a snapshot every tile would cost O(n_tiles²·tile_rows·k) I/O.
+    _PARTIALS_EVERY = 8
+
+    def _topk_scores_symmetric(self, k: int, ckpt, variant: str = "rowsum"):
+        """Symmetric half-sweep: outer tile i, inner j ∈ [i, n_tiles);
+        each off-diagonal tile folds into row blocks i AND j
+        (sp.stream_merge_topk_pair). Row block r is complete when outer
+        iteration r finishes — contributions (i < r, j = r) arrived
+        during earlier outer iterations, (r, j ≥ r) during its own. Tie
+        order (ascending global column per row) is the full sweep's,
+        because every row block's folds arrive in ascending column
+        order. It runs the torch ops of the JAX package's XLA fold (not
+        K3): the same algorithm and tie order.
+
+        Resume protocol: every _PARTIALS_EVERY outer tiles (and at a
+        preemption) a snapshot of the not-yet-finished row blocks lands
+        under its own unit key (``sym_partials_after_{i}``); the previous
+        snapshot is dropped only after the new one is durable, and a
+        resume keeps only the newest (a crash between the two leaves an
+        older one behind). A restart redoes at most _PARTIALS_EVERY
+        outer tiles; their row units are overwritten with identical
+        results."""
+        t = self.tiled
+        dev = self.device
+        denoms = self._denoms_device_padded(variant)
+        vals, idxs = self._empty_result(k)
+        empty_v = torch.full((t.tile_rows, k), float("-inf"), dtype=t.dtype,
+                             device=dev)
+        empty_i = torch.zeros((t.tile_rows, k), dtype=torch.int32,
+                              device=dev)
+        n_live = self._n_live_tiles
+        best = {j: (empty_v, empty_i) for j in range(n_live)}
+
+        start = 0
+        prev_key = None
+        if ckpt is not None:
+            snaps = [key for key in ckpt.done_keys()
+                     if key.startswith(self._PARTIALS_PREFIX)]
+            if snaps:
+                prev_key = max(
+                    snaps, key=lambda s: int(s[len(self._PARTIALS_PREFIX):]))
+                for stale in snaps:
+                    if stale != prev_key:
+                        ckpt.drop_unit(stale)
+                after = int(prev_key[len(self._PARTIALS_PREFIX):])
+                part = ckpt.load_unit(prev_key)
+                # rows <= after were saved before the snapshot (the save
+                # order below); reload them
+                for i in range(after + 1):
+                    unit = ckpt.load_unit(f"topk{k}_rowtile_{i}")
+                    i0 = i * t.tile_rows
+                    rows_here = min(t.tile_rows, self.n - i0)
+                    vals[i0:i0 + rows_here] = unit["vals"]
+                    idxs[i0:i0 + rows_here] = unit["idxs"]
+                for pos, j in enumerate(range(after + 1, n_live)):
+                    best[j] = (
+                        torch.as_tensor(part["vals"][pos], device=dev).to(
+                            t.dtype),
+                        torch.as_tensor(part["idxs"][pos], device=dev).to(
+                            torch.int32),
+                    )
+                start = after + 1
+
+        for i in range(start, n_live):
+            # Preemption point (outer-tile boundary): every finished row
+            # unit is already durable; a fresh partials snapshot makes the
+            # restart resume exactly here.
+            if _preemption.requested():
+                if ckpt is not None and i > start:
+                    prev_key = self._save_sym_partials(
+                        ckpt, best, after=i - 1, prev_key=prev_key, k=k)
+                _preemption.check(
+                    checkpoint_dir=str(ckpt.dir) if ckpt is not None else None
+                )
+            i0 = i * t.tile_rows
+            rows_here = min(t.tile_rows, self.n - i0)
+            ci = t.tile(i)
+            d_all = denoms()
+            di = d_all[i0:i0 + t.tile_rows]
+            bv, bi = best[i]
+            # Each merge is one tile_execute attempt, its result assigned
+            # only on success: the merge is not idempotent (a duplicate
+            # fold would duplicate candidate indices in the top-k list).
+            bv, bi = resilience.resilient_call(
+                "tile_execute",
+                lambda: sp.stream_merge_topk(
+                    ci, ci, di, di, bv, bi, i0, i0, k=k, n_true=self.n),
+            )
+            for j in range(i + 1, n_live):
+                j0 = j * t.tile_rows
+                cj = t.tile(j)
+                dj = d_all[j0:j0 + t.tile_rows]
+                bjv, bji = best[j]
+                bv, bi, bjv, bji = resilience.resilient_call(
+                    "tile_execute",
+                    lambda cj=cj, dj=dj, j0=j0, bv=bv, bi=bi, bjv=bjv,
+                    bji=bji: sp.stream_merge_topk_pair(
+                        ci, cj, di, dj, bv, bi, bjv, bji, i0, j0,
+                        k=k, n_true=self.n),
+                )
+                best[j] = (bjv, bji)
+            vals[i0:i0 + rows_here] = bv[:rows_here].cpu().double().numpy()
+            idxs[i0:i0 + rows_here] = bi[:rows_here].cpu().long().numpy()
+            del best[i]  # complete; its state is in vals/idxs now
+            if ckpt is not None:
+                ckpt.save_unit(
+                    f"topk{k}_rowtile_{i}",
+                    vals=vals[i0:i0 + rows_here],
+                    idxs=idxs[i0:i0 + rows_here],
+                )
+                last = i == n_live - 1
+                if (i % self._PARTIALS_EVERY == self._PARTIALS_EVERY - 1
+                        or last):
+                    prev_key = self._save_sym_partials(
+                        ckpt, best, after=i, prev_key=prev_key, k=k)
+        return vals, idxs
+
+    def _save_sym_partials(self, ckpt, best: dict, after: int,
+                           prev_key: str | None, k: int) -> str:
+        """Snapshot the running bests of row tiles > ``after`` under
+        ``sym_partials_after_{after}`` and drop the superseded snapshot
+        only once the new one is durable (save_unit writes all arrays
+        before the manifest references them). Re-saving the same key
+        overwrites identical contents."""
+        t = self.tiled
+        rest = range(after + 1, self._n_live_tiles)
+        new_key = f"{self._PARTIALS_PREFIX}{after}"
+        if len(rest):
+            sv = np.stack([best[j][0].cpu().numpy() for j in rest])
+            si = np.stack([best[j][1].cpu().numpy() for j in rest])
+        else:
+            sv = np.zeros((0, t.tile_rows, k),
+                          dtype=np.float32)
+            si = np.zeros((0, t.tile_rows, k), dtype=np.int32)
+        ckpt.save_unit(new_key, vals=sv, idxs=si)
+        if prev_key is not None and prev_key != new_key:
+            ckpt.drop_unit(prev_key)  # only after the new one is durable
+        return new_key
+
     # ------------------------------------------------------------------
     # Exact-counts phase (counts past 2^24): f64 host rescoring of the
     # f32 pass's candidates. Selection stays on the device in f32;
@@ -520,14 +716,20 @@ class TorchSparseBackend(PathSimBackend):
         The factor is not assumed sorted or duplicate-free: a single-step
         half chain (APA) is the raw adjacency block."""
         if self._c_sum is None:
-            self._c_sum = self._c.summed()
+            self._c_sum = self._c.summed()  # COO factors only
             self._indptr = np.searchsorted(
                 self._c_sum.rows, np.arange(self.n + 1)
             )
         return self._c_sum, self._indptr
 
     def _densify_rows_f64(self, rows: np.ndarray) -> np.ndarray:
-        """Dense f64 [len(rows), V] gather of arbitrary factor rows."""
+        """Dense f64 [len(rows), V] gather of arbitrary factor rows. A
+        packed factor gathers through the sanctioned accessor: the same
+        exact integers, a chunk-transient decode instead of a resident
+        CSR copy."""
+        if self._c is None:
+            return pkd.gather_rows_dense(self._factor,
+                                         np.asarray(rows, dtype=np.int64))
         s, indptr = self._csr_factor()
         rows = np.asarray(rows, dtype=np.int64)
         starts = indptr[rows]
@@ -654,15 +856,6 @@ class TorchSparseBackend(PathSimBackend):
             j1 = min(j0 + chunk, self.n)
             out[j0:j1] = self._densify_rows_f64(np.arange(j0, j1)) @ ci
         return out
-
-
-def _require_coo(factor_format: str | None) -> None:
-    if factor_format not in (None, "coo"):
-        raise NotImplementedError(
-            f"factor_format {factor_format!r} is not ported: torch-sparse "
-            "holds a COO factor; the packed layouts of the JAX "
-            "package's ops/packed.py are not ported yet"
-        )
 
 
 def _fetch_async(vals: torch.Tensor, idxs: torch.Tensor):

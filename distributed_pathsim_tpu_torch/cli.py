@@ -93,8 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--factor-format",
         default=None,
         choices=("coo", "blocked", "bitpacked"),
-        help="torch-sparse: resident layout of the half-chain factor; "
-        "only 'coo' is ported (the default through the tuning registry)",
+        help="torch-sparse: resident layout of the half-chain factor "
+        "(ops/packed.py): the compressed layouts hold it in a fraction of "
+        "the COO bytes, bit-identically; default resolves through the "
+        "tuning registry ('coo' when untuned)",
     )
     p.add_argument(
         "--headroom",
@@ -214,8 +216,8 @@ def parse_args(argv: list[str]):
 # ``serve``: one warm service on stdin/stdout; ``worker``: one replica
 # speaking the router-facing async protocol; ``router``: the
 # fault-tolerant fan-out over N of them; ``fleet-stats``: the one-shot
-# merged-fleet summary; ``batch``: the JAX package's corpus-scale
-# campaigns, not ported yet.
+# merged-fleet summary; ``batch``: corpus-scale campaigns (top-k for
+# every row, the similarity join) with checkpointed resume.
 SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch")
 
 
@@ -225,10 +227,9 @@ def _subcommand(name: str):
 
         return serve_main
     if name == "batch":
-        raise NotImplementedError(
-            "batch campaigns (dpathsim batch, router/batch.py) are not "
-            "ported yet"
-        )
+        from .batch.cli import batch_main
+
+        return batch_main
     from .router import cli as router_cli
 
     return {
@@ -325,11 +326,6 @@ def _run(args) -> int:
         raise ValueError(
             "--factor-format selects the resident layout of the "
             "sparse half-chain factor and requires --backend torch-sparse"
-        )
-    if args.factor_format not in (None, "coo"):
-        raise ValueError(
-            f"--factor-format {args.factor_format} is not ported yet "
-            "(the port holds COO factors)"
         )
     if args.approx and args.backend not in ("torch", "torch-sparse"):
         raise ValueError(

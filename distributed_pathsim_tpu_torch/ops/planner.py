@@ -478,17 +478,24 @@ class SubchainCache:
     ``invalidate_relationships`` exists to *reclaim bytes* eagerly when
     a delta makes entries unreachable, and to make the invalidation
     rule auditable: only sub-chains whose factors changed are dropped.
-    Thread-safe: serving lanes fold concurrently. Entries are COO,
-    charged at their array bytes."""
+    Thread-safe: serving lanes fold concurrently.
+
+    ``factor_format`` (the tuning knob) stores entries through the
+    packed layouts (ops/packed.py) and charges them at their PACKED
+    bytes against the budget — the same budget then holds several times
+    more shared sub-chains. Only canonical (sorted, coalesced) entries
+    pack, so a warm hit hands back arrays equal to the cold fold's (raw
+    leaf blocks — the one non-canonical producer — stay COO)."""
 
     def __init__(self, budget_bytes: int, factor_format: str = "coo"):
-        if factor_format != "coo":
+        from . import packed as pkd
+
+        if factor_format not in pkd.FACTOR_FORMATS:
             raise ValueError(
-                f"sub-chain memo factor_format {factor_format!r} is not "
-                "ported: the memo holds COO entries; the packed layouts "
-                "come with the packed factor formats (ROADMAP A.3)"
+                f"unknown factor format {factor_format!r}; choose from "
+                f"{pkd.FACTOR_FORMATS}"
             )
-        self.factor_format = factor_format
+        self.factor_format = str(factor_format)
         self.budget_bytes = int(budget_bytes)
         self._lock = threading.Lock()
         self._d: OrderedDict[tuple, sp.COOMatrix] = OrderedDict()
@@ -514,8 +521,22 @@ class SubchainCache:
         ).labels()
 
     @staticmethod
-    def _nbytes(c: sp.COOMatrix) -> int:
-        return int(c.rows.nbytes + c.cols.nbytes + c.weights.nbytes)
+    def _nbytes(c) -> int:
+        from . import packed as pkd
+
+        return pkd.factor_bytes(c)
+
+    def _encode(self, c: sp.COOMatrix):
+        """Entry representation for storage: packed when the format knob
+        says so AND the entry is canonical (a warm hit must hand back
+        arrays equal to the cold fold's)."""
+        if self.factor_format == "coo":
+            return c
+        from . import packed as pkd
+
+        if not pkd.is_canonical(c):
+            return c
+        return pkd.make_factor(c, self.factor_format)
 
     def get(self, key: tuple) -> sp.COOMatrix | None:
         with self._lock:
@@ -527,21 +548,27 @@ class SubchainCache:
             self._d.move_to_end(key)
             self.hits += 1
             self._m_hits.inc()
-            return hit
+        from . import packed as pkd
+
+        # decode outside the lock: a packed hit's O(nnz) unpack must not
+        # serialize concurrent lanes
+        return pkd.as_coo(hit)
 
     def put(self, key: tuple, c: sp.COOMatrix) -> None:
         if self.budget_bytes <= 0:
             return
+        entry = self._encode(c)
         # An entry bigger than half the budget (a huge leaf factor at
         # full graph scale) would evict every interior fold the memo
         # exists for just to store one array the HIN already holds —
-        # skip it; the fold recomputes it in O(nnz).
-        if 2 * self._nbytes(c) > self.budget_bytes:
+        # skip it; the fold recomputes it in O(nnz). Packed entries are
+        # charged at their packed bytes.
+        if 2 * self._nbytes(entry) > self.budget_bytes:
             return
         with self._lock:
             if key not in self._d:
-                self._bytes += self._nbytes(c)
-            self._d[key] = c
+                self._bytes += self._nbytes(entry)
+            self._d[key] = entry
             self._d.move_to_end(key)
             while self._bytes > self.budget_bytes and len(self._d) > 1:
                 _, dropped = self._d.popitem(last=False)

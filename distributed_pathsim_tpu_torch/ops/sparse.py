@@ -21,7 +21,9 @@ torch counterpart of the JAX package's static-shaped scatter + tile
 GEMMs: row tiles of C densified on demand from the host COO, tile
 products in true f32, and the fold of score tiles into running per-row
 top-k lists (a Python loop over column tiles stands in for
-``lax.scan``)."""
+``lax.scan``); :func:`stream_merge_topk_pair` folds one tile into two
+row blocks' lists at once (the symmetric half-sweep). The tiled view
+reads a COO factor or a packed one (ops/packed.py) alike."""
 
 from __future__ import annotations
 
@@ -336,6 +338,22 @@ def tile_rowsums(c_tile, colsum_total):
     return torch.matmul(c_tile, colsum_total)
 
 
+def _merge_best(best_v, best_i, tile_v, tile_i, k: int):
+    """Merge a tile's per-row winners into the carried [T, k] best: the
+    carried entries come first, so a stable sort keeps the earlier
+    (lower-column) one of equal values."""
+    merged_v = torch.cat([best_v, tile_v], dim=1)
+    merged_i = torch.cat([best_i, tile_i], dim=1)
+    v, p = _stable_topk(merged_v, k)
+    return v, torch.gather(merged_i, 1, p)
+
+
+def _score_tile(ci, cj, di, dj):
+    m = torch.matmul(ci, cj.T)
+    denom = di[:, None] + dj[None, :]
+    return torch.where(denom > 0, (2.0 * m) / denom, 0.0)
+
+
 def stream_merge_topk(ci, cj, di, dj, best_v, best_i, i0: int, j0: int,
                       k: int, n_true: int):
     """Fold one [Ti, Tj] score tile into the running per-row top-k on the
@@ -344,18 +362,40 @@ def stream_merge_topk(ci, cj, di, dj, best_v, best_i, i0: int, j0: int,
     best. Only the final [Ti, k] result ever reaches the host. One
     definition serves the per-tile and the scanned row-tile paths, so
     their numerics and tie-breaks agree."""
-    m = torch.matmul(ci, cj.T)
-    denom = di[:, None] + dj[None, :]
-    s = torch.where(denom > 0, (2.0 * m) / denom, 0.0)
+    s = _score_tile(ci, cj, di, dj)
     rows = i0 + torch.arange(s.shape[0], device=s.device)[:, None]
     cols = (j0 + torch.arange(s.shape[1], device=s.device,
                               dtype=torch.int32))[None, :]
     s = s.masked_fill((cols >= n_true) | (rows == cols), float("-inf"))
-    tile_v, tile_i = chunked_row_topk(s, cols.expand(s.shape), k)
-    merged_v = torch.cat([best_v, tile_v], dim=1)
-    merged_i = torch.cat([best_i, tile_i], dim=1)
-    v, p = _stable_topk(merged_v, k)
-    return v, torch.gather(merged_i, 1, p)
+    return _merge_best(best_v, best_i,
+                       *chunked_row_topk(s, cols.expand(s.shape), k), k)
+
+
+def stream_merge_topk_pair(ci, cj, di, dj, bi_v, bi_i, bj_v, bj_i,
+                           i0: int, j0: int, k: int, n_true: int):
+    """Score ONE [Ti, Tj] tile and fold it into BOTH running top-ks:
+    tile i's rows directly and tile j's rows through the transpose — the
+    score matrix is symmetric (M = C·Cᵀ, denominators symmetric), so one
+    GEMM serves two row blocks: the off-diagonal step of the symmetric
+    half-sweep, half the GEMMs of the full sweep. The transposed fold's
+    candidates are tile i's rows in ascending order, so with the folds
+    of each row block arriving in ascending column order the tie order
+    is the full sweep's."""
+    s = _score_tile(ci, cj, di, dj)
+    rows = (i0 + torch.arange(s.shape[0], device=s.device,
+                              dtype=torch.int32))[:, None]
+    cols = (j0 + torch.arange(s.shape[1], device=s.device,
+                              dtype=torch.int32))[None, :]
+    # Mask padding on BOTH axes (each is the column axis of one of the
+    # two folds) and self pairs (symmetric by construction).
+    s = s.masked_fill((cols >= n_true) | (rows >= n_true) | (rows == cols),
+                      float("-inf"))
+    bi_v, bi_i = _merge_best(bi_v, bi_i,
+                             *chunked_row_topk(s, cols.expand(s.shape), k), k)
+    st = s.T  # [Tj, Ti]; the transposed view's columns are tile i's rows
+    bj_v, bj_i = _merge_best(
+        bj_v, bj_i, *chunked_row_topk(st, rows.T.expand(st.shape), k), k)
+    return bi_v, bi_i, bj_v, bj_i
 
 
 def stream_row_tile_topk(c_all, d_all, i0: int, k: int, n_true: int,
@@ -383,29 +423,58 @@ class TiledHalfChain:
     C is kept as row-sorted COO on the host (for the exact host paths)
     and, uploaded once, on the device; tiles of ``tile_rows`` rows are
     densified there on demand from slices of it and kept in a bounded
-    LRU, so a sweep over the tiles moves no data from the host. V (the
-    contracted width, e.g. #venues) is one dense axis: it is orders of
-    magnitude smaller than N in every target configuration.
+    LRU, so a sweep over the tiles moves no data from the host. Behind
+    the ``factor_format`` knob the host holds a compressed
+    :class:`~.packed.PackedFactor` instead, whose chunks align with the
+    tile rows: each tile's COO span is decoded transiently through the
+    sanctioned accessors and uploaded, and the 24-byte/nnz arrays are
+    never resident (on the host or the card). The scatter, its pad
+    bucket and the numerics are the same either way. V (the contracted
+    width, e.g. #venues) is one dense axis: it is orders of magnitude
+    smaller than N in every target configuration.
     """
 
-    def __init__(self, c: COOMatrix, tile_rows: int = 4096,
+    def __init__(self, c, tile_rows: int = 4096,
                  dtype=torch.float32, device="cpu",
                  exact_counts: bool = True, nnz_bucket_floor: int = 1):
         from . import chain
+        from . import packed as pkd
 
         self.n, self.v = c.shape
         self.tile_rows = int(tile_rows)
         self.dtype = dtype
         self.device = torch.device(device)
         self.n_tiles = (self.n + self.tile_rows - 1) // self.tile_rows
-        order = np.argsort(c.rows, kind="stable")
-        self._rows = c.rows[order]
-        self._cols = c.cols[order]
-        self._weights = c.weights[order]
-        bounds = np.arange(self.n_tiles + 1) * self.tile_rows
-        self._tile_start = np.searchsorted(self._rows, bounds[:-1], side="left")
-        self._tile_stop = np.searchsorted(self._rows, bounds[1:], side="left")
-        tile_nnz = self._tile_stop - self._tile_start
+        self._packed = c if pkd.is_packed(c) else None
+        if self._packed is None:
+            order = np.argsort(c.rows, kind="stable")
+            self._rows = c.rows[order]
+            self._cols = c.cols[order]
+            self._weights = c.weights[order]
+            bounds = np.arange(self.n_tiles + 1) * self.tile_rows
+            self._tile_start = np.searchsorted(self._rows, bounds[:-1],
+                                               side="left")
+            self._tile_stop = np.searchsorted(self._rows, bounds[1:],
+                                              side="left")
+            tile_nnz = self._tile_stop - self._tile_start
+            self._host_factor = COOMatrix(rows=self._rows, cols=self._cols,
+                                          weights=self._weights,
+                                          shape=c.shape)
+        else:
+            self._rows = self._cols = self._weights = None
+            self._tile_start = self._tile_stop = None
+            tile_nnz = np.asarray([
+                pkd.row_range_nnz(c, i * self.tile_rows,
+                                  (i + 1) * self.tile_rows)
+                for i in range(self.n_tiles)
+            ], dtype=np.int64)
+            self._host_factor = c
+        # Exact global column totals in f64 on the host (a packed factor
+        # carries its own, kept patched by the delta path): the row sums
+        # are C @ colsum_total and must stay integer-exact.
+        colsum = np.asarray(pkd.factor_colsum(self._host_factor),
+                            dtype=np.float64)
+        self.colsum_total = colsum
         max_nnz = int(tile_nnz.max()) if self.n_tiles else 0
         # Every tile's scatter is padded to one power-of-two length, as in
         # the JAX package, where the pad is the compiled scatter's shape:
@@ -428,11 +497,7 @@ class TiledHalfChain:
         self._cache: dict[int, torch.Tensor] = {}  # insertion-ordered → LRU
         self._dense_c = None
         self._coo_dev = None
-        # Exact global column totals, accumulated in f64 on the host:
-        # the row sums are C @ colsum_total and must stay integer-exact.
-        colsum = np.zeros(self.v, dtype=np.float64)
-        np.add.at(colsum, self._cols, self._weights)
-        self.colsum_total = colsum
+        self._pad_dev = None
         # f32 carries exact integers only to 2^24; refuse loudly. Cheap
         # bound first: c[i,v] <= colsum[v] gives rowsum_i <= Σ_v
         # colsum[v]². ``exact_counts=False`` waives the guard (PathSim
@@ -445,17 +510,24 @@ class TiledHalfChain:
     def _check_exact_rowsums(self, dtype) -> None:
         """Tight per-row check, only run when the cheap bound trips."""
         from . import chain
+        from . import packed as pkd
 
-        rs = np.zeros(self.n, dtype=np.float64)
-        np.add.at(rs, self._rows, self._weights * self.colsum_total[self._cols])
+        rs = pkd.factor_rowsums_weighted(self._host_factor, self.colsum_total)
         chain.check_exact_counts(rs.max(initial=0.0), dtype)
+
+    def _pad_cells(self):
+        """The scatter pad's distinct cells (rows, cols) on the device,
+        made once."""
+        if self._pad_dev is None:
+            pad = torch.arange(self._max_nnz, device=self.device)
+            self._pad_dev = ((pad // self.v) % self.tile_rows, pad % self.v)
+        return self._pad_dev
 
     def _device_coo(self):
         """(rows, cols, weights) of the sorted COO on the device, uploaded
-        once (int64 indices, weights in the working dtype), and the
-        scatter pad's cells (rows, cols)."""
+        once (int64 indices, weights in the working dtype). COO factors
+        only: a packed factor uploads one decoded tile span at a time."""
         if self._coo_dev is None:
-            pad = torch.arange(self._max_nnz, device=self.device)
             self._coo_dev = (
                 torch.as_tensor(self._rows, dtype=torch.int64,
                                 device=self.device),
@@ -463,10 +535,28 @@ class TiledHalfChain:
                                 device=self.device),
                 torch.as_tensor(self._weights, device=self.device).to(
                     self.dtype),
-                (pad // self.v) % self.tile_rows,
-                pad % self.v,
             )
         return self._coo_dev
+
+    def _tile_span_device(self, i: int):
+        """Tile i's COO span on the device as (local rows, cols,
+        weights): slices of the uploaded COO, or the transient decode of
+        the packed chunks the span touches, uploaded."""
+        r0 = i * self.tile_rows
+        if self._packed is None:
+            s, e = int(self._tile_start[i]), int(self._tile_stop[i])
+            rows_d, cols_d, w_d = self._device_coo()
+            return rows_d[s:e] - r0, cols_d[s:e], w_d[s:e]
+        from . import packed as pkd
+
+        span = pkd.row_slice(self._packed, r0, r0 + self.tile_rows)
+        return (
+            torch.as_tensor(span.rows - r0, dtype=torch.int64,
+                            device=self.device),
+            torch.as_tensor(span.cols, dtype=torch.int64,
+                            device=self.device),
+            torch.as_tensor(span.weights, device=self.device).to(self.dtype),
+        )
 
     def tile(self, i: int) -> torch.Tensor:
         """Dense [tile_rows, V] tile i of C on the device (padded rows
@@ -474,14 +564,15 @@ class TiledHalfChain:
         if i in self._cache:
             self._cache[i] = self._cache.pop(i)  # refresh LRU position
             return self._cache[i]
-        s, e = int(self._tile_start[i]), int(self._tile_stop[i])
-        rows_d, cols_d, w_d, pad_rows, pad_cols = self._device_coo()
+        pad_rows, pad_cols = self._pad_cells()
+        t_rows, t_cols, t_w = self._tile_span_device(i)
+        nnz = t_rows.shape[0]
         rows = pad_rows.clone()
         cols = pad_cols.clone()
         w = torch.zeros(self._max_nnz, dtype=self.dtype, device=self.device)
-        rows[:e - s] = rows_d[s:e] - i * self.tile_rows
-        cols[:e - s] = cols_d[s:e]
-        w[:e - s] = w_d[s:e]
+        rows[:nnz] = t_rows
+        cols[:nnz] = t_cols
+        w[:nnz] = t_w
         t = densify_tile(rows, cols, w, n_rows=self.tile_rows, n_cols=self.v)
         while len(self._cache) >= self._max_cached:
             self._cache.pop(next(iter(self._cache)))  # evict LRU
@@ -495,12 +586,24 @@ class TiledHalfChain:
 
     def dense_device(self) -> torch.Tensor:
         """The whole dense C on the device, scatter-assembled once from
-        the COO factor (O(nnz) transfer). Outside the tile LRU's budget:
-        callers gate on :meth:`dense_bytes` (268 MB at 1M authors, V =
-        64, f32)."""
+        the COO factor (O(nnz) transfer; a packed factor decodes once,
+        transiently). Outside the tile LRU's budget: callers gate on
+        :meth:`dense_bytes` (268 MB at 1M authors, V = 64, f32)."""
         if self._dense_c is None:
+            if self._packed is None:
+                rows, cols, w = self._device_coo()
+            else:
+                from . import packed as pkd
+
+                span = pkd.as_coo(self._packed)
+                rows = torch.as_tensor(span.rows, dtype=torch.int64,
+                                       device=self.device)
+                cols = torch.as_tensor(span.cols, dtype=torch.int64,
+                                       device=self.device)
+                w = torch.as_tensor(span.weights, device=self.device).to(
+                    self.dtype)
             self._dense_c = densify_tile(
-                *self._device_coo()[:3],
+                rows, cols, w,
                 n_rows=self.n_tiles * self.tile_rows, n_cols=self.v,
             )
         return self._dense_c

@@ -35,9 +35,10 @@ multi-window burn-rate SLO engine over the merged stream, and a
 tail-sampled flight recorder for slow/errored/shed/hedged/failed-over
 requests (``flight_dump`` op + SIGTERM drain dump).
 
-Not ported yet: the partitioned fleet (``router/partition.py``, a graph
-row-sharded across workers) and the batch-campaign scheduler
-(``router/batch.py``).
+The batch-campaign scheduler (:class:`~.batch.BlockScheduler`,
+batch.py) fans a campaign's row blocks over the same workers through
+the ``batch_blocks`` op. Not ported yet: the partitioned fleet
+(``router/partition.py``, a graph row-sharded across workers).
 """
 
 from .autoscale import AutoscaleConfig, Autoscaler

@@ -27,6 +27,8 @@ complete, workers drain in turn, exit 0.
 The port routes replicas only: ``--mode partition`` (a graph
 row-sharded across workers) and the worker's partition flags answer
 "not ported yet", as do the serve flags of lanes the port lacks.
+``--factor-format`` (torch-sparse's packed layouts) is forwarded to
+every worker.
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ _FORWARD_VALUE = (
     "dataset", "backend", "metapath", "variant", "loader", "platform",
     "dtype", "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
     "cache_entries", "tile_cache_mb", "headroom", "delta_threshold",
-    "tuning_table", "metrics_interval", "trace_sample",
+    "tuning_table", "metrics_interval", "trace_sample", "factor_format",
     "compact_chain_len", "compact_headroom_frac", "compact_headroom",
     "compact_cooldown",
 )
@@ -332,7 +334,13 @@ def router_main(argv: list[str] | None = None) -> int:
     from ..utils.device import resolve_device
 
     # the workers run on --platform; refuse here, before spawning any,
-    # when it names a card that is not there
+    # when it names a card that is not there (or a layout flag their
+    # backend would refuse)
+    if args.factor_format is not None and args.backend != "torch-sparse":
+        raise ValueError(
+            "--factor-format selects the resident layout of the "
+            "sparse half-chain factor and requires --backend torch-sparse"
+        )
     resolve_device(args.platform)
 
     slo_specs: tuple = ()

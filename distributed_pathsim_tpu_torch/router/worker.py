@@ -28,8 +28,9 @@ Robustness contracts implemented here:
 
 The port serves the exact lane: a ``topk`` with ``"mode": "ann"`` or
 ``"learned"`` answers the same per-request "not ported yet" error as
-``serve``; so do the partition-exchange ops and ``batch_blocks``
-(serving/protocol.py). A ``topk`` naming another closed ``metapath``
+``serve``; so do the partition-exchange ops (serving/protocol.py).
+``batch_blocks`` (a batch campaign's row block, router/batch.py) is
+answered synchronously like the other non-query ops. A ``topk`` naming another closed ``metapath``
 answers through the service's engine for it, as ``serve`` does (the JAX
 package's worker reads no ``metapath`` field on its async ``topk`` path
 and answers the served metapath). The router sends such a request only

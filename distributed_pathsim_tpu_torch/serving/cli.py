@@ -15,7 +15,8 @@ ride the ``--metrics`` JSONL channel; ``--metrics-file`` keeps a
 Prometheus textfile of the live registry, rewritten every
 ``--metrics-interval`` seconds. Per-request metapaths share a sub-chain
 memo (``--memo-budget-mb``, ``--max-metapaths``); background compaction
-runs by default (``--no-compact``, ``--compact-*``). Flags of the JAX
+runs by default (``--no-compact``, ``--compact-*``); ``--factor-format``
+holds torch-sparse's factor packed. Flags of the JAX
 package's ``serve`` that belong to lanes not ported yet are refused by
 name.
 
@@ -37,10 +38,10 @@ from ..ops.pathsim import VARIANTS
 from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
-# does not have yet: the ANN and learned lanes, the sharded backend's
-# device count and compressed factor layouts.
+# does not have yet: the ANN and learned lanes and the sharded backend's
+# device count.
 NOT_PORTED_FLAGS = frozenset({
-    "--n-devices", "--factor-format",
+    "--n-devices",
     "--topk-mode", "--index",
     "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
     "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
@@ -105,6 +106,14 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--approx", action="store_true",
         help="torch / torch-sparse: waive the f32 exact-integer-count guard",
+    )
+    p.add_argument(
+        "--factor-format", default=None,
+        choices=("coo", "blocked", "bitpacked"),
+        help="torch-sparse: resident layout of the half-chain factor "
+        "(ops/packed.py): the compressed layouts hold it in a fraction of "
+        "the COO bytes, bit-identically; default resolves through the "
+        "tuning registry ('coo' when untuned)",
     )
     p.add_argument("--metrics", default=None, help="JSONL metrics/events file")
     p.add_argument(
@@ -234,6 +243,13 @@ def prepare_platform(args) -> str:
             "--tile-rows tunes the streaming tiled path and requires "
             "--backend torch-sparse"
         )
+    if args.factor_format is not None and args.backend != "torch-sparse":
+        # other backends would swallow the option and serve uncompressed
+        # without a word
+        raise ValueError(
+            "--factor-format selects the resident layout of the "
+            "sparse half-chain factor and requires --backend torch-sparse"
+        )
     from ..ops import cuda_kernels
     from ..utils.device import resolve_device
 
@@ -253,6 +269,7 @@ def run_config(args, platform: str) -> RunConfig:
         dtype=args.dtype,
         tile_rows=args.tile_rows,
         approx=args.approx,
+        factor_format=args.factor_format,
         headroom=args.headroom,
         loader=args.loader,
         tuning_table=args.tuning_table,

@@ -32,7 +32,8 @@ Requests::
 Not ported yet, each answered with a per-request error that says so
 (never a silent exact answer, never a process exit): ``topk``'s
 ``"mode": "ann"`` / ``"learned"``, and the ops ``refresh_index``,
-``refresh_towers``, ``batch_blocks`` and the partition-exchange ops.
+``refresh_towers`` and the partition-exchange ops. ``batch_blocks``
+answers one row block of a batch campaign (router/batch.py).
 
 A ``metapath`` field on ``topk`` or ``scores`` answers through that
 closed metapath's engine (built on first use, bounded by
@@ -99,13 +100,13 @@ _QUERY_KEYS = ("source", "source_id", "row")
 # handled by serve_loop itself).
 PROTOCOL_OPS = frozenset({
     "ping", "stats", "metrics", "health", "invalidate", "topk",
-    "update", "scores", "trace", "compact",
+    "update", "scores", "trace", "compact", "batch_blocks",
 })
 
 # Ops of the JAX package's protocol whose lanes are not ported yet: each
 # answers a per-request "not ported yet" error.
 NOT_PORTED_OPS = frozenset({
-    "refresh_index", "refresh_towers", "batch_blocks",
+    "refresh_index", "refresh_towers",
     "resolve", "part_info", "set_colsum", "tile_pull", "partial_topk",
     "partial_scores", "part_update",
 })
@@ -276,6 +277,14 @@ def _dispatch_op(
                 row, metapath=req.get("metapath")
             ).tolist(),
         }
+    if op == "batch_blocks":
+        # one batch-campaign row block (router/batch.py's scheduler):
+        # answered through the same backend calls the oracle parity
+        # tests pin, fenced on the campaign's (base_fp, delta_seq)
+        handler = getattr(service, "batch_blocks", None)
+        if handler is None:
+            raise KeyError("op 'batch_blocks' requires a replica service")
+        return handler(req)
     if op in NOT_PORTED_OPS:
         raise NotPorted(f"op {op!r} is not ported yet")
     raise KeyError(f"unknown op {op!r}")

@@ -29,8 +29,9 @@ compaction (``serving/compact.py``) re-encodes the graph with fresh
 capacity headroom off the serving path and hot-swaps it with the
 consistency token and both cache tiers intact.
 
-The port serves the EXACT lane of the JAX package's service. Its ANN
-and learned lanes and the router batch op are not ported yet.
+The port serves the EXACT lane of the JAX package's service, and the
+batch tier's ``batch_blocks`` op. Its ANN and learned lanes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -762,6 +763,68 @@ class PathSimService:
         the same base graph and therefore serve bit-identical answers.
         A router fences a replica whose token lags the broadcast head."""
         return (self._base_fp, self._delta_seq)
+
+    def batch_blocks(self, req: dict) -> dict:
+        """One batch-campaign block, served off the replica's backend.
+
+        The campaign scheduler (router/batch.py) fans row blocks
+        ``[lo, hi)`` here. ``topk`` mode answers through
+        ``backend.topk_rows`` — the SAME call the oracle parity tests
+        pin — so fleet shards are bit-identical to single-host shards
+        by construction; ``simjoin`` mode filters the exact score rows
+        at ``tau`` (strictly-upper triangle, the block's share of the
+        join). The request's ``(base_fp, delta_seq)`` is the
+        campaign's graph identity: a mismatch against this replica's
+        consistency token refuses loudly ("stale batch campaign") so a
+        delta landing mid-campaign can never mix graph versions into
+        one manifest."""
+        want_fp = req.get("base_fp")
+        if want_fp is not None:
+            want = (str(want_fp), int(req.get("delta_seq", 0)))
+            if want != self.consistency_token:
+                raise ValueError(
+                    "stale batch campaign: request pinned graph "
+                    f"{want}, replica serves {self.consistency_token}"
+                )
+        want_mp = req.get("metapath")
+        if want_mp is not None and str(want_mp) != self.metapath.name:
+            # same fence as the token: a campaign over a different
+            # metapath must never mix into this replica's answers
+            raise ValueError(
+                f"stale batch campaign: request metapath {want_mp!r}, "
+                f"replica serves {self.metapath.name!r}"
+            )
+        lo = int(req.get("lo", 0))
+        hi = min(int(req.get("hi", 0)), self.n)
+        mode = str(req.get("mode", "topk"))
+        variant = str(req.get("variant", self.variant))
+        if hi <= lo:
+            # an empty range is a valid (if useless) block — the
+            # protocol echo test drives every op with no fields
+            return {"lo": lo, "hi": hi, "vals": [], "idxs": []}
+        rows = np.arange(lo, hi, dtype=np.int64)
+        backend = self.backend  # one backend for the block across a swap
+        if mode == "topk":
+            k = int(req.get("k", self.config.k_default))
+            vals, idxs = backend.topk_rows(
+                rows, min(k, max(self.n - 1, 1)), variant=variant
+            )
+            return {
+                "lo": lo, "hi": hi,
+                "vals": vals.tolist(), "idxs": idxs.tolist(),
+            }
+        if mode == "simjoin":
+            tau = float(req.get("tau", 0.5))
+            scores = backend.scores_rows(rows, variant=variant)
+            keep = scores >= tau
+            keep &= rows[:, None] < np.arange(scores.shape[1])[None, :]
+            bi, gj = np.nonzero(keep)
+            return {
+                "lo": lo, "hi": hi,
+                "rows": rows[bi].tolist(), "cols": gj.tolist(),
+                "scores": scores[bi, gj].tolist(),
+            }
+        raise ValueError(f"unknown batch_blocks mode {mode!r}")
 
     def health(self) -> dict:
         """The heartbeat payload: O(1) liveness + the load signals a

@@ -9,19 +9,21 @@ registered here only where the port has its decision point today:
 
 - ``plan_density_cutover`` / ``plan_dp_max_len``: ops/planner.py;
 - ``sparse_tile_rows`` / ``sparse_nnz_floor`` / ``factor_format``:
-  backends/torch_sparse.py (the port holds COO factors only, so
-  ``factor_format`` has the one ``coo`` arm);
+  backends/torch_sparse.py (``factor_format``'s arms: ``coo``,
+  ``blocked``, ``bitpacked``, ops/packed.py);
 - ``serve_buckets``: serving/service.py;
 - ``plan_memo_budget_mb``: the serving sub-chain memo
   (ops/planner.py ``default_memo_budget_bytes``);
 - ``compact_chain_len`` / ``compact_headroom``: background compaction
-  (serving/compact.py).
+  (serving/compact.py);
+- ``batch_block_rows``: the batch campaigns' sweep block height
+  (batch/campaign.py).
 
 The JAX package's Pallas tile and variant knobs (``scores_variant``,
 ``scores_tile``, ``topk_rowtile``, ``k_tile``, ``ring_kernel``) have no
 port arm: an "xla" arm would put a kernel's plain version on the card's
 path, and the CUDA kernels' own configuration knobs come with the
-autotuner. The ANN, learned and batch knobs come with their modules.
+autotuner. The ANN and learned knobs come with their modules.
 
 Every knob is **bit-invisible by construction**: choices only move work
 between tilings that share the exact integer-count + f64-normalize
@@ -93,10 +95,26 @@ KNOBS: dict[str, Knob] = {
         ),
         Knob(
             name="factor_format",
-            doc="resident layout of the sparse half-chain factor. The "
-            "port holds COO only (24 B/nnz); the JAX package's blocked "
-            "and bitpacked layouts are not ported yet.",
-            candidates=lambda ctx: ["coo"],
+            doc="resident layout of the sparse half-chain factor "
+            "(ops/packed.py): 'coo' (24 B/nnz, zero transform cost), "
+            "'blocked' (chunked CSR, hub-first permuted narrow-dtype "
+            "columns + narrow integer counts), 'bitpacked' (blocked plus "
+            "per-block fixed-width bit-packing of delta-encoded column "
+            "ids). Trades decode time per tile/patch for resident bytes. "
+            "Bit-invisible: every accessor returns original ids and "
+            "exact f64 integers.",
+            candidates=lambda ctx: ["coo", "blocked", "bitpacked"],
+        ),
+        Knob(
+            name="batch_block_rows",
+            doc="batch-campaign sweep block height (batch/campaign.py): "
+            "rows decoded + GEMM'd per block of a topk-all / simjoin "
+            "sweep. Taller blocks amortize the resident Cᵀ operand over "
+            "more rows but coarsen the checkpoint/preemption granularity "
+            "and the simjoin prune intervals. Snapped to the pow-2 "
+            "ladder, so every block of a campaign has one shape. "
+            "Bit-invisible: counts are exact integers in f64.",
+            candidates=lambda ctx: [128, 256, 512, 1024],
         ),
         Knob(
             name="compact_chain_len",

@@ -103,6 +103,22 @@ class CheckpointManager:
         names = self._done[key]
         return {name: np.load(self.dir / fname) for name, fname in names.items()}
 
+    def drop_unit(self, key: str) -> None:
+        """Forget a unit: remove it from the manifest first (so a crash
+        mid-drop leaves at worst orphaned .npy files, never a manifest
+        entry pointing at deleted data), then best-effort unlink."""
+        names = self._done.pop(key, None)
+        if names is None:
+            return
+        _atomic_write_text(
+            self._manifest_path, json.dumps(self._done, indent=0, sort_keys=True)
+        )
+        for fname in names.values():
+            try:
+                (self.dir / fname).unlink()
+            except OSError:
+                pass
+
 
 def _safe(key: str) -> str:
     return "".join(c if c.isalnum() or c in "-_." else "_" for c in key)

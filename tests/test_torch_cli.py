@@ -68,7 +68,8 @@ def test_ranking_out_needs_all_sources_mode(gexf, tmp_path, capsys):
                        "3", "--source", "author_1", "--ranking-out",
                        str(tmp_path / "r.tsv")]) == 1
     assert "ALL sources" in capsys.readouterr().err
+    # the packed layouts need the streaming backend
     assert torch_main(["--dataset", gexf, "--platform", "cpu", "--backend",
-                       "torch-sparse", "--factor-format", "blocked",
+                       "torch", "--factor-format", "blocked",
                        "--top-k", "3"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    assert "requires --backend torch-sparse" in capsys.readouterr().err

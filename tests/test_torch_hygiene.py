@@ -1,7 +1,9 @@
 """Port hygiene: the PyTorch port imports neither JAX nor the JAX
 package, and it never carries on quietly on the host — without a CUDA
 device its entry points raise unless the CPU is asked for. The
-compaction hot-swap is reached only through the service's doorway."""
+compaction hot-swap is reached only through the service's doorway, the
+packed layout only through its sanctioned factory, the batch sweeps
+only through the campaign runners."""
 
 import json
 import pkgutil
@@ -87,12 +89,70 @@ def test_compaction_swap_only_through_the_service_doorway():
     assert root / "serving" / "compact.py" in reached
 
 
+def test_packed_layout_and_batch_sweeps_stay_behind_their_doorways():
+    """The packed layout's private coordinate system (``PACKED_SURFACE``
+    attributes, the chunk codec) is named only in ``ops/packed.py``, and
+    every other module calls only the ``SANCTIONED_FACTORY`` functions of
+    it — a module reading ``.chunks`` would take permuted-space ids for
+    graph columns. The block-sweep primitives of ``BATCH_SURFACE`` are
+    named only by the campaign runners (batch/campaign.py,
+    batch/simjoin.py): anywhere else their results would belong to no
+    manifest. (The JAX package's analyzer checks these as CF001 and
+    BT001.)"""
+    import ast
+    import pathlib
+
+    from distributed_pathsim_tpu_torch.batch.campaign import BATCH_SURFACE
+    from distributed_pathsim_tpu_torch.ops.packed import (
+        PACKED_SURFACE,
+        SANCTIONED_FACTORY,
+    )
+
+    root = pathlib.Path(port.__file__).parent
+    packed_py = root / "ops" / "packed.py"
+    runners = {root / "batch" / "campaign.py", root / "batch" / "simjoin.py"}
+    private = {"_Chunk", "_pack_chunk", "_decode_chunk", "PackedFactor",
+               "_pack_bit_blocks", "_unpack_bit_blocks"}
+    public = SANCTIONED_FACTORY | {"FACTOR_FORMATS", "PACKED_SURFACE"}
+    packed_users, batch_users = set(), set()
+    for path in sorted(root.rglob("*.py")):
+        aliases = set()
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and (
+                    node.module is None or node.module.endswith("ops")):
+                aliases |= {a.asname or a.name for a in node.names
+                            if a.name == "packed"}
+            if isinstance(node, ast.ImportFrom) and node.module and \
+                    node.module.endswith("packed"):
+                bad = {a.name for a in node.names} - public
+                assert path == packed_py or not bad, (path, bad)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Attribute):
+                continue
+            if node.attr in BATCH_SURFACE:
+                batch_users.add(path)
+            if path == packed_py:
+                continue
+            assert node.attr not in PACKED_SURFACE | private, (
+                path, node.lineno, node.attr)
+            if isinstance(node.value, ast.Name) and node.value.id in aliases:
+                packed_users.add(path)
+                assert node.attr in public, (path, node.lineno, node.attr)
+    assert {root / "backends" / "torch_sparse.py", root / "ops" / "sparse.py",
+            root / "batch" / "campaign.py"} <= packed_users
+    assert batch_users <= runners and root / "batch" / "simjoin.py" in \
+        batch_users, batch_users
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     names = _port_modules()
     for mod in ("ops.cuda_kernels", "native.build", "native.gexf_native",
                 "native.coo_native", "tuning.dispatch", "tuning.registry",
                 "tuning.table", "models.multipath", "bench",
-                "resilience.degrade"):
+                "resilience.degrade", "ops.packed", "data.compress",
+                "batch.campaign", "batch.simjoin", "batch.pairs", "batch.cli",
+                "router.batch", "index.mips"):
         assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"

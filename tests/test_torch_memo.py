@@ -191,9 +191,13 @@ def test_budget_knob_and_format_equal_jax(fresh_tuning):
             jplan.default_memo_budget_bytes(n) == 64 << 20
     assert (tuning.KNOBS["plan_memo_budget_mb"].candidates({})
             == jtuning.KNOBS["plan_memo_budget_mb"].candidates({}))
-    # the packed entry layouts are not ported: refused by name
-    with pytest.raises(ValueError, match="ROADMAP A.3"):
-        planner.SubchainCache(1 << 20, factor_format="blocked")
+    # packed entry layouts are held (tests/test_torch_packed_sparse.py);
+    # an unknown one is refused by name
+    assert planner.SubchainCache(1 << 20,
+                                 factor_format="blocked").factor_format \
+        == "blocked"
+    with pytest.raises(ValueError, match="unknown factor format"):
+        planner.SubchainCache(1 << 20, factor_format="csr")
 
 
 @pytest.mark.parametrize("name", ["numpy", "torch", "torch-sparse"])

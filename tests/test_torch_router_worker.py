@@ -5,8 +5,8 @@
   ``drained`` event last) and it exits 0.
 - Without a card and without ``--platform cpu``, ``worker`` and
   ``router`` exit 1 with "no CUDA device"; the lanes and modes that come
-  later (partition mode, batch campaigns, the serve flags ``serve``
-  refuses) exit 1 "not ported yet".
+  later (partition mode, the serve flags ``serve`` refuses) exit 1 "not
+  ported yet"; ``--factor-format`` without torch-sparse is refused.
 - ``dpathsim-torch router --workers 2 --platform cpu`` answers a JSONL
   script of topk, scores, update, health and drain, and its topk,
   scores and update answers equal the JAX package's ``dpathsim router``
@@ -78,12 +78,15 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         ["worker", "--topk-mode", "ann"],
         ["router", "--mode", "partition"],
         ["router", "--replication", "2"],
-        ["router", "--factor-format", "bitpacked"],
-        ["batch", "topk-all"],
     ):
         assert torch_main([*argv, "--dataset", SPEC,
                            "--platform", "cpu"]) == 1, argv
         assert "not ported yet" in capsys.readouterr().err, argv
+    for cmd in ("worker", "router"):
+        assert torch_main([cmd, "--factor-format", "bitpacked", "--dataset",
+                           SPEC, "--platform", "cpu"]) == 1, cmd
+        assert "requires --backend torch-sparse" in \
+            capsys.readouterr().err, cmd
 
 
 def _run_router(module, backend_flags, script):

@@ -1,9 +1,9 @@
 """Port parity: the JSONL protocol. One script through both packages'
 ``serve_loop`` (same graph, CPU): every response equal apart from timing
 fields and the backend's name, and each validated against the checked-in
-wire contract ``artifacts/wire_schema.json`` — per-request metapaths
-and the ``compact`` op included. Requests for lanes the port has not
-ported get a per-request "not ported yet" error. Then the
+wire contract ``artifacts/wire_schema.json`` — per-request metapaths,
+the ``compact`` op and ``batch_blocks`` included. Requests for lanes the
+port has not ported get a per-request "not ported yet" error. Then the
 ``dpathsim-torch serve`` subprocess on the CPU, and its refusals: no card
 without ``--platform cpu``, and JAX-only flags by name."""
 
@@ -67,6 +67,9 @@ def _script(hin):
         {"id": 26, "op": "compact"},
         {"id": 27, "op": "topk", "row": 5, "k": 4},
         {"id": 28, "op": "topk", "row": 5, "k": 4, "metapath": "APA"},
+        {"id": 29, "op": "batch_blocks", "lo": 0, "hi": 4, "k": 3},
+        {"id": 30, "op": "batch_blocks", "lo": 2, "hi": 9, "mode": "simjoin",
+         "tau": 0.05},
         {"id": 11, "op": "health"},
         {"id": 12, "op": "stats"},
         {"id": 13, "op": "metrics"},
@@ -87,7 +90,6 @@ NOT_PORTED = [
     {"id": 102, "op": "topk", "row": 1, "mode": "learned"},
     {"id": 105, "op": "refresh_index"},
     {"id": 106, "op": "refresh_towers"},
-    {"id": 108, "op": "batch_blocks", "lo": 0, "hi": 4},
     {"id": 109, "op": "partial_topk"},
 ]
 
@@ -241,9 +243,13 @@ def test_serve_refuses_without_a_card_and_unported_flags(
     err = capsys.readouterr().err
     assert "no CUDA device is available" in err and "--platform cpu" in err
     for flag in (["--topk-mode", "ann"], ["--learned-checkpoint", "t.npz"],
-                 ["--index=idx.npz"], ["--factor-format", "blocked"]):
+                 ["--index=idx.npz"]):
         assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
                            *flag]) == 1
         assert "not ported yet" in capsys.readouterr().err, flag
+    # the packed layouts are served by torch-sparse only
+    assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
+                       "--factor-format", "blocked"]) == 1
+    assert "requires --backend torch-sparse" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         torch_main(["serve", "--dataset", gexf, "--bogus-flag"])

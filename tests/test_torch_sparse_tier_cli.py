@@ -95,11 +95,18 @@ def test_flag_validation_messages(gexf, tmp_path, capsys, extra, message):
 
 
 def test_packed_factor_formats_are_not_ported():
+    """The name dates from before the packed layouts were ported: they
+    now build (tests/test_torch_packed_sparse.py holds them against the
+    JAX package); a format name neither package knows is refused, and so
+    is an asymmetric metapath."""
     hin = synthetic_hin(40, 60, 4, seed=2)
     mp = compile_metapath("APVPA", hin.schema)
-    with pytest.raises(NotImplementedError, match="ops/packed.py"):
-        create_backend("torch-sparse", hin, mp, device="cpu",
+    b = create_backend("torch-sparse", hin, mp, device="cpu",
                        factor_format="bitpacked")
+    assert b.factor_info()["format"] == "bitpacked"
+    with pytest.raises(ValueError, match="unknown factor_format"):
+        create_backend("torch-sparse", hin, mp, device="cpu",
+                       factor_format="csr")
     with pytest.raises(ValueError, match="symmetric"):
         create_backend("torch-sparse", hin,
                        compile_metapath("APV", hin.schema), device="cpu")

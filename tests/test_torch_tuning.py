@@ -58,6 +58,13 @@ def test_sites_resolve_the_jax_defaults_untuned():
     assert tb._tile_rows_req == jb._tile_rows_req == 4096
     assert tb._nnz_floor_req == jb._nnz_floor_req == 1
     assert tb._factor_format == "coo"
+    # the packed layouts' arms and the batch tier's block height: the JAX
+    # package's keys and candidates
+    for knob in ("factor_format", "batch_block_rows"):
+        assert tuning.KNOBS[knob].candidates({}) == \
+            jtuning.KNOBS[knob].candidates({})
+        assert tuning.make_key(knob, "cpu", n=130) == jtuning.make_key(
+            knob, "cpu", n=130)
     assert tuning.resolve_ladder("pow2", 32) == jtuning.resolve_ladder(
         "pow2", 32)
     assert tuning.resolve_ladder("coarse", 40) == jtuning.resolve_ladder(
