@@ -133,6 +133,29 @@ nonzero and no result line is printed):
    ``dpathsim_batch_score_backend_total`` on the card arm only; 0
    compiles; its launches are ``launches_packed_sym_batch`` in the
    kernels line;
+6c. multi-device and partition mode: ``torch-sharded`` at the bench
+   shape with D = 1, 2, 4 and 8 shards on the one card, values and
+   indices equal to K1's ``backend.topk`` on both variants, D² K3
+   launches a run (no fold), each D's wall time and K3's CUDA-event time
+   over its steps (one card: the rotation moves no bytes, so nothing
+   here measures NVLink); all-pairs at 8192 authors through the
+   allgather and the ring strategies, M exact and its f32 scores equal
+   to K2's; the CLI with ``--backend torch-sharded --n-devices 4``: the
+   single-source log equal to ``--backend torch``'s outside the ``***``
+   lines and the ranking cmp-identical, a child SIGTERMed mid-ring with
+   ``--checkpoint-dir`` (exit 75) and the resume launching K3 only for
+   the steps left, the ensemble ``--n-devices 4`` equal to the host
+   ensemble (indices to a stable sort of the combined scores), a
+   one-process rendezvous (``--coordinator-address``, ``--num-processes
+   1``, ``--process-id 0``); a partition fleet of four port partition
+   workers on the card (replication 2) behind an in-process
+   ``PartitionRouter``: 32 clients x 64 ``topk`` (k = 10) with one worker
+   SIGKILLed after a quarter of the answers, 0 lost and every answer
+   equal to the host f64 oracle, one routed update (64 author_of edges
+   added, 16 removed; a delta appending 8 authors is refused, as the JAX
+   package refuses it) and the affected rows against the new oracle,
+   QPS, p50/p95/p99 and update ms, worker compiles unchanged; its
+   launches are ``launches_sharded_partition`` in the kernels line;
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -3289,6 +3312,422 @@ def batch_vs_k1(np, vals, idxs, dense_backend):
           "differ only inside f32 ties of distinct f64 scores")
 
 
+# -- multi-device and partition mode -------------------------------------------
+
+
+# The ring: torch-sharded with D shards, all on the one card; the CLI runs
+# use SHARD_CLI_DEVICES of them; the partition fleet is PART_WORKERS port
+# partition workers on the card (replication PART_REPLICATION) over the
+# bench graph without headroom (partition mode routes edge deltas only).
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_CLI_DEVICES = 4
+PART_WORKERS, PART_REPLICATION = 4, 2
+PART_SPEC = ROUTER_SPEC
+
+
+def sharded_partition(torch, ck, np, workdir, card, hin, hin_ap, dense):
+    """Multi-device and partition mode on the card: the ring at the bench
+    shape with D = 1, 2, 4, 8 shards against K1, the two all-pairs
+    strategies against K2, the CLI (logs, SIGTERM resume, the ensemble, a
+    one-process rendezvous) and a partition fleet. Returns the launches
+    of its runs per kernel."""
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        compiles_total,
+    )
+
+    launches = {name: 0 for name in ck.LAUNCHES}
+    compiles0 = compiles_total()
+    sharded_ring(torch, ck, np, launches, card, hin, dense)
+    sharded_allpairs(torch, ck, np, launches, card, hin_ap)
+    sharded_cli(torch, ck, np, launches, workdir, card, hin, hin_ap)
+    partition_fleet(np, card)
+    if compiles_total() != compiles0:
+        raise AssertionError(f"the phase compiled or loaded a kernel: "
+                             f"{compiles0} -> {compiles_total()}")
+    print(f"phase compiles: {compiles0}, unchanged (every kernel was built "
+          "and loaded before it)")
+    return launches
+
+
+def sharded_ring(torch, ck, np, launches, card, hin, dense):
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    phase(f"torch-sharded ring at {N_AUTHORS}x{N_PAPERS}x{N_VENUES} "
+          f"k={TOP_K}: D = {SHARD_COUNTS} shards on the one card against K1")
+    mp = compile_metapath("APVPA", hin.schema)
+    want = {var: dense.topk(k=TOP_K, variant=var)
+            for var in ("rowsum", "diagonal")}
+    for n_dev in SHARD_COUNTS:
+        b = create_backend("torch-sharded", hin, mp, device="cuda",
+                           n_devices=n_dev)
+        for var, (wv, wi) in want.items():
+            (gv, gi), counts, dt = counted(
+                torch, ck, launches, lambda: b.topk(k=TOP_K, variant=var),
+                f"ring D={n_dev} {var}")
+            if counts["topk_rect_candidates"] != n_dev * n_dev or sum(
+                    counts.values()) != n_dev * n_dev:
+                raise AssertionError(f"ring D={n_dev}: launches {counts}, "
+                                     f"want {n_dev * n_dev} of K3 alone")
+            if not (np.array_equal(gv, wv) and np.array_equal(gi, wi)):
+                raise AssertionError(f"ring D={n_dev} {var} differs from K1")
+        walls = wall_s(torch, lambda: b.topk(k=TOP_K), reps=3)
+        k3 = ring_k3_ms(torch, ck, b)
+        print(f"ring D={n_dev}: values and indices equal to K1's on both "
+              f"variants; {n_dev * n_dev} K3 launches a run; wall "
+              f"{statistics.median(walls) * 1e3:.3f} ms median of 3 (min "
+              f"{min(walls) * 1e3:.3f}); K3 over its {n_dev * n_dev} steps "
+              f"{k3:.3f} ms (CUDA events, median of 7); one card, so the "
+              f"rotation moves no bytes: nothing here measures NVLink "
+              f"({card})")
+        del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ring_k3_ms(torch, ck, b):
+    """K3 alone over the D² (shard, step) tiles of ``b``'s ring: the
+    launches the ring makes, timed between CUDA events (not counted)."""
+    from distributed_pathsim_tpu_torch.parallel.sharded import (
+        sharded_ring_state,
+    )
+
+    c, d = sharded_ring_state(b._first, (), mesh=b.mesh)
+    lim = b._shard_limbs(True)
+    n_loc = c[0].shape[0]
+    own = torch.arange(n_loc, dtype=torch.int32, device="cuda")
+    peer = torch.full((n_loc,), -1, dtype=torch.int32, device="cuda")
+    n_dev = len(c)
+
+    def run():
+        for s in range(n_dev):
+            for o in range(n_dev):
+                ck.topk_rect_candidates(
+                    c[s], c[o], d[s], d[o], own if o == s else peer, TOP_K,
+                    n_true_cols=n_loc, limbs=(lim[s], lim[o]))
+
+    return time_ms(torch, run)
+
+
+def sharded_allpairs(torch, ck, np, launches, card, hin_ap):
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    phase(f"torch-sharded all-pairs at {N_AUTHORS_ALL_PAIRS} authors: "
+          "allgather and ring against K2")
+    mp = compile_metapath("APVPA", hin_ap.schema)
+    c, d = factor(hin_ap, "APVPA", torch.device("cuda"))
+    k2 = ck.fused_scores(c, d)
+    m_exact = c.double() @ c.double().T
+    for strategy in ("allgather", "ring"):
+        b = create_backend("torch-sharded", hin_ap, mp, device="cuda",
+                           n_devices=SHARD_CLI_DEVICES,
+                           allpairs_strategy=strategy)
+        (m, gw), counts, dt = counted(
+            torch, ck, launches,
+            lambda: (b.commuting_matrix(), b.global_walks()),
+            f"all-pairs {strategy}")
+        mt = torch.as_tensor(m, device="cuda")
+        if not torch.equal(mt, m_exact) or not np.array_equal(
+                gw, d.double().cpu().numpy()):
+            raise AssertionError(f"all-pairs {strategy}: M or row sums "
+                                 "differ from the exact product")
+        den = d[:, None] + d[None, :]
+        s = torch.where(den > 0, (2.0 * mt.float()) / den, 0.0)
+        if not torch.equal(s, k2):
+            raise AssertionError(f"all-pairs {strategy}: scores differ "
+                                 "from K2's")
+        print(f"all-pairs {strategy} over {SHARD_CLI_DEVICES} shards: M "
+              f"exact, its f32 scores equal to K2's; {dt:.3f} s with the "
+              f"host fetch of M ({card})")
+        del b, mt, s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_cli(torch, ck, np, launches, workdir, card, hin, hin_ap):
+    import os
+    import signal
+    import socket
+
+    from distributed_pathsim_tpu_torch.cli import main as cli_main
+    from distributed_pathsim_tpu_torch.models.multipath import (
+        MultiMetapathScorer,
+    )
+
+    phase(f"torch-sharded through the CLI (--n-devices "
+          f"{SHARD_CLI_DEVICES}): logs, SIGTERM resume, the ensemble, a "
+          "one-process rendezvous")
+
+    def run_cli(argv, label):
+        rc, counts, dt = counted(torch, ck, launches,
+                                 lambda: cli_main(argv), label)
+        if rc != 0:
+            raise AssertionError(f"{label}: CLI exited {rc}")
+        return counts, dt
+
+    gexf = str(workdir / "bench.gexf")
+    sharded = ["--dataset", gexf, "--platform", "cuda", "--quiet",
+               "--backend", "torch-sharded", "--n-devices",
+               str(SHARD_CLI_DEVICES)]
+    ids = hin.indices["author"].ids
+    log = workdir / "sharded.log"
+    run_cli(sharded + ["--source", ids[7], "--output", str(log)],
+            "single source, torch-sharded")
+    if grammar(log) != grammar(workdir / "single.log"):
+        raise AssertionError("the torch-sharded log differs from torch's")
+    ranking = workdir / "ranking_sharded.tsv"
+    counts, dt = run_cli(sharded + ["--top-k", str(TOP_K), "--ranking-out",
+                                    str(ranking)], "rank-all torch-sharded")
+    if counts["topk_rect_candidates"] != SHARD_CLI_DEVICES ** 2:
+        raise AssertionError(f"rank-all torch-sharded launches {counts}")
+    if not filecmp.cmp(ranking, workdir / "ranking.tsv", shallow=False):
+        raise AssertionError("the torch-sharded ranking differs from "
+                             "torch's")
+    print("torch-sharded CLI: the single-source log equal to --backend "
+          "torch's outside the *** lines, the rank-all TSV cmp-identical, "
+          f"{SHARD_CLI_DEVICES ** 2} K3 launches ({dt:.2f} s)")
+
+    # SIGTERM mid-ring (half a second of injected delay a step), exit 75,
+    # resume from the last ring step's snapshot
+    ck_dir = workdir / "ring_ckpt"
+    resumed = workdir / "ring_resumed.tsv"
+    sweep = sharded + ["--top-k", str(TOP_K), "--checkpoint-dir",
+                       str(ck_dir), "--ranking-out", str(resumed)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", *sweep],
+        cwd=str(HERE), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env={**os.environ,
+                        "PATHSIM_FAULT_PLAN": "tile_execute:delay:100:0.5"})
+    manifest = ck_dir / "manifest.json"
+    try:
+        deadline = time.time() + 240
+        while time.time() < deadline and proc.poll() is None:
+            if manifest.exists() and "ring_bests_after_1" in json.loads(
+                    manifest.read_text()):
+                break
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    snaps = [k for k in json.loads(manifest.read_text())
+             if k.startswith("ring_bests_after_")]
+    if proc.returncode != 75 or len(snaps) != 1:
+        raise AssertionError(f"SIGTERM mid-ring: rc {proc.returncode}, "
+                             f"snapshots {snaps}; {err[-600:]}")
+    after = int(snaps[0].rsplit("_", 1)[1])
+    if after >= SHARD_CLI_DEVICES - 1:
+        raise AssertionError(f"the ring finished before the signal: {snaps}")
+    counts, _ = run_cli(sweep, "resume after SIGTERM")
+    want = (SHARD_CLI_DEVICES - 1 - after) * SHARD_CLI_DEVICES
+    if counts["topk_rect_candidates"] != want:
+        raise AssertionError(f"the resumed ring launched K3 "
+                             f"{counts['topk_rect_candidates']} times, want "
+                             f"{want}")
+    if not filecmp.cmp(resumed, workdir / "ranking.tsv", shallow=False):
+        raise AssertionError("the resumed ring's ranking differs")
+    print(f"SIGTERM mid-ring: exit 75 with {snaps[0]}; the resume ran "
+          f"{want} K3 launches (steps {after + 1}..{SHARD_CLI_DEVICES - 1}) "
+          "and wrote a TSV cmp-identical to --backend torch's")
+
+    # the ensemble's all-sources ranking, sharded and not
+    gexf_ap = str(workdir / "allpairs.gexf")
+    ens = ["--dataset", gexf_ap, "--platform", "cuda", "--metapath",
+           "APVPA,APA", "--weights", "0.7,0.3", "--top-k", str(TOP_K),
+           "--quiet"]
+    _, dt_sh = run_cli(ens + ["--n-devices", str(SHARD_CLI_DEVICES)],
+                       "ensemble --n-devices")
+    _, dt_host = run_cli(ens, "ensemble (host top-k)")
+    scorer = MultiMetapathScorer(hin_ap, ["APVPA", "APA"], device="cuda")
+    w = [0.7, 0.3]
+    sv, si = scorer.topk_sharded(k=TOP_K, weights=w,
+                                 n_devices=SHARD_CLI_DEVICES)
+    hv, hi = scorer.topk(k=TOP_K, weights=w)
+    comb = torch.as_tensor(scorer.combined_scores(w), device="cuda")
+    comb.fill_diagonal_(float("-inf"))
+    ov, oi = torch.sort(comb, dim=1, descending=True, stable=True)
+    ov = ov[:, :TOP_K].double().cpu().numpy()
+    oi = oi[:, :TOP_K].cpu().numpy()
+    if not (np.array_equal(sv, hv) and np.array_equal(sv, ov)
+            and np.array_equal(si, oi)):
+        raise AssertionError("the sharded ensemble ranking differs")
+    del comb, scorer
+    print(f"ensemble --n-devices {SHARD_CLI_DEVICES} ({dt_sh:.2f} s) and "
+          f"host top-k ({dt_host:.2f} s) at {N_AUTHORS_ALL_PAIRS} authors: "
+          "equal values; the sharded indices equal a stable sort of the "
+          f"combined scores ({int((si != hi).sum())} index slots where the "
+          "host argpartition breaks a tie otherwise)")
+
+    # one-process rendezvous (NCCL and gloo, world size 1)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    rz = workdir / "ranking_rendezvous.tsv"
+    run_cli(["--dataset", gexf, "--platform", "cuda", "--quiet",
+             "--backend", "torch-sharded", "--coordinator-address",
+             f"127.0.0.1:{port}", "--num-processes", "1", "--process-id",
+             "0", "--top-k", str(TOP_K), "--ranking-out", str(rz)],
+            "one-process rendezvous")
+    if not filecmp.cmp(rz, workdir / "ranking.tsv", shallow=False):
+        raise AssertionError("the rendezvous run's ranking differs")
+    print("one-process rendezvous (--coordinator-address, --num-processes "
+          "1, --process-id 0): ranking cmp-identical")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def edge_records(np, hin, rng):
+    """A routed edge delta: UPDATE_ADDS new author_of edges between
+    existing authors and papers, UPDATE_REMOVES existing ones removed."""
+    blk = hin.blocks["author_of"]
+    a_ids = hin.indices["author"].ids
+    p_ids = hin.indices["paper"].ids
+    n_a, n_p = hin.type_size("author"), hin.type_size("paper")
+    existing = set(zip(blk.rows.tolist(), blk.cols.tolist()))
+    rem = rng.choice(blk.nnz, UPDATE_REMOVES, replace=False)
+    adds = []
+    while len(adds) < UPDATE_ADDS:
+        e = (int(rng.integers(0, n_a)), int(rng.integers(0, n_p)))
+        if e not in existing:
+            existing.add(e)
+            adds.append({"rel": "author_of", "src": a_ids[e[0]],
+                         "dst": p_ids[e[1]]})
+    return {"add_edges": adds,
+            "remove_edges": [{"rel": "author_of", "src_row": int(blk.rows[i]),
+                              "dst_row": int(blk.cols[i])} for i in rem]}
+
+
+def partition_fleet(np, card):
+    """PART_WORKERS port partition workers on the card behind an
+    in-process PartitionRouter: a load with one worker SIGKILLed, one
+    routed edge delta, the refusal of node appends, compile counts."""
+    import threading
+
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.router import (
+        PartitionRouter,
+        PartitionRouterConfig,
+        SubprocessTransport,
+    )
+    from distributed_pathsim_tpu_torch.router.cli import (
+        _worker_argv,
+        build_worker_hin,
+        parse_router_args,
+    )
+    from distributed_pathsim_tpu_torch.router.loadgen import (
+        run_router_clients,
+    )
+
+    phase(f"partition fleet on the card: {PART_WORKERS} workers, "
+          f"replication {PART_REPLICATION}, {PART_SPEC}, {SERVE_CLIENTS} "
+          f"clients x {SERVE_PER_CLIENT} topk k={TOP_K}")
+    args = parse_router_args([
+        "--mode", "partition", "--workers", str(PART_WORKERS),
+        "--replication", str(PART_REPLICATION), "--dataset", PART_SPEC,
+        "--platform", "cuda", "--headroom", "0", "--k", str(TOP_K)])
+    transports = {
+        f"w{i}": SubprocessTransport(f"w{i}",
+                                     _worker_argv(args, i, partition=True))
+        for i in range(PART_WORKERS)}
+    router = PartitionRouter(transports, PartitionRouterConfig(
+        partitions=PART_WORKERS, replication=PART_REPLICATION,
+        ready_timeout_s=600))
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        print(f"partition worker start ({PART_WORKERS} processes at once, "
+              f"graph build, slice, colsum exchange): "
+              f"{time.perf_counter() - t0:.3f} s ({card})")
+        compiles0 = {wid: router.worker_health(wid)["compiles"]
+                     for wid in transports}
+        hin = build_worker_hin(PART_SPEC, 0.0)
+        mp = compile_metapath("APVPA", hin.schema)
+        oracle, _ = f64_topk(np, hin, mp)
+        n = hin.type_size("author")
+        rng = np.random.default_rng(SEED + 5)
+        rows = rng.integers(0, n, (SERVE_CLIENTS, SERVE_PER_CLIENT))
+
+        reset_router_metrics(router)
+        ok_cell = router._m_requests.labels(outcome="ok")
+        started, killed = threading.Event(), {}
+
+        def killer():
+            started.wait()
+            while ok_cell.get() < rows.size // 4:
+                time.sleep(0.001)
+            killed["at"] = int(ok_cell.get())
+            transports["w1"].kill()
+
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        started.set()
+        res = run_router_clients(router, rows.tolist(), TOP_K)
+        kt.join(timeout=60)
+        if "at" not in killed:
+            raise AssertionError("the kill never happened")
+        qps = router_histogram(router, card, f"partition fleet load, w1 "
+                               f"SIGKILLed after {killed['at']} answers",
+                               res["queries"], res["wall_s"])
+        if res["lost"] or res["queries"] != rows.size:
+            raise AssertionError(f"partition fleet lost {res['lost']}: "
+                                 f"{res['errors']}")
+        check_routed(np, res["answers"], oracle, hin, TOP_K,
+                     "partition fleet load")
+        status = {wid: w.status for wid, w in router.workers.items()}
+        if status.get("w1") != "down" or list(status.values()).count(
+                "up") != PART_WORKERS - 1:
+            raise AssertionError(f"worker states after the kill: {status}")
+        print(f"partition fleet: 0 lost, {res['failover_affected']} answers "
+              f"re-dispatched after the kill, {qps:.1f} QPS ({card})")
+
+        recs = update_records(np, hin, np.random.default_rng(SEED + 7),
+                              "part_new")
+        refused = router.request({"id": 1, "op": "update", **recs},
+                                 timeout=600)
+        if refused["ok"] or "edge deltas only" not in refused["error"]:
+            raise AssertionError(f"node appends: {refused}")
+        edges = edge_records(np, hin, np.random.default_rng(SEED + 7))
+        t0 = time.perf_counter()
+        resp = router.request({"id": 2, "op": "update", **edges},
+                              timeout=600)
+        update_ms = (time.perf_counter() - t0) * 1e3
+        if not resp["ok"] or "w1" in resp["result"]["sealed"]:
+            raise AssertionError(f"partition update: {resp}")
+        print(f"routed update ({len(edges['add_edges'])} edges added, "
+              f"{len(edges['remove_edges'])} removed; the "
+              f"{UPDATE_APPENDS} appended authors refused as the JAX "
+              f"package refuses them): sealed on "
+              f"{resp['result']['sealed']}, "
+              f"{resp['result']['re_encoded_rows']} rows re-encoded, "
+              f"{update_ms:.3f} ms from submit to the last ack ({card})")
+        plan = tdl.plan_delta(hin, tdl.delta_from_records(hin, **edges), mp)
+        new_oracle, _ = f64_topk(np, plan.hin_new, mp)
+        probe = np.unique(np.concatenate([
+            plan.affected_rows[:512], rows[0, :64]]))
+        res = run_router_clients(
+            router, [p.tolist() for p in np.array_split(probe,
+                                                        SERVE_CLIENTS)],
+            TOP_K)
+        if res["lost"]:
+            raise AssertionError(f"after the update lost {res['lost']}")
+        check_routed(np, res["answers"], new_oracle, plan.hin_new, TOP_K,
+                     "affected rows after the routed update")
+        live = [wid for wid in transports if wid != "w1"]
+        compiles1 = {wid: router.worker_health(wid)["compiles"]
+                     for wid in live}
+        if any(compiles1[wid] != compiles0[wid] for wid in live):
+            raise AssertionError(f"worker compiles moved: {compiles0} -> "
+                                 f"{compiles1}")
+        print(f"partition worker compiles {compiles1}: unchanged")
+    finally:
+        router.close()
+
+
 def square_bounds(lim, n, v, out_bytes):
     """A square kernel's least times on this factor: at the int8 tensor
     cores, the limb products of the N(N+1)/2 pairs of the symmetric S (2 v
@@ -3527,12 +3966,15 @@ def main() -> int:
         pk_launches = packed_sym_batch(torch, ck, np, pathlib.Path(tmp), smi,
                                        hin, backend, c5)
         del c5
+        sp_launches = sharded_partition(torch, ck, np, pathlib.Path(tmp),
+                                        smi, hin, hin_ap, backend)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
         kern["launches_batch_cli"] = cli_launches[kern["name"]]
         kern["launches_serving_rest"] = sr_launches[kern["name"]]
         kern["launches_packed_sym_batch"] = pk_launches[kern["name"]]
+        kern["launches_sharded_partition"] = sp_launches[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

@@ -13,8 +13,9 @@ serves the two primitives the reference's algorithm layer is built from
 plus all-pairs conveniences. The ``--backend`` flag routes through
 :func:`get_backend` / :func:`create_backend`. Registered here: ``torch``
 (the dense device backend, ``torch_dense.py``), ``torch-sparse`` (the
-streaming row-tiled device backend, ``torch_sparse.py``) and ``numpy``
-(the host f64 oracle).
+streaming row-tiled device backend, ``torch_sparse.py``),
+``torch-sharded`` (the row-sharded multi-device backend,
+``torch_sharded.py``) and ``numpy`` (the host f64 oracle).
 """
 
 from __future__ import annotations
@@ -230,7 +231,8 @@ def register_backend(name: str):
 
 def get_backend(name: str) -> Callable[..., PathSimBackend]:
     # Import side-effect registration for the built-ins on first use.
-    from . import numpy_backend, torch_dense, torch_sparse  # noqa: F401
+    from . import (  # noqa: F401
+        numpy_backend, torch_dense, torch_sharded, torch_sparse)
 
     try:
         return _REGISTRY[name]
@@ -241,7 +243,8 @@ def get_backend(name: str) -> Callable[..., PathSimBackend]:
 
 
 def available_backends() -> list[str]:
-    from . import numpy_backend, torch_dense, torch_sparse  # noqa: F401
+    from . import (  # noqa: F401
+        numpy_backend, torch_dense, torch_sharded, torch_sparse)
 
     return sorted(_REGISTRY)
 

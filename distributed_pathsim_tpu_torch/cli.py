@@ -44,7 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=available_backends(),
         help="execution backend: torch (the dense device path), "
         "torch-sparse (the streaming row-tiled device path, for graphs "
-        "whose score matrix cannot exist) or numpy (the host f64 oracle)",
+        "whose score matrix cannot exist), torch-sharded (the chain "
+        "row-sharded over --n-devices shards, ring top-k) or numpy (the "
+        "host f64 oracle)",
     )
     p.add_argument(
         "--metapath",
@@ -113,6 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", type=int, default=0, help="print top-k similar nodes")
     p.add_argument("--all-pairs", action="store_true", help="compute the full score matrix")
     p.add_argument(
+        "--n-devices",
+        type=int,
+        default=None,
+        help="torch-sharded: shards of the row-sharded mesh (several may "
+        "share one card; on the host they are virtual); default one per "
+        "card. With a comma-separated --metapath: shards of the ensemble's "
+        "all-sources ranking",
+    )
+    p.add_argument(
         "--dtype",
         default="float32",
         help="carry dtype of the device backends: float32, or float64 "
@@ -155,8 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--checkpoint-dir",
         default=None,
-        help="torch-sparse: resumable ranking state (completed row tiles "
-        "are skipped on restart; SIGTERM flushes and exits 75)",
+        help="resumable ranking state (torch-sparse: completed row tiles "
+        "are skipped on restart; torch-sharded: mid-ring resume from the "
+        "last checkpointed ring step; SIGTERM flushes and exits 75)",
     )
     p.add_argument(
         "--tuning-table",
@@ -184,33 +196,33 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-degrade",
         action="store_true",
         help="fail fast instead of stepping down the backend chain "
-        "(torch-sparse→torch, and →numpy only with --platform cpu) "
-        "when backend init keeps failing",
+        "(torch-sharded→torch and torch-sparse→torch, and →numpy only "
+        "with --platform cpu) when backend init keeps failing",
+    )
+    p.add_argument(
+        "--coordinator-address",
+        default=None,
+        help="multi-process rendezvous address host:port "
+        "(torch.distributed over tcp://); run the same command in every "
+        "process with its own --process-id",
+    )
+    p.add_argument(
+        "--num-processes",
+        type=int,
+        default=None,
+        help="total processes in the multi-process job",
+    )
+    p.add_argument(
+        "--process-id",
+        type=int,
+        default=None,
+        help="this process's rank in the multi-process job",
     )
     return p
 
 
-# Flags of the JAX package's batch CLI that need several devices or
-# hosts: refused by name until the port's multi-device support lands.
-NOT_PORTED_FLAGS = frozenset({
-    "--n-devices", "--coordinator-address", "--num-processes",
-    "--process-id",
-})
-
-
 def parse_args(argv: list[str]):
-    parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    for token in rest:
-        flag = token.split("=", 1)[0]
-        if flag in NOT_PORTED_FLAGS:
-            raise ValueError(
-                f"{flag} is not ported yet: it waits for the port's "
-                "multi-device support"
-            )
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
+    return build_parser().parse_args(argv)
 
 
 # ``serve``: one warm service on stdin/stdout; ``worker``: one replica
@@ -260,6 +272,7 @@ def main(argv: list[str] | None = None) -> int:
     installed = preemption_handler.install()
     try:
         args = parse_args(argv)
+        _init_multihost(args)  # before any device work or the profiler
         from .utils.profiling import device_trace
 
         with device_trace(args.profile_dir):
@@ -277,6 +290,9 @@ def main(argv: list[str] | None = None) -> int:
         if installed:
             preemption_handler.uninstall()
             preemption_handler.reset()
+        from .parallel.multihost import shutdown_multihost
+
+        shutdown_multihost()
 
 
 _USER_ERRORS = (KeyError, ValueError, OverflowError, FileNotFoundError,
@@ -290,6 +306,65 @@ def _platform(args) -> str:
     if platform == "cuda":
         cuda_kernels.true_f32()
     return platform
+
+
+def _init_multihost(args) -> None:
+    """The ``torch.distributed`` rendezvous, the product path onto a
+    multi-process mesh. With no flags it is a no-op (or joins the job
+    torchrun's environment names), so the same command works on one
+    machine and in every process of a job. Processes other than 0 are
+    muted: the same command runs everywhere, so a shared ``--output``,
+    ``--metrics`` or ``--ranking-out`` path is written once."""
+    if (
+        args.num_processes is not None or args.process_id is not None
+    ) and args.coordinator_address is None:
+        raise ValueError(
+            "--num-processes/--process-id require --coordinator-address"
+        )
+    from .parallel.multihost import (
+        _CLUSTER_ENV_VARS,
+        initialize_multihost,
+        process_index,
+    )
+
+    rendezvous_requested = args.coordinator_address is not None or all(
+        v in os.environ for v in _CLUSTER_ENV_VARS
+    )
+    if "," in args.metapath and rendezvous_requested:
+        # refuse BEFORE the rendezvous: the ensemble scorer runs in one
+        # process, so a job would run N identical copies
+        raise ValueError(
+            "multi-metapath mode does not support multi-process "
+            "rendezvous (--coordinator-address or torchrun's MASTER_ADDR/"
+            "WORLD_SIZE/RANK); it always runs the batched one-process "
+            "scorer"
+        )
+    if rendezvous_requested and args.backend != "torch-sharded":
+        # no other backend is job-aware: N processes would each run the
+        # whole computation and interleave appends into shared paths
+        raise ValueError(
+            f"backend {args.backend!r} is single-process; multi-process "
+            "rendezvous requires --backend torch-sharded"
+        )
+    if rendezvous_requested:
+        resolve_device(args.platform)  # no card and no --platform cpu
+    multi = initialize_multihost(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        platform=args.platform,
+    )
+    if multi and args.backend != "torch-sharded":
+        # a job joined by a launcher before main()
+        raise ValueError(
+            f"backend {args.backend!r} is single-process; this is a "
+            "multi-process job: use --backend torch-sharded"
+        )
+    if multi and process_index() != 0:
+        args.output = None
+        args.metrics = None
+        args.ranking_out = None
+        args.quiet = True
 
 
 def _run(args) -> int:
@@ -327,6 +402,11 @@ def _run(args) -> int:
             "--factor-format selects the resident layout of the "
             "sparse half-chain factor and requires --backend torch-sparse"
         )
+    if args.n_devices is not None and args.backend != "torch-sharded":
+        raise ValueError(
+            "--n-devices sets the shards of the row-sharded mesh and "
+            "requires --backend torch-sharded"
+        )
     if args.approx and args.backend not in ("torch", "torch-sparse"):
         raise ValueError(
             "--approx waives the f32 exact-count guard of the device "
@@ -344,6 +424,7 @@ def _run(args) -> int:
         metrics=args.metrics,
         all_pairs=args.all_pairs,
         top_k=args.top_k,
+        n_devices=args.n_devices,
         dtype=args.dtype,
         loader=args.loader,
         platform=platform,
@@ -499,6 +580,15 @@ def _run_multipath(args) -> int:
             f"multi-metapath mode does not support {', '.join(bad)} "
             "(it always runs the batched torch scorer)"
         )
+    if args.n_devices is not None and not (
+        args.top_k and not (args.source or args.source_id)
+    ):
+        # never silently ignored: in this mode only the all-sources
+        # ranking is sharded
+        raise ValueError(
+            "--n-devices in multi-metapath mode applies to the "
+            "all-sources ranking (--top-k without --source)"
+        )
     platform = _platform(args)
     hin = load_dataset(
         args.dataset,
@@ -536,11 +626,20 @@ def _run_multipath(args) -> int:
             print(f"  {v:.6f}  {labels[j]} ({hin.indices[node_type].ids[j]})")
         ran = True
     if args.top_k and not (args.source or args.source_id):
-        # All-sources ensemble ranking: the host argpartition arm.
-        vals, idxs = scorer.topk(k=args.top_k, weights=weights)
+        # All-sources ensemble ranking: sharded over a dp mesh with
+        # --n-devices (MultiMetapathScorer.topk_sharded), the host
+        # argpartition arm otherwise.
+        if args.n_devices is not None:
+            vals, idxs = scorer.topk_sharded(
+                k=args.top_k, weights=weights, n_devices=args.n_devices
+            )
+            how = f"sharded over {args.n_devices} devices"
+        else:
+            vals, idxs = scorer.topk(k=args.top_k, weights=weights)
+            how = "host"
         print(
             f"Ranked top-{vals.shape[1]} for all {vals.shape[0]} sources "
-            f"(combined {scorer.names}, host)"
+            f"(combined {scorer.names}, {how})"
         )
         ran = True
     if args.all_pairs:

@@ -22,6 +22,7 @@ class RunConfig:
     metrics: str | None = None  # JSONL metrics path
     all_pairs: bool = False
     top_k: int = 0
+    n_devices: int | None = None  # torch-sharded: shards of the mesh
     loader: str = "auto"  # GEXF loader: auto | python | native
     platform: str = "cuda"  # device of the device backends: cuda | cpu
     tile_rows: int | None = None  # torch-sparse: rows per streaming tile

@@ -10,9 +10,9 @@ block, which is small for DBLP-shaped HINs), and the worker can compute
 its slice of any pairwise row ``M[s, :]`` from the source's factor row
 ``C[s, :]`` alone — a V-length tile that travels on the wire.
 
-In the port, :class:`PartitionMap` is the geometry the replica router's
-range policy routes by (router/hashring.py); the slicing helpers wait
-for the partitioned fleet, which is not ported yet.
+:class:`PartitionMap` is the geometry the replica router's range policy
+routes by (router/hashring.py) and the partitioned fleet holds its
+slices by (serving/partition.py, router/partition.py).
 
 Three pieces:
 

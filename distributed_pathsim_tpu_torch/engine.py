@@ -194,12 +194,12 @@ def backend_options(config: RunConfig) -> dict:
     """Backend constructor kwargs from a RunConfig — shared by the
     bootstrap above and the serving layer's delta-fallback rebuild,
     which must replay the SAME knobs. The device backends (torch,
-    torch-sparse) take the device named by ``platform`` and ``approx``
+    torch-sparse, torch-sharded) take the device named by ``platform`` and ``approx``
     as ``exact_counts=False``; torch-sparse takes ``tile_rows`` and
     ``factor_format``. The numpy oracle runs on the host whatever the
-    platform. ``dtype`` names a numpy dtype for numpy and a torch dtype
-    otherwise."""
-    if config.backend not in ("torch", "torch-sparse"):
+    platform. ``torch-sharded`` takes ``n_devices``. ``dtype`` names a
+    numpy dtype for numpy and a torch dtype otherwise."""
+    if config.backend not in ("torch", "torch-sparse", "torch-sharded"):
         if config.dtype:
             return {"dtype": np.dtype(config.dtype)}
         return {}
@@ -208,6 +208,8 @@ def backend_options(config: RunConfig) -> dict:
         options["dtype"] = _torch_dtype(config.dtype)
     if config.approx:
         options["exact_counts"] = False
+    if config.backend == "torch-sharded" and config.n_devices is not None:
+        options["n_devices"] = config.n_devices
     if config.backend == "torch-sparse":
         if config.tile_rows is not None:
             options["tile_rows"] = config.tile_rows

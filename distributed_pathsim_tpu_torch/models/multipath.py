@@ -19,10 +19,10 @@ f32 rounding each (:func:`fma_f32`), which is what the JAX package's
 ``rnm,r->nm`` einsum computes on its CPU (tests/test_torch_multipath.py
 holds the two bit for bit).
 
-The all-sources top-k is the host ``argpartition`` arm (:meth:`topk`);
-the JAX package's device-sharded ``topk_sharded`` waits for the port's
-multi-device support. Single-source answers (:meth:`topk_row`) stream
-from the sparse factors in exact f64 on the host.
+The all-sources top-k is the host ``argpartition`` arm (:meth:`topk`),
+or row-sharded over a mesh (:meth:`topk_sharded`, ``--n-devices``).
+Single-source answers (:meth:`topk_row`) stream from the sparse factors
+in exact f64 on the host.
 """
 
 from __future__ import annotations
@@ -57,6 +57,62 @@ def fma_f32(acc: torch.Tensor, s: torch.Tensor, w: float) -> torch.Tensor:
                          torch.full_like(hi, float("-inf")))
     hi = torch.where((lo != 0) & even, torch.nextafter(hi, toward), hi)
     return hi.float()
+
+
+def _sharded_combined_topk(factors, weights, mesh, k: int, n_true: int,
+                           variant: str = "rowsum"):
+    """Distributed weighted multi-path top-k: every path's factor [N_pad,
+    V_r] is row-sharded over the mesh; each shard scores its row block of
+    all R paths against the gathered factors, combines them with the
+    ensemble weights (the fma chain of :func:`fma_f32`, in path order)
+    and reduces to top-k locally. The only collectives are one ``psum``
+    per path (column totals) and the ``all_gather`` of each factor.
+    Returns host (values f32 [N_pad, k], columns int64 [N_pad, k])."""
+    from ..ops.sparse import chunked_row_topk
+    from ..parallel.mesh import all_gather, gather_rows, psum, split_rows
+
+    locs = [split_rows(f, mesh) for f in factors]  # [R][shard] [n_loc, V_r]
+    dens, fulls, dfulls = [], [], []
+    for loc in locs:
+        if variant == "rowsum":
+            colsum = psum([c.sum(0) for c in loc], mesh)
+            d = [c @ cs for c, cs in zip(loc, colsum)]
+        elif variant == "diagonal":  # purely local, no collective
+            d = [(c * c).sum(1) for c in loc]
+        else:
+            raise ValueError(f"unknown PathSim variant {variant!r}")
+        dens.append(d)
+        fulls.append(all_gather(loc, mesh))
+        dfulls.append(all_gather(d, mesh))
+    n_pad = factors[0].shape[0]
+    # rows scored at a time: fma_f32's f64 temporaries stay near 1 GiB
+    step = max(1, MultiMetapathScorer._COMBINE_ENTRIES // max(n_pad, 1))
+    out_v, out_i = [], []
+    for s in range(len(mesh.devices)):
+        n_loc = locs[0][s].shape[0]
+        dev = locs[0][s].device
+        cols = torch.arange(n_pad, device=dev)
+        parts_v, parts_i = [], []
+        for r0 in range(0, n_loc, step):
+            acc = None
+            for r in range(len(factors)):
+                m = locs[r][s][r0:r0 + step] @ fulls[r][s].T
+                denom = (dens[r][s][r0:r0 + step, None]
+                         + dfulls[r][s][None, :])
+                sc = torch.where(denom > 0, (2.0 * m) / torch.where(
+                    denom > 0, denom, 1.0), 0.0)
+                acc = fma_f32(torch.zeros_like(sc) if acc is None else acc,
+                              sc, weights[r])
+            rows = ((mesh.first_shard + s) * n_loc + r0
+                    + torch.arange(acc.shape[0], device=dev))
+            drop = (cols >= n_true)[None, :] | (rows[:, None] == cols[None, :])
+            v, i = chunked_row_topk(acc.masked_fill(drop, float("-inf")),
+                                    cols.expand_as(acc), k)
+            parts_v.append(v)
+            parts_i.append(i)
+        out_v.append(torch.cat(parts_v))
+        out_i.append(torch.cat(parts_i))
+    return gather_rows(out_v, mesh), gather_rows(out_i, mesh)
 
 
 class MultiMetapathScorer:
@@ -279,11 +335,33 @@ class MultiMetapathScorer:
         return (np.concatenate([v for v, _ in blocks]),
                 np.concatenate([i for _, i in blocks]))
 
-    def topk_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the sharded ensemble ranking (--n-devices) waits for the "
-            "port's multi-device support; use topk (one device)"
-        )
+    def topk_sharded(
+        self,
+        k: int = 10,
+        weights: Sequence[float] | None = None,
+        n_devices: int | None = None,
+    ):
+        """Distributed :meth:`topk` over a ``dp`` mesh of ``n_devices``
+        shards of the scorer's device (config-4 batching × config-3
+        sharding): the same values, with ascending-column tie-breaks
+        (:meth:`topk`'s argpartition breaks ties at the k boundary by its
+        own order). The [R, N, N] score tensors never exist: each shard
+        scores only its [n_loc, N] rows of every path
+        (:func:`_sharded_combined_topk`). The exact-count guard runs on
+        the host denominators first."""
+        from ..parallel.mesh import make_mesh, pad_to_multiple
+
+        chain.check_exact_counts(self.global_walks().max(initial=0.0),
+                                 torch.float32)
+        mesh = make_mesh(n_devices, platform=self.device.type)
+        n_pad = pad_to_multiple(self.n, mesh.size)
+        factors = [torch.nn.functional.pad(f, (0, 0, 0, n_pad - self.n))
+                   for f in self._factors()]
+        vals, idxs = _sharded_combined_topk(
+            factors, [float(x) for x in self._resolve_weights(weights)],
+            mesh, k=min(k, self.n - 1), n_true=self.n, variant=self.variant)
+        return (vals.astype(np.float64)[: self.n],
+                idxs.astype(np.int64)[: self.n])
 
     def topk_rows(
         self,

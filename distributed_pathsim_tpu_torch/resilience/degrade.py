@@ -13,11 +13,12 @@ counts in ``dpathsim_degrades_total``; ``--no-degrade`` (or
 
 The chain depends on the platform:
 
-- ``cpu``: ``torch-sparse → torch → numpy``, as the JAX package's
-  ``jax-sparse → jax → numpy``;
-- ``cuda``: ``torch-sparse → torch``, both on the card. A ``torch``
-  backend that keeps failing there raises; it never steps down to the
-  host's numpy oracle.
+- ``cpu``: ``torch-sharded → torch → numpy`` and ``torch-sparse →
+  torch → numpy``, as the JAX package's ``jax-sharded → jax → numpy``
+  and ``jax-sparse → jax → numpy``;
+- ``cuda``: ``torch-sharded → torch`` and ``torch-sparse → torch``, all
+  on the card. A ``torch`` backend that keeps failing there raises; it
+  never steps down to the host's numpy oracle.
 
 Degradation triggers ONLY on the retry policy's transient classes
 (``TransientError``, injected faults, I/O errors): a deterministic
@@ -53,8 +54,9 @@ def record_degrade(component: str) -> None:
 # f64 oracle; the card's chain ends at the dense torch backend, so work
 # asked for on the card stays there.
 BACKEND_DEGRADATION: dict[str, dict[str, str]] = {
-    "cpu": {"torch-sparse": "torch", "torch": "numpy"},
-    "cuda": {"torch-sparse": "torch"},
+    "cpu": {"torch-sharded": "torch", "torch-sparse": "torch",
+            "torch": "numpy"},
+    "cuda": {"torch-sharded": "torch", "torch-sparse": "torch"},
 }
 
 # Options only some backends understand; forwarding them down the chain
@@ -65,8 +67,10 @@ _BACKEND_ONLY_OPTIONS = {
     "factor_format": ("torch-sparse",),
     "dense_c_budget_bytes": ("torch-sparse",),
     "rect_kernel": ("torch-sparse",),
-    "device": ("torch", "torch-sparse"),
-    "exact_counts": ("torch", "torch-sparse"),
+    "n_devices": ("torch-sharded",),
+    "allpairs_strategy": ("torch-sharded",),
+    "device": ("torch", "torch-sparse", "torch-sharded"),
+    "exact_counts": ("torch", "torch-sparse", "torch-sharded"),
 }
 
 

@@ -37,13 +37,16 @@ requests (``flight_dump`` op + SIGTERM drain dump).
 
 The batch-campaign scheduler (:class:`~.batch.BlockScheduler`,
 batch.py) fans a campaign's row blocks over the same workers through
-the ``batch_blocks`` op. Not ported yet: the partitioned fleet
-(``router/partition.py``, a graph row-sharded across workers).
+the ``batch_blocks`` op. :class:`~.partition.PartitionRouter`
+(partition.py) shards ONE graph across the workers instead: each holds
+a row range of the half-chain factor (serving/partition.py), and a
+query scatters over the ranges and merges exactly.
 """
 
 from .autoscale import AutoscaleConfig, Autoscaler
 from .core import Router, RouterConfig, RouterShed
 from .hashring import HashRing, RangeRouter, make_policy
+from .partition import PartitionRouter, PartitionRouterConfig
 from .transport import InprocTransport, SubprocessTransport, WorkerGone
 from .worker import WorkerRuntime, worker_loop
 
@@ -52,6 +55,8 @@ __all__ = [
     "Autoscaler",
     "HashRing",
     "InprocTransport",
+    "PartitionRouter",
+    "PartitionRouterConfig",
     "RangeRouter",
     "Router",
     "RouterConfig",

@@ -24,11 +24,14 @@ for one ``dpathsim-torch serve`` process::
 SIGTERM drains gracefully: new requests are rejected, in-flight ones
 complete, workers drain in turn, exit 0.
 
-The port routes replicas only: ``--mode partition`` (a graph
-row-sharded across workers) and the worker's partition flags answer
-"not ported yet", as do the serve flags of lanes the port lacks.
-``--factor-format`` (torch-sparse's packed layouts) is forwarded to
-every worker.
+``router --mode partition`` shards ONE graph across the workers
+instead (router/partition.py): worker ``w<i>`` runs with
+``--partition-index i --partitions N --partition-replication R`` and
+holds range i plus the next R − 1 ranges of the half-chain factor
+(serving/partition.py); queries scatter over the ranges and merge
+exactly. The serve flags of lanes the port lacks answer "not ported
+yet". ``--factor-format`` is forwarded to every worker (torch-sparse's
+packed layouts; in partition mode the slice's layout).
 """
 
 from __future__ import annotations
@@ -42,13 +45,6 @@ import threading
 from ..utils.logging import runtime_event
 from .core import Router, RouterConfig, RouterShed
 from .transport import SubprocessTransport
-
-# The JAX package's partition-mode flags of ``dpathsim worker``.
-NOT_PORTED_WORKER_FLAGS = frozenset({
-    "--partition-index", "--partitions", "--partition-replication",
-})
-# ``--mode partition`` of ``dpathsim router``: its routing flag.
-NOT_PORTED_ROUTER_FLAGS = frozenset({"--replication"})
 
 
 def _parse_synthetic(spec: str) -> dict:
@@ -88,14 +84,25 @@ def build_worker_parser() -> argparse.ArgumentParser:
     p.add_argument("--worker-id", default="w0",
                    help="replica identity (routing, events, heartbeats); "
                    "must not contain ':'")
+    # partition mode: this worker holds only a row-range slice of the
+    # half-chain factor and serves the partition exchange ops instead of
+    # whole queries
+    p.add_argument("--partition-index", type=int, default=None,
+                   help="partition index this worker owns (enables "
+                   "partition mode; requires --partitions)")
+    p.add_argument("--partitions", type=int, default=None,
+                   help="total partition count of the fleet")
+    p.add_argument("--partition-replication", type=int, default=2,
+                   help="chained replication factor: this worker also "
+                   "mirrors the next R-1 partitions' ranges")
     return p
 
 
 def parse_worker_args(argv: list[str] | None):
     from ..serving.cli import NOT_PORTED_FLAGS, parse_known
 
-    return parse_known(build_worker_parser(), argv,
-                       NOT_PORTED_FLAGS | NOT_PORTED_WORKER_FLAGS, "worker")
+    return parse_known(build_worker_parser(), argv, NOT_PORTED_FLAGS,
+                       "worker")
 
 
 def build_worker_hin(dataset: str, headroom: float):
@@ -108,6 +115,42 @@ def build_worker_hin(dataset: str, headroom: float):
 
     hin = synthetic_hin(**_parse_synthetic(dataset))
     return with_headroom(hin, headroom) if headroom else hin
+
+
+def build_partition_service(args, platform: str):
+    """Partition-flag args → a PartitionService holding only its slice
+    (the full HIN is fingerprinted, sliced and dropped); its window
+    counts run on ``platform``."""
+    from ..engine import USE_NATIVE_BY_LOADER, load_dataset
+    from ..ops.metapath import compile_metapath
+    from ..serving.partition import PartitionConfig, PartitionService
+
+    if args.partitions is None or args.partitions < 1:
+        raise ValueError("--partition-index requires --partitions >= 1")
+    if not 0 <= args.partition_index < args.partitions:
+        raise ValueError(
+            f"--partition-index {args.partition_index} out of range "
+            f"[0, {args.partitions})"
+        )
+    hin = build_worker_hin(args.dataset, args.headroom)
+    if hin is None:
+        from ..data.delta import with_headroom
+
+        hin = load_dataset(args.dataset,
+                           use_native=USE_NATIVE_BY_LOADER[args.loader])
+        if args.headroom:
+            hin = with_headroom(hin, args.headroom)
+    metapath = compile_metapath(args.metapath, hin.schema)
+    return PartitionService(
+        hin, metapath,
+        part_index=args.partition_index,
+        n_parts=args.partitions,
+        replication=args.partition_replication,
+        config=PartitionConfig(
+            variant=args.variant, k_default=args.k,
+            factor_format=args.factor_format, device=platform,
+        ),
+    )
 
 
 def worker_main(argv: list[str] | None = None) -> int:
@@ -126,10 +169,13 @@ def worker_main(argv: list[str] | None = None) -> int:
     platform = prepare_platform(args)  # before any load
     config = run_config(args, platform)
     with serving_process(args) as start_exporter:
-        service = build_service(
-            config, serve_config(args),
-            hin=build_worker_hin(args.dataset, args.headroom),
-        )
+        if args.partition_index is not None:
+            service = build_partition_service(args, platform)
+        else:
+            service = build_service(
+                config, serve_config(args),
+                hin=build_worker_hin(args.dataset, args.headroom),
+            )
         try:
             start_exporter()
             runtime = WorkerRuntime(service, worker_id=args.worker_id)
@@ -148,7 +194,7 @@ def worker_main(argv: list[str] | None = None) -> int:
 # worker child (store-value flags; store-true flags handled below)
 _FORWARD_VALUE = (
     "dataset", "backend", "metapath", "variant", "loader", "platform",
-    "dtype", "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
+    "dtype", "n_devices", "tile_rows", "k", "max_batch", "max_wait_ms", "queue_depth",
     "cache_entries", "tile_cache_mb", "headroom", "delta_threshold",
     "tuning_table", "metrics_interval", "trace_sample", "factor_format",
     "compact_chain_len", "compact_headroom_frac", "compact_headroom",
@@ -180,11 +226,19 @@ def build_router_parser() -> argparse.ArgumentParser:
         "hedging, and delta fencing"
     )
     p.add_argument("--workers", type=int, default=2,
-                   help="worker replica count")
+                   help="worker replica count (replicate mode) / "
+                   "partition count (partition mode)")
     p.add_argument("--mode", default="replicate",
                    choices=("replicate", "partition"),
-                   help="replicate: N full copies of the graph "
-                   "(partition mode is not ported yet)")
+                   help="replicate: N full copies of the graph; "
+                   "partition: ONE graph row-sharded across N workers "
+                   "with the distributed half-chain multiply and an "
+                   "exact global top-k merge")
+    p.add_argument("--replication", type=int, default=2,
+                   help="partition mode: chained replication factor "
+                   "(each worker mirrors the next R-1 partitions' "
+                   "ranges; R>=2 survives a worker's death with zero "
+                   "lost requests)")
     p.add_argument("--routing", default="hash", choices=("hash", "range"),
                    help="replica selection: consistent-hash-by-row "
                    "(cache affinity) or contiguous row ranges")
@@ -248,18 +302,20 @@ def build_router_parser() -> argparse.ArgumentParser:
 def parse_router_args(argv: list[str] | None):
     from ..serving.cli import NOT_PORTED_FLAGS, parse_known
 
-    args = parse_known(build_router_parser(), argv,
-                       NOT_PORTED_FLAGS | NOT_PORTED_ROUTER_FLAGS, "router")
-    if args.mode == "partition":
-        raise ValueError("router --mode partition is not ported yet")
-    return args
+    return parse_known(build_router_parser(), argv, NOT_PORTED_FLAGS,
+                       "router")
 
 
-def _worker_argv(args, index: int) -> list[str]:
+def _worker_argv(args, index: int, partition: bool = False) -> list[str]:
     """The child command line of worker ``w<index>``: the port's own
-    worker entry point, with the router's serving flags."""
+    worker entry point, with the router's serving flags (and, in
+    partition mode, its partition)."""
     argv = [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli",
             "worker", "--worker-id", f"w{index}"]
+    if partition:
+        argv += ["--partition-index", str(index),
+                 "--partitions", str(args.workers),
+                 "--partition-replication", str(args.replication)]
     for name in _FORWARD_VALUE:
         val = getattr(args, name)
         if val is None:
@@ -330,13 +386,17 @@ def router_main(argv: list[str] | None = None) -> int:
     if args.workers < 1:
         raise ValueError("--workers must be >= 1")
     from .. import obs
-    from ..serving.cli import serving_process
     from ..utils.device import resolve_device
 
     # the workers run on --platform; refuse here, before spawning any,
     # when it names a card that is not there (or a layout flag their
     # backend would refuse)
-    if args.factor_format is not None and args.backend != "torch-sparse":
+    partition_mode = args.mode == "partition"
+    if partition_mode and args.autoscale:
+        raise ValueError("--autoscale scales replicas; a partition "
+                         "fleet's shape is its --workers")
+    if (args.factor_format is not None and args.backend != "torch-sparse"
+            and not partition_mode):
         raise ValueError(
             "--factor-format selects the resident layout of the "
             "sparse half-chain factor and requires --backend torch-sparse"
@@ -348,10 +408,39 @@ def router_main(argv: list[str] | None = None) -> int:
         with open(args.slo_specs, encoding="utf-8") as f:
             slo_specs = obs.specs_from_json(f.read())
     transports = {
-        f"w{i}": SubprocessTransport(f"w{i}", _worker_argv(args, i))
+        f"w{i}": SubprocessTransport(
+            f"w{i}", _worker_argv(args, i, partition=partition_mode))
         for i in range(args.workers)
     }
-    router = Router(
+    if partition_mode:
+        from .partition import PartitionRouter, PartitionRouterConfig
+
+        router = PartitionRouter(
+            transports,
+            PartitionRouterConfig(
+                partitions=args.workers,
+                replication=args.replication,
+                heartbeat_interval_s=args.heartbeat_interval,
+                heartbeat_miss_limit=args.heartbeat_miss,
+                max_inflight=args.max_inflight,
+                default_deadline_ms=args.deadline_ms,
+                scrape_interval_s=args.scrape_interval,
+                slo_specs=slo_specs,
+                slow_ms=args.slow_ms,
+                flight_capacity=args.flight_capacity,
+            ),
+        )
+    else:
+        router = _replica_router(args, transports, slo_specs)
+    # drain-time artifacts: written by Router.drain() while the
+    # workers can still answer the final span-ring scrape
+    router.flight_out = args.flight_out
+    router.fleet_trace_out = args.trace_out
+    return _serve_router(args, router)
+
+
+def _replica_router(args, transports, slo_specs) -> Router:
+    return Router(
         transports,
         RouterConfig(
             routing=args.routing,
@@ -372,10 +461,14 @@ def router_main(argv: list[str] | None = None) -> int:
             retain_replay=args.autoscale,
         ),
     )
-    # drain-time artifacts: written by Router.drain() while the
-    # workers can still answer the final span-ring scrape
-    router.flight_out = args.flight_out
-    router.fleet_trace_out = args.trace_out
+
+
+def _serve_router(args, router) -> int:
+    """Run ``router`` (replica or partition) behind the upstream JSONL
+    loop, with the fleet exporter and (replica mode) the autoscaler."""
+    from .. import obs
+    from ..serving.cli import serving_process
+
     # the router's --metrics-file is the FLEET export: every scraped
     # worker's series with a worker label, atomically, plus the full
     # fleet_metrics JSON beside it for `dpathsim-torch fleet-stats`
@@ -415,8 +508,10 @@ def router_main(argv: list[str] | None = None) -> int:
                 exporter.start()
             if autoscaler is not None:
                 autoscaler.start()
+            how = ("partition" if args.mode == "partition"
+                   else f"routing={args.routing}")
             print(
-                f"router: {args.workers} workers, routing={args.routing}, "
+                f"router: {args.workers} workers, {how}, "
                 f"n={router.n}; JSONL on stdin",
                 file=sys.stderr,
             )

@@ -17,7 +17,7 @@ exactly).
   for workloads with strong row locality (range scans, bulk rankings)
   where hashing would scatter a hot band over every replica; also the
   natural shape for a bigger-than-one-host graph split, where a worker
-  *holds* only its range (partition mode, not ported yet).
+  *holds* only its range (partition mode, router/partition.py).
 
 Hashes are sha256 over stable strings — never Python ``hash()``, whose
 per-process randomization would route the same row differently on every

@@ -28,8 +28,8 @@ Robustness contracts implemented here:
 
 The port serves the exact lane: a ``topk`` with ``"mode": "ann"`` or
 ``"learned"`` answers the same per-request "not ported yet" error as
-``serve``; so do the partition-exchange ops (serving/protocol.py).
-``batch_blocks`` (a batch campaign's row block, router/batch.py) is
+``serve``. A partition worker (serving/partition.py) answers the
+partition-exchange ops and refuses whole queries. ``batch_blocks`` (a batch campaign's row block, router/batch.py) is
 answered synchronously like the other non-query ops. A ``topk`` naming another closed ``metapath``
 answers through the service's engine for it, as ``serve`` does (the JAX
 package's worker reads no ``metapath`` field on its async ``topk`` path
@@ -62,9 +62,8 @@ from ..utils.logging import runtime_event
 
 # ops whose effect must apply exactly once across retries — everything
 # else is a deterministic read, safe to repeat anywhere. The partition
-# pair (part_update / set_colsum) is the JAX package's partition-mode
-# vocabulary; the port answers both "not ported yet", and a failed
-# response is never cached.
+# pair (part_update / set_colsum) is the routed delta's two phases; a
+# failed response is never cached.
 MUTATING_OPS = frozenset({
     "update", "invalidate", "part_update", "set_colsum",
 })

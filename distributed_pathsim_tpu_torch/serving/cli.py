@@ -41,7 +41,6 @@ from .service import ServeConfig, build_service
 # does not have yet: the ANN and learned lanes and the sharded backend's
 # device count.
 NOT_PORTED_FLAGS = frozenset({
-    "--n-devices",
     "--topk-mode", "--index",
     "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
     "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
@@ -82,6 +81,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--dtype", default="float32",
                    help="carry dtype of the backend (float32 or float64)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="torch-sharded: shards of the row-sharded mesh")
     p.add_argument(
         "--loader", default="auto", choices=("auto", "python", "native"),
         help="GEXF loader: 'native' requires the C++ parse+encode path, "
@@ -243,9 +244,16 @@ def prepare_platform(args) -> str:
             "--tile-rows tunes the streaming tiled path and requires "
             "--backend torch-sparse"
         )
-    if args.factor_format is not None and args.backend != "torch-sparse":
+    if args.n_devices is not None and args.backend != "torch-sharded":
+        raise ValueError(
+            "--n-devices sets the shards of the row-sharded mesh and "
+            "requires --backend torch-sharded"
+        )
+    if (args.factor_format is not None and args.backend != "torch-sparse"
+            and getattr(args, "partition_index", None) is None):
         # other backends would swallow the option and serve uncompressed
-        # without a word
+        # without a word (a partition worker's slice honors it whatever
+        # --backend says: the slice layout is its own surface)
         raise ValueError(
             "--factor-format selects the resident layout of the "
             "sparse half-chain factor and requires --backend torch-sparse"
@@ -267,6 +275,7 @@ def run_config(args, platform: str) -> RunConfig:
         variant=args.variant,
         platform=platform,
         dtype=args.dtype,
+        n_devices=args.n_devices,
         tile_rows=args.tile_rows,
         approx=args.approx,
         factor_format=args.factor_format,

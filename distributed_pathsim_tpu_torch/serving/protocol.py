@@ -31,9 +31,14 @@ Requests::
 
 Not ported yet, each answered with a per-request error that says so
 (never a silent exact answer, never a process exit): ``topk``'s
-``"mode": "ann"`` / ``"learned"``, and the ops ``refresh_index``,
-``refresh_towers`` and the partition-exchange ops. ``batch_blocks``
-answers one row block of a batch campaign (router/batch.py).
+``"mode": "ann"`` / ``"learned"``, and the ops ``refresh_index`` and
+``refresh_towers``. ``batch_blocks`` answers one row block of a batch
+campaign (router/batch.py). The partition-exchange ops (``resolve``,
+``part_info``, ``set_colsum``, ``tile_pull``, ``partial_topk``,
+``partial_scores``, ``part_update``) are served by partition workers
+(serving/partition.py) behind ``dpathsim-torch router --mode
+partition``; a replica answers them (but ``resolve``) with a clean
+per-request error.
 
 A ``metapath`` field on ``topk`` or ``scores`` answers through that
 closed metapath's engine (built on first use, bounded by
@@ -101,15 +106,21 @@ _QUERY_KEYS = ("source", "source_id", "row")
 PROTOCOL_OPS = frozenset({
     "ping", "stats", "metrics", "health", "invalidate", "topk",
     "update", "scores", "trace", "compact", "batch_blocks",
+    # partition-mode exchange ops: served by PartitionService workers
+    # behind `dpathsim-torch router --mode partition`; on a replica
+    # service they fail as clean per-request errors. part_update /
+    # set_colsum are MUTATING_OPS in the worker runtime, so routed-delta
+    # retries dedup by request_id.
+    "resolve", "part_info", "set_colsum", "tile_pull", "partial_topk",
+    "partial_scores", "part_update",
 })
 
 # Ops of the JAX package's protocol whose lanes are not ported yet: each
 # answers a per-request "not ported yet" error.
-NOT_PORTED_OPS = frozenset({
-    "refresh_index", "refresh_towers",
-    "resolve", "part_info", "set_colsum", "tile_pull", "partial_topk",
-    "partial_scores", "part_update",
-})
+NOT_PORTED_OPS = frozenset({"refresh_index", "refresh_towers"})
+
+_PARTITION_OPS = ("part_info", "set_colsum", "tile_pull", "partial_topk",
+                  "partial_scores", "part_update")
 
 # topk answer modes of the JAX package; the port serves "exact" only.
 _NOT_PORTED_MODES = ("ann", "learned")
@@ -283,11 +294,39 @@ def _dispatch_op(
         # tests pin, fenced on the campaign's (base_fp, delta_seq)
         handler = getattr(service, "batch_blocks", None)
         if handler is None:
-            raise KeyError("op 'batch_blocks' requires a replica service")
+            raise KeyError(
+                "op 'batch_blocks' requires a replica service "
+                "(partition workers serve partial_* ops only)"
+            )
         return handler(req)
+    if op == "resolve":
+        # label/id → global dense row; any worker answers (partition
+        # workers keep FULL index spaces — only edges are sliced)
+        return {
+            "row": service.resolve(
+                source=req.get("source"),
+                source_id=req.get("source_id"),
+                row=req.get("row"),
+            )
+        }
+    if op in _PARTITION_OPS:
+        return _partition_op(service, op, req)
     if op in NOT_PORTED_OPS:
         raise NotPorted(f"op {op!r} is not ported yet")
     raise KeyError(f"unknown op {op!r}")
+
+
+def _partition_op(service, op: str, req: dict):
+    """Partition-exchange dispatch: a clean per-request error on a
+    replica service (the op vocabulary is shared; the capability is
+    not)."""
+    handler = getattr(service, op, None)
+    if handler is None:
+        raise KeyError(
+            f"op {op!r} requires a partition worker "
+            "(dpathsim-torch worker --partition-index ...)"
+        )
+    return handler(req)
 
 
 def handle_request(service: PathSimService, req: dict) -> dict:
@@ -326,6 +365,10 @@ def handle_request(service: PathSimService, req: dict) -> dict:
         error_cell.inc()
         msg = exc.args[0] if exc.args else repr(exc)
         resp = {"id": rid, "ok": False, "error": str(msg)}
+        if getattr(exc, "transient", False):
+            # e.g. a partition worker mid colsum-exchange: the router
+            # should retry/fence, not surface a hard failure
+            resp["transient"] = True
         if isinstance(exc, DeadlineExceeded) or (
             deadline is not None and deadline.expired
         ):

@@ -182,10 +182,14 @@ def choose(
     nnz: int | None = None,
     dtype: str = "float32",
     default: Any | Callable[[], Any] = None,
+    valid: Callable[[Any], bool] | None = None,
 ) -> Any:
     """Resolve one knob for one shape. ``default`` is the caller's own
     heuristic (value or thunk) — returned verbatim on any miss, so an
-    untuned process behaves exactly as it did before this subsystem."""
+    untuned process behaves exactly as it did before this subsystem.
+    ``valid``: the caller's test of a tuned choice; one it refuses (a JAX
+    table's arm that would put a plain version on the card) counts as a
+    ``fallback`` lookup and the default is returned."""
     if knob not in KNOBS:
         raise KeyError(f"unknown tuning knob {knob!r}; see tuning.registry")
 
@@ -200,14 +204,18 @@ def choose(
     key = make_key(knob, device_kind(), n=n, v=v, nnz=nnz, dtype=str(dtype))
     ent = table.lookup(key)
     if ent is not None:
-        _count(knob, "hit")
-        return _decode(ent.choice)
-    near = table.nearest(key)
-    if near is not None:
-        _count(knob, "nearest")
-        return _decode(near[0].choice)
-    _count(knob, "default")
-    return _default()
+        choice, result = _decode(ent.choice), "hit"
+    else:
+        near = table.nearest(key)
+        if near is None:
+            _count(knob, "default")
+            return _default()
+        choice, result = _decode(near[0].choice), "nearest"
+    if valid is not None and not valid(choice):
+        _count(knob, "fallback")
+        return _default()
+    _count(knob, result)
+    return choice
 
 
 def _decode(choice: Any) -> Any:

@@ -17,12 +17,17 @@ registered here only where the port has its decision point today:
 - ``compact_chain_len`` / ``compact_headroom``: background compaction
   (serving/compact.py);
 - ``batch_block_rows``: the batch campaigns' sweep block height
-  (batch/campaign.py).
+  (batch/campaign.py);
+- ``ring_kernel``: the sharded ring step (parallel/sharded.py
+  ``resolve_ring_kernel``). Its one arm is ``rect-cuda`` (K3): the torch
+  fold is a plain version and runs only where K3 rejects the shape, so a
+  table's other arm on a K3-feasible shape (the JAX ``jnp-fold``) counts
+  as a ``fallback`` lookup.
 
-The JAX package's Pallas tile and variant knobs (``scores_variant``,
-``scores_tile``, ``topk_rowtile``, ``k_tile``, ``ring_kernel``) have no
-port arm: an "xla" arm would put a kernel's plain version on the card's
-path, and the CUDA kernels' own configuration knobs come with the
+The JAX package's other Pallas tile and variant knobs
+(``scores_variant``, ``scores_tile``, ``topk_rowtile``, ``k_tile``)
+have no port arm: an "xla" arm would put a kernel's plain version on the
+card's path, and the CUDA kernels' own configuration knobs come with the
 autotuner. The ANN and learned knobs come with their modules.
 
 Every knob is **bit-invisible by construction**: choices only move work
@@ -136,6 +141,15 @@ KNOBS: dict[str, Knob] = {
             "Results bit-identical by the padding invariant "
             "(data/delta.py with_headroom).",
             candidates=lambda ctx: [0.25, 0.5, 1.0],
+        ),
+        Knob(
+            name="ring_kernel",
+            doc="sharded ring-step score-and-extract: K3 (the rect "
+            "two-pass kernel) wherever it takes the shape; the torch "
+            "fold (bit-identical tie breaks) runs only where K3 rejects "
+            "it (k >= 16) and on the host, whatever a table says "
+            "(parallel/ring.ring_topk_step).",
+            candidates=lambda ctx: ["rect-cuda"],
         ),
         Knob(
             name="serve_buckets",

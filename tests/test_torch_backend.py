@@ -18,7 +18,8 @@ def graphs():
 
 
 def test_registry():
-    assert available_backends() == ["numpy", "torch", "torch-sparse"]
+    assert available_backends() == ["numpy", "torch", "torch-sharded",
+                                    "torch-sparse"]
 
 
 @pytest.mark.parametrize("spec", ["APVPA", "APA", "APTPA"])

@@ -184,6 +184,7 @@ def test_error_probes_identical(gexf, capsys):
         ["--factor-format", "coo", "--top-k", "3"],
         ["--tile-rows", "64", "--top-k", "3"],
         ["--dtype", "float64", "--explain-plan", "--metapath", "APXPA"],
+        ["--num-processes", "2", "--top-k", "3"],
     ]
     for extra in probes:
         (rc_j, _, err_j), (rc_t, _, err_t) = run_both_clis(gexf, extra,
@@ -192,11 +193,15 @@ def test_error_probes_identical(gexf, capsys):
         last_t = err_t.splitlines()[-1]
         assert last_t.startswith("error: "), extra
         assert last_t == _norm(err_j.splitlines()[-1]), extra
-    # the port's own refusals: multi-device flags; the packed layouts
-    # run (tests/test_torch_packed_sparse.py)
+    # --n-devices runs with the sharded backend and is refused beside any
+    # other (the JAX CLI ignores it there); the packed layouts run
+    # (tests/test_torch_packed_sparse.py)
     assert torch_main(["--dataset", gexf, "--platform", "cpu",
                        "--n-devices", "2", "--top-k", "3"]) == 1
-    assert "multi-device support" in capsys.readouterr().err
+    assert "requires --backend torch-sharded" in capsys.readouterr().err
+    assert torch_main(["--dataset", gexf, "--platform", "cpu", "--backend",
+                       "torch-sharded", "--n-devices", "2", "--top-k", "3",
+                       "--quiet"]) == 0
     assert torch_main(["--dataset", gexf, "--platform", "cpu", "--backend",
                        "torch-sparse", "--factor-format", "bitpacked",
                        "--top-k", "3", "--quiet"]) == 0

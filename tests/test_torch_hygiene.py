@@ -3,7 +3,8 @@ package, and it never carries on quietly on the host — without a CUDA
 device its entry points raise unless the CPU is asked for. The
 compaction hot-swap is reached only through the service's doorway, the
 packed layout only through its sanctioned factory, the batch sweeps
-only through the campaign runners."""
+only through the campaign runners, a partition's factor slice only
+through the partition exchange."""
 
 import json
 import pkgutil
@@ -97,8 +98,9 @@ def test_packed_layout_and_batch_sweeps_stay_behind_their_doorways():
     graph columns. The block-sweep primitives of ``BATCH_SURFACE`` are
     named only by the campaign runners (batch/campaign.py,
     batch/simjoin.py): anywhere else their results would belong to no
-    manifest. (The JAX package's analyzer checks these as CF001 and
-    BT001.)"""
+    manifest. A partition's ``FACTOR_SURFACE`` is named only by
+    backends/partition_factors.py and serving/partition.py. (The JAX
+    package's analyzer checks these as CF001, BT001 and PT001.)"""
     import ast
     import pathlib
 
@@ -143,6 +145,19 @@ def test_packed_layout_and_batch_sweeps_stay_behind_their_doorways():
             root / "batch" / "campaign.py"} <= packed_users
     assert batch_users <= runners and root / "batch" / "simjoin.py" in \
         batch_users, batch_users
+    # a partition worker's raw held-row state (FACTOR_SURFACE, the JAX
+    # analyzer's PT001) is named only by the slice's module and the
+    # partition exchange layer
+    from distributed_pathsim_tpu_torch.backends.partition_factors import (
+        FACTOR_SURFACE,
+    )
+
+    slice_users = {path for path in sorted(root.rglob("*.py"))
+                   for node in ast.walk(ast.parse(path.read_text()))
+                   if isinstance(node, ast.Attribute)
+                   and node.attr in FACTOR_SURFACE}
+    assert slice_users == {root / "backends" / "partition_factors.py",
+                           root / "serving" / "partition.py"}, slice_users
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -152,7 +167,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "tuning.table", "models.multipath", "bench",
                 "resilience.degrade", "ops.packed", "data.compress",
                 "batch.campaign", "batch.simjoin", "batch.pairs", "batch.cli",
-                "router.batch", "index.mips"):
+                "router.batch", "index.mips", "parallel.mesh",
+                "parallel.ring", "parallel.sharded", "parallel.tiling",
+                "parallel.multihost", "backends.torch_sharded",
+                "backends.partition_factors", "serving.partition",
+                "router.partition"):
         assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"
@@ -201,6 +220,20 @@ def test_backend_refuses_without_cuda_unless_cpu(no_cuda):
     b = create_backend("torch", hin, mp, device="cpu")
     assert b.device == torch.device("cpu")
     assert b.topk(k=3)[0].shape == (30, 3)
+    # the sharded backend and a partition worker refuse the same way
+    from distributed_pathsim_tpu_torch.serving.partition import (
+        PartitionConfig,
+        PartitionService,
+    )
+
+    with pytest.raises(DeviceUnavailable):
+        create_backend("torch-sharded", hin, mp, n_devices=2)
+    with pytest.raises(DeviceUnavailable):
+        PartitionService(hin, mp, 0, 2)
+    sb = create_backend("torch-sharded", hin, mp, n_devices=2, device="cpu")
+    assert sb.mesh.devices == (torch.device("cpu"),) * 2
+    assert PartitionService(hin, mp, 0, 2, config=PartitionConfig(
+        device="cpu")).backend.name == "partition[cpu]"
 
 
 def test_cli_refuses_without_cuda_unless_cpu(no_cuda, gexf, capsys):
@@ -208,6 +241,11 @@ def test_cli_refuses_without_cuda_unless_cpu(no_cuda, gexf, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     assert torch_main(["--dataset", gexf, "--top-k", "3", "--quiet",
                        "--platform", "cpu"]) == 0
+    sharded = ["--dataset", gexf, "--top-k", "3", "--quiet", "--backend",
+               "torch-sharded", "--n-devices", "2"]
+    assert torch_main(sharded) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert torch_main(sharded + ["--platform", "cpu"]) == 0
 
 
 def test_kernel_builds_key_on_every_header(tmp_path, monkeypatch):

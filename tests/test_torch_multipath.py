@@ -63,8 +63,14 @@ def test_weights_and_refusals(graphs):
     np.testing.assert_array_equal(tb.combined_scores([1.0, 0.0]), s[0])
     with pytest.raises(ValueError, match="need 2 weights"):
         tb.combined_scores([1.0, 2.0, 3.0])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tb.topk_sharded(k=5)
+    # the sharded ensemble ranking (--n-devices): the JAX package's, bit
+    # for bit, on D virtual shards against D virtual devices
+    jb = J(graphs[0], ["APVPA", "APA"])
+    for n_dev in (1, 3):
+        got = tb.topk_sharded(k=5, weights=[0.7, 0.3], n_devices=n_dev)
+        want = jb.topk_sharded(k=5, weights=[0.7, 0.3], n_devices=n_dev)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
     with pytest.raises(ValueError, match="not symmetric"):
         T(graphs[1], ["APV"], device="cpu")
     with pytest.raises(ValueError, match="unknown PathSim variant"):

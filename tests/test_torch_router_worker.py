@@ -4,9 +4,10 @@
   ``ready`` event; SIGTERM drains it (every accepted request answered, a
   ``drained`` event last) and it exits 0.
 - Without a card and without ``--platform cpu``, ``worker`` and
-  ``router`` exit 1 with "no CUDA device"; the lanes and modes that come
-  later (partition mode, the serve flags ``serve`` refuses) exit 1 "not
-  ported yet"; ``--factor-format`` without torch-sparse is refused.
+  ``router`` exit 1 with "no CUDA device"; the lanes that come later
+  (the serve flags ``serve`` refuses) exit 1 "not ported yet"; the
+  partition flags refuse what the JAX package's refuse;
+  ``--factor-format`` without torch-sparse is refused.
 - ``dpathsim-torch router --workers 2 --platform cpu`` answers a JSONL
   script of topk, scores, update, health and drain, and its topk,
   scores and update answers equal the JAX package's ``dpathsim router``
@@ -74,14 +75,25 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         err = capsys.readouterr().err
         assert "no CUDA device" in err and "--platform cpu" in err, cmd
     for argv in (
-        ["worker", "--partition-index", "0", "--partitions", "2"],
         ["worker", "--topk-mode", "ann"],
-        ["router", "--mode", "partition"],
-        ["router", "--replication", "2"],
+        ["router", "--topk-mode", "ann"],
     ):
         assert torch_main([*argv, "--dataset", SPEC,
                            "--platform", "cpu"]) == 1, argv
         assert "not ported yet" in capsys.readouterr().err, argv
+    # partition mode is ported: its flags parse, and what they refuse is
+    # what the JAX package's worker refuses
+    for argv, msg in (
+        (["worker", "--partition-index", "0"],
+         "--partition-index requires --partitions >= 1"),
+        (["worker", "--partition-index", "2", "--partitions", "2"],
+         "--partition-index 2 out of range [0, 2)"),
+        (["router", "--mode", "partition", "--replication", "2",
+          "--autoscale"], "--autoscale scales replicas"),
+    ):
+        assert torch_main([*argv, "--dataset", SPEC,
+                           "--platform", "cpu"]) == 1, argv
+        assert msg in capsys.readouterr().err, argv
     for cmd in ("worker", "router"):
         assert torch_main([cmd, "--factor-format", "bitpacked", "--dataset",
                            SPEC, "--platform", "cpu"]) == 1, cmd

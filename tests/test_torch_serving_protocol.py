@@ -90,7 +90,6 @@ NOT_PORTED = [
     {"id": 102, "op": "topk", "row": 1, "mode": "learned"},
     {"id": 105, "op": "refresh_index"},
     {"id": 106, "op": "refresh_towers"},
-    {"id": 109, "op": "partial_topk"},
 ]
 
 
@@ -196,6 +195,14 @@ def test_protocol_script_matches_jax_and_wire_schema():
             _validate(req, resp)
             assert not resp["ok"] and "not ported yet" in resp["error"], resp
         assert out[-1]["ok"]  # the process keeps serving
+        # the partition-exchange ops belong to partition workers: a
+        # replica refuses them per request, as the JAX service does
+        part = [{"id": 109, "op": "partial_topk"}]
+        out_t = _run(serve_loop, ts, part)
+        out_j = _run(jloop, js, part)
+        assert not out_t[0]["ok"] and not out_j[0]["ok"]
+        assert "requires a partition worker" in out_t[0]["error"]
+        assert "requires a partition worker" in out_j[0]["error"]
     finally:
         js.close()
         ts.close()

@@ -94,11 +94,10 @@ def test_flag_validation_messages(gexf, tmp_path, capsys, extra, message):
                      "--loader", "python", *jextra]) == 1
 
 
-def test_packed_factor_formats_are_not_ported():
-    """The name dates from before the packed layouts were ported: they
-    now build (tests/test_torch_packed_sparse.py holds them against the
-    JAX package); a format name neither package knows is refused, and so
-    is an asymmetric metapath."""
+def test_packed_formats_build_and_bad_formats_or_chains_are_refused():
+    """The packed layouts build (tests/test_torch_packed_sparse.py holds
+    them against the JAX package); a format name neither package knows
+    is refused, and so is an asymmetric metapath."""
     hin = synthetic_hin(40, 60, 4, seed=2)
     mp = compile_metapath("APVPA", hin.schema)
     b = create_backend("torch-sparse", hin, mp, device="cpu",

@@ -70,11 +70,29 @@ def test_sites_resolve_the_jax_defaults_untuned():
     assert tuning.resolve_ladder("coarse", 40) == jtuning.resolve_ladder(
         "coarse", 40)
     # the Pallas tile/variant knobs have no port arm
-    for knob in ("scores_variant", "scores_tile", "topk_rowtile", "k_tile",
-                 "ring_kernel"):
+    for knob in ("scores_variant", "scores_tile", "topk_rowtile", "k_tile"):
         assert knob not in tuning.KNOBS
         with pytest.raises(KeyError):
             tuning.choose(knob, default=1)
+    # ring_kernel keeps the JAX key; its one arm is K3, so a table's fold
+    # arm on a K3-feasible shape counts as a fallback and K3 runs
+    from distributed_pathsim_tpu_torch.parallel.sharded import (
+        resolve_ring_kernel,
+    )
+
+    assert tuning.KNOBS["ring_kernel"].candidates({}) == ["rect-cuda"]
+    assert tuning.make_key("ring_kernel", "cpu", n=130, v=16) == \
+        jtuning.make_key("ring_kernel", "cpu", n=130, v=16)
+    table = tuning.TuningTable("cpu")
+    table.put(tuning.make_key("ring_kernel", "cpu", n=130, v=16),
+              "jnp-fold")
+    tuning.set_table(table, "test")
+    before = tuning.lookup_stats().get("fallback", 0)
+    assert tuning.choose("ring_kernel", n=130, v=16, default="rect-cuda",
+                         valid=lambda arm: arm == "rect-cuda") == "rect-cuda"
+    assert tuning.lookup_stats()["fallback"] == before + 1
+    assert not resolve_ring_kernel(130, 16, 10, "cpu")  # the host folds
+    assert not resolve_ring_kernel(130, 16, 16, "cuda")  # K3 refuses k=16
 
 
 def test_table_round_trip_hits_and_nearest(tmp_path):
