@@ -156,6 +156,36 @@ nonzero and no result line is printed):
    package refuses it) and the affected rows against the new oracle,
    QPS, p50/p95/p99 and update ms, worker compiles unchanged; its
    launches are ``launches_sharded_partition`` in the kernels line;
+6d. the ANN tier at the bench shape (headroom 0.25): the centroid index
+   built in-process and by ``dpathsim-torch index build`` as a
+   subprocess (arrays and fingerprint equal; build seconds, K, cap, dim,
+   packed bytes), ``dpathsim-torch index probe --platform cuda``, the
+   recall gate (mean score recall@10 >= 0.99 over 512 rows, the route on
+   the card) on the struct map unprojected; for each probe variant
+   (``rerank-all``, ``shortlist``) a ``topk_mode="ann"`` service at the
+   default knobs loading the CLI's artifact under 32 client threads x 64
+   ``topk`` (k = 10) on rows with d > 0: every answer the exact rerank of
+   its candidates (each score the exact f64 score of its pair, the
+   (descending score, ascending id) order, no rank above the oracle's),
+   every answer that covers the oracle's set bit-identical to the host
+   f64 oracle, the mean score recall@10 printed (shadow sampling off for
+   the load), QPS and p50/p95/p99 beside the exact lane's on the same rows,
+   the device route's cluster sets equal to ``route_batch_host``'s
+   wherever the nprobe-th and (nprobe+1)-th similarities are more than
+   1e-6 apart (the rows under that rule counted), the probe's CUDA-event
+   ms per batch and ``dpathsim_ann_{probe,rerank}_seconds``; the serving
+   phase's update (affected and appended rows answered exactly, counted
+   ``stale`` or ``uncovered``), ``refresh_index`` through
+   ``handle_request`` (stale_remaining 0, the index token the
+   service's), answers after it checked as before, the shadow gate with
+   every request sampled at its default floor (its state printed), then
+   tripped on purpose (a recall floor above 1: every query then exact,
+   counted ``low_confidence``); 0 compiles from
+   the end of each service's warmup; ``dpathsim-torch router --workers 2
+   --topk-mode ann --platform cuda`` as a subprocess with the artifact,
+   its answers on rows the services covered equal to the oracle; its
+   launches are ``launches_ann`` in the kernels line (the exact lane's
+   own: the probe is torch ops, no kernel);
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -212,6 +242,14 @@ SERVE_HEADROOM, SERVE_MAX_BATCH = 0.25, 32
 SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 64
 UPDATE_ADDS, UPDATE_REMOVES, UPDATE_APPENDS = 64, 16, 8
 C5_SERVE_REQUESTS = 64
+# The ANN tier: the serving phase's graph, headroom, load and update, once
+# per probe variant at the default knobs; the score-recall floor of the
+# JAX package's ann gate held on ANN_FULL_ROWS rows of the same graph
+# with the struct map unprojected (the default max_dim of 1024 projects
+# its 12 x 480-wide map, and the recall follows the projection).
+ANN_VARIANTS = ("rerank-all", "shortlist")
+ANN_RECALL_FLOOR = 0.99
+ANN_FULL_ROWS = 512
 # The router fleet: two workers on the one card over the bench graph
 # (author ids materialized, so the update's appended authors can be
 # named on the wire), the serving phase's load and update.
@@ -3740,6 +3778,475 @@ def square_bounds(lim, n, v, out_bytes):
     return int8, f32
 
 
+# -- the ANN tier --------------------------------------------------------------
+
+
+def ann_clients(svc, rows_by_client, k, mode):
+    """``run_clients`` with an explicit answer mode per request."""
+    import threading
+
+    results = [[None] * len(r) for r in rows_by_client]
+    errors = []
+
+    def client(c):
+        try:
+            for j, r in enumerate(rows_by_client[c]):
+                results[c][j] = svc.topk_index(int(r), k, mode=mode)
+        except Exception as exc:  # surfaced below, the phase fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(rows_by_client))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"ann load clients failed: {errors[:1]}")
+    return [a for per in results for a in per], wall
+
+
+def ann_check(np, answers, rows, oracle, c64, k, label):
+    """ANN answers against the host f64 oracle. The contract of the exact
+    rerank, for every answer: each returned score is the exact f64 score
+    of its (row, target) pair, bit for bit, the order is (descending
+    score, ascending id), and no rank scores above the oracle's; an
+    answer whose index set equals the oracle's is bit-identical to it.
+    Prints the mean score recall@k; returns (the rows whose answers
+    covered the oracle's set, that recall)."""
+    from distributed_pathsim_tpu_torch.ops import pathsim
+
+    rows = np.asarray(rows, dtype=np.int64)
+    uniq, inv = np.unique(rows, return_inverse=True)
+    ov, oi = oracle(uniq, k)
+    d64 = c64 @ c64.sum(0)
+    covered, recall = [], []
+    for j, (v, i) in enumerate(answers):
+        u, row = inv[j], int(rows[j])
+        fin = np.isfinite(v)
+        ids = i[fin]
+        exact = pathsim.score_candidates(
+            (c64[ids] @ c64[row])[None, :], d64[[row]], d64[ids][None, :])[0]
+        order = np.lexsort((ids, -v[fin]))
+        if (not np.array_equal(v[fin], exact)
+                or not np.array_equal(order, np.arange(ids.shape[0]))
+                or np.unique(ids).shape[0] != ids.shape[0]
+                or (ids == row).any()
+                or (v[fin] > ov[u][: ids.shape[0]]).any()):
+            raise AssertionError(f"{label}: row {row}: an answer that is not "
+                                 "the exact rerank of its candidates")
+        want = ov[u][np.isfinite(ov[u])]
+        if set(ids.tolist()) == set(oi[u][np.isfinite(ov[u])].tolist()):
+            covered.append(row)
+            if not (np.array_equal(v, ov[u]) and np.array_equal(i, oi[u])):
+                raise AssertionError(f"{label}: row {row} covers the "
+                                     "oracle's set but differs from it")
+        if want.size:
+            recall.append(min(float((v[fin] >= want.min()).sum())
+                              / want.size, 1.0))
+    mean = float(np.mean(recall)) if recall else 1.0
+    print(f"{label}: {len(answers)} answers, every one the exact rerank of "
+          f"its candidates; {len(covered)} cover the oracle's set and are "
+          f"bit-identical to the host f64 oracle; mean score recall@{k} "
+          f"{mean:.5f}")
+    return covered, mean
+
+
+def ann_fallbacks(reason):
+    from distributed_pathsim_tpu_torch.obs.metrics import get_registry
+
+    return get_registry().counter(
+        "dpathsim_ann_fallbacks_total",
+        "ann-requested queries answered exactly instead, by reason",
+    ).labels(reason=reason).value
+
+
+def ann_route_sets(np, index, rows, nprobe):
+    """The device route's cluster sets against ``route_batch_host``'s,
+    row for row, wherever the host's nprobe-th and (nprobe+1)-th
+    similarities differ by more than 1e-6 relative. Returns how many
+    rows fell under that tie rule."""
+    ties = 0
+    for lo in range(0, rows.shape[0], SERVE_MAX_BATCH):
+        r = rows[lo:lo + SERVE_MAX_BATCH]
+        _, dev = index.route_batch(r, nprobe)
+        _, host = index.route_batch_host(r, nprobe)
+        q = index.embedding_of(r)
+        sims = -np.sort(-(q @ index.centroids.T), axis=1)
+        for b in range(r.shape[0]):
+            if nprobe < index.n_centroids:
+                hi, nxt = float(sims[b, nprobe - 1]), float(sims[b, nprobe])
+                if hi - nxt <= 1e-6 * max(abs(hi), 1e-30):
+                    ties += 1
+                    continue
+            if set(dev[b].tolist()) != set(host[b].tolist()):
+                raise AssertionError(f"row {r[b]}: the device route's "
+                                     "clusters differ from the host route's")
+    return ties
+
+
+def ann_tier(torch, ck, np, workdir, card, hin):
+    """Phase 6d: the ANN tier at the bench shape. Returns the launches of
+    the phase per kernel (the exact lane's own; the probe is torch ops)."""
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.index import CentroidIndex, build_index
+    from distributed_pathsim_tpu_torch.index.build import (
+        half_chain_and_denominators,
+    )
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving.cache import graph_fingerprint
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        compiles_total,
+    )
+
+    phase(f"the ANN tier: {N_AUTHORS}x{N_PAPERS}x{N_VENUES}, headroom "
+          f"{SERVE_HEADROOM}, {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} "
+          f"topk k={TOP_K} per variant")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    hin_h = tdl.with_headroom(hin, SERVE_HEADROOM)
+    mp = compile_metapath("APVPA", hin_h.schema)
+    t0 = time.perf_counter()
+    c, d = half_chain_and_denominators(hin_h, mp)
+    fold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = build_index(c=c, d=d, metapath=mp, device="cuda",
+                        token=(graph_fingerprint(hin_h), 0))
+    build_s = time.perf_counter() - t0
+    print(f"index build in-process: half chain {fold_s:.2f} s, build "
+          f"{build_s:.2f} s; n {index.n} (the graph's capacity rows), K "
+          f"{index.n_centroids}, cap {index.cluster_cap}, dim {index.dim} "
+          f"(struct map 12 x {c.shape[1]} wide), packed "
+          f"{index.packed.nbytes} bytes f32")
+    art = workdir / "ann_index.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "index",
+         "build", "--dataset", str(workdir / "bench.gexf"), "--out",
+         str(art), "--platform", "cuda"],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode != 0:
+        raise AssertionError(f"index build exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    built = json.loads(proc.stdout)
+    cli = CentroidIndex.load(str(art), device="cuda")
+    for name in ("centroids", "members", "packed", "cluster_of", "slot_of",
+                 "stale"):
+        if not np.array_equal(getattr(cli, name), getattr(index, name)):
+            raise AssertionError(f"the CLI's index differs in {name}")
+    if tuple(cli.token) != tuple(index.token):
+        raise AssertionError("the CLI's index has another fingerprint")
+    print(f"dpathsim-torch index build (subprocess): "
+          f"{time.perf_counter() - t0:.1f} s wall, build_s "
+          f"{built['build_s']}; arrays and fingerprint equal to the "
+          "in-process build")
+    del cli, index
+    probe_row = N_AUTHORS // 2 + 57
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "index",
+         "probe", "--index", str(art), "--row", str(probe_row), "--k",
+         str(TOP_K), "--dataset", str(workdir / "bench.gexf"), "--platform",
+         "cuda"],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode != 0:
+        raise AssertionError(f"index probe exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    probed = json.loads(proc.stdout)
+    if not probed["topk"] or probed["n_candidates"] < TOP_K:
+        raise AssertionError(f"index probe: {probed}")
+    print(f"dpathsim-torch index probe --row {probe_row} --platform cuda: "
+          f"nprobe {probed['nprobe']}, {probed['n_candidates']} candidates, "
+          f"{len(probed['topk'])} reranked")
+    ann_full_width(np, card, hin_h, mp, c, d)
+    del c, d
+
+    compiles0 = compiles_total()
+    covered = {}
+    for variant in ANN_VARIANTS:
+        covered[variant] = ann_service(torch, np, card, hin_h, mp, art,
+                                       variant, probe_row, probed)
+    router_ann(np, workdir, card, hin, art, covered["rerank-all"])
+    if compiles_total() != compiles0:
+        raise AssertionError(f"the phase compiled or loaded a kernel: "
+                             f"{compiles0} -> {compiles_total()}")
+    launches = dict(ck.LAUNCHES)
+    print(f"phase compiles: unchanged from the end of warmup ({compiles0}); "
+          f"launches {launches} (the exact lane's; the probe is torch ops)")
+    print(f"ANN phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ann_full_width(np, card, hin_h, mp, c, d):
+    """The recall gate: the struct map unprojected (``max_dim`` of its
+    full width 12 x V; the default 1024 projects the bench graph's map),
+    ANN_FULL_ROWS rows through the rerank-all lane's state with the
+    default nprobe and the route on the card, their mean score recall@k
+    against ANN_RECALL_FLOOR."""
+    from distributed_pathsim_tpu_torch.index import build_index
+    from distributed_pathsim_tpu_torch.ops import pathsim
+    from distributed_pathsim_tpu_torch.serving.ann import AnnState
+
+    t0 = time.perf_counter()
+    index = build_index(c=c, d=d, metapath=mp, device="cuda",
+                        max_dim=12 * c.shape[1])
+    build_s = time.perf_counter() - t0
+    n = hin_h.type_size(mp.source_type)
+    rows = np.random.default_rng(SEED + 13).choice(
+        np.flatnonzero(d[:n] > 0), ANN_FULL_ROWS, replace=False)
+    s = pathsim.score_rows(c[rows] @ c[:n].T, d[rows], d[:n], xp=np)
+    s[np.arange(rows.shape[0]), rows] = -np.inf
+    ov, _ = pathsim.topk_from_score_rows(s, TOP_K)
+    nprobe = min(max(16, index.n_centroids // 3), 96)
+    state = AnnState(index, c, d, nprobe, 16, "rerank-all")
+    recall = []
+    try:
+        for lo in range(0, rows.shape[0], SERVE_MAX_BATCH):
+            r = rows[lo:lo + SERVE_MAX_BATCH]
+            mem, top = index.route_batch(r, nprobe)
+            for b in range(r.shape[0]):
+                v, _ = state.rerank_all(int(r[b]), mem[b], top[b], TOP_K, n)
+                want = ov[lo + b][np.isfinite(ov[lo + b])]
+                got = v[np.isfinite(v)]
+                recall.append(min(float((got >= want.min()).sum())
+                                  / want.size, 1.0))
+    finally:
+        state.close()
+    mean = float(np.mean(recall))
+    print(f"full-width struct map (dim {index.dim}, K {index.n_centroids}, "
+          f"cap {index.cluster_cap}, build {build_s:.2f} s): rerank-all "
+          f"nprobe {nprobe}, mean score recall@{TOP_K} {mean:.5f} over "
+          f"{rows.shape[0]} rows ({card})")
+    if mean < ANN_RECALL_FLOOR:
+        raise AssertionError(f"full-width map: score recall@{TOP_K} "
+                             f"{mean:.5f} < {ANN_RECALL_FLOOR}")
+
+
+def ann_service(torch, np, card, hin_h, mp, art, variant, probe_row, probed):
+    """One ``topk_mode="ann"`` service on the card loading the CLI's
+    artifact: load against the f64 oracle beside the exact lane, the
+    route against the host route, the probe's CUDA-event time, the
+    update's staleness and ``refresh_index``, the shadow gate tripped.
+    Returns the rows whose first-load answers covered the oracle's."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+    from distributed_pathsim_tpu_torch.serving.protocol import handle_request
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+
+    t0 = time.perf_counter()
+    svc = PathSimService(
+        create_backend("torch", hin_h, mp, device="cuda"),
+        config=ServeConfig(max_batch=SERVE_MAX_BATCH, k_default=TOP_K,
+                           topk_mode="ann", index_path=str(art),
+                           ann_variant=variant, ann_auto_refresh=False,
+                           ann_shadow_every=0))
+    try:
+        ann = svc._ann
+        if ann is None or ann.route_on_host:
+            raise AssertionError(f"{variant}: no ANN state on the card")
+        print(f"{variant}: service start (backend, bucket warmup, index "
+              f"load and probe warmup) {time.perf_counter() - t0:.2f} s; "
+              f"nprobe {ann.nprobe}, cand_mult {ann.cand_mult}")
+        with CompileCounter() as compiles:
+            covered = ann_service_checks(torch, np, card, svc, mp, variant,
+                                         probe_row, probed, handle_request)
+        if compiles.count:
+            raise AssertionError(f"{variant}: {compiles.count} compiles "
+                                 f"after warmup: {compiles.by_kind}")
+        print(f"{variant}: compile counter 0 from the end of warmup to the "
+              "end of its checks")
+        return covered
+    finally:
+        svc.close()
+
+
+def ann_service_checks(torch, np, card, svc, mp, variant, probe_row, probed,
+                       handle_request):
+    ann = svc._ann
+    index = ann.index
+    rng = np.random.default_rng(SEED + 11)
+    d = ann.d[: svc.n]
+    eligible = np.flatnonzero(d > 0)
+    rows = rng.choice(eligible, (SERVE_CLIENTS, SERVE_PER_CLIENT))
+    oracle, c64 = f64_topk(np, svc.hin, mp)
+    # the probe CLI reranks a shortlist of the same index: it covers the
+    # oracle's answer for its row or falls short of it, never past it
+    ov, _ = oracle(np.asarray([probe_row]), TOP_K)
+    top = [h["score"] for h in probed["topk"]]
+    if top[0] > float(ov[0][0]):
+        raise AssertionError("index probe scored past the oracle")
+
+    for cell in svc._m_latency.values():
+        cell.reset()
+    ann._m_probe.reset()
+    ann._m_rerank.reset()
+    through0 = ann._m_requests.value
+    answers, wall = ann_clients(svc, rows, TOP_K, "ann")
+    regime_latencies(svc, len(answers), wall, f"{variant}: ann load", card)
+    probe, rerank = ann._m_probe, ann._m_rerank
+    print(f"{variant}: dpathsim_ann_probe_seconds per batch n={probe.count} "
+          f"p50 {probe.quantile(0.5) * 1e3:.3f} ms mean "
+          f"{probe.sum / max(probe.count, 1) * 1e3:.3f} ms (fetch of the "
+          f"probe, host clock); dpathsim_ann_rerank_seconds per request "
+          f"n={rerank.count} p50 {rerank.quantile(0.5) * 1e3:.3f} ms mean "
+          f"{rerank.sum / max(rerank.count, 1) * 1e3:.3f} ms ({card})")
+    covered, _ = ann_check(np, answers, rows.ravel(), oracle, c64, TOP_K,
+                           f"{variant}: ann load")
+    print(f"{variant}: {int(ann._m_requests.value - through0)} of the "
+          "load's requests answered through the index (shadow sampling off "
+          "for the load)")
+    exact, wall = ann_clients(svc, rows, TOP_K, "exact")
+    regime_latencies(svc, len(exact), wall, f"{variant}: the same rows "
+                     "through the exact lane", card)
+    check_served(np, exact, rows.ravel(), oracle, TOP_K,
+                 f"{variant}: exact lane")
+
+    uniq = np.unique(rows.ravel())
+    ties = ann_route_sets(np, index, uniq, ann.nprobe)
+    print(f"{variant}: device route's cluster sets equal route_batch_host's "
+          f"on {uniq.shape[0] - ties} of {uniq.shape[0]} rows; {ties} under "
+          "the 1e-6 tie rule")
+    batch = uniq[:SERVE_MAX_BATCH]
+    if variant == "rerank-all":
+        probe_ms = time_ms(torch, lambda: index.route_batch_device(
+            batch, ann.nprobe))
+    else:
+        probe_ms = time_ms(torch, lambda: index.probe_batch_device(
+            batch, ann.nprobe))
+    print(f"{variant}: probe of {SERVE_MAX_BATCH} rows on the card "
+          f"{probe_ms:.4f} ms (CUDA events, median of {REPS}; {card})")
+
+    # the serving phase's update: affected rows fall back to the exact
+    # lane (stale), refresh_index re-embeds them
+    recs = update_records(np, svc.hin, np.random.default_rng(SEED + 1),
+                          f"ann_{variant}")
+    n_before = svc.n
+    resp = handle_request(svc, {"id": 1, "op": "update", **recs,
+                                "want_rows": True})
+    if not resp["ok"] or resp["result"]["mode"] != "delta":
+        raise AssertionError(f"{variant}: update did not patch: {resp}")
+    res = resp["result"]
+    affected = np.asarray(res["affected_row_list"], dtype=np.int64)
+    appended = np.arange(n_before, svc.n)
+    new_oracle, new_c64 = f64_topk(np, svc.hin, mp)
+    reasons = {int(r): svc.ann_fallback_reason(int(r)) for r in appended}
+    if any(x not in ("stale", "uncovered") for x in reasons.values()):
+        raise AssertionError(f"{variant}: appended rows {reasons}")
+    probe_rows = np.unique(np.concatenate([affected[:256], appended]))
+    stale0, unc0 = ann_fallbacks("stale"), ann_fallbacks("uncovered")
+    got, _ = ann_clients(svc, np.array_split(probe_rows, SERVE_CLIENTS),
+                         TOP_K, "ann")
+    check_served(np, got, probe_rows, new_oracle, TOP_K,
+                 f"{variant}: affected and appended rows after the update "
+                 "(exact fallback)")
+    n_stale = ann_fallbacks("stale") - stale0
+    n_unc = ann_fallbacks("uncovered") - unc0
+    if n_stale + n_unc != probe_rows.shape[0]:
+        raise AssertionError(f"{variant}: {n_stale} stale + {n_unc} "
+                             f"uncovered for {probe_rows.shape[0]} rows")
+    print(f"{variant}: update {res['ms']} ms, {res['affected_rows']} "
+          f"affected rows, ann_stale_rows {res['ann_stale_rows']}; the "
+          f"{probe_rows.shape[0]} rows asked counted {int(n_stale)} stale, "
+          f"{int(n_unc)} uncovered (appended rows: "
+          f"{sorted(set(reasons.values()))})")
+    resp = handle_request(svc, {"id": 2, "op": "refresh_index"})
+    if not resp["ok"] or resp["result"]["stale_remaining"] != 0:
+        raise AssertionError(f"{variant}: refresh_index: {resp}")
+    if tuple(index.token) != tuple(svc.consistency_token):
+        raise AssertionError(f"{variant}: index token {index.token} != "
+                             f"service token {svc.consistency_token}")
+    print(f"{variant}: refresh_index {resp['result']['refreshed']} rows in "
+          f"{resp['result']['ms']} ms, stale_remaining 0, index token = "
+          "service token")
+    fresh = rng.choice(np.flatnonzero(svc._d[: svc.n] > 0),
+                       (SERVE_CLIENTS, 8))
+    fresh[:, 0] = probe_rows[np.arange(SERVE_CLIENTS) % probe_rows.shape[0]]
+    got, _ = ann_clients(svc, fresh, TOP_K, "ann")
+    ann_check(np, got, fresh.ravel(), new_oracle, new_c64, TOP_K,
+              f"{variant}: after the refresh (affected rows included)")
+
+    # the shadow gate: every request sampled at the default floor, then
+    # tripped on purpose (a floor above 1): every query answers exactly
+    ann.shadow_every = 1
+    ann_clients(svc, [rng.choice(eligible, 64, replace=False)], TOP_K, "ann")
+    snap = svc.stats()["ann"]
+    print(f"{variant}: every request shadowed at the default floor "
+          f"{ann.recall_floor}: shadow recall {snap['shadow_recall']} over "
+          f"{snap['shadow_samples']} samples, gate "
+          f"{'on' if snap['enabled'] else 'tripped'}")
+    ann.reset_confidence()
+    ann.recall_floor, ann.min_shadow = 1.01, 2
+    trip = rng.choice(eligible, 16, replace=False)
+    ann_clients(svc, [trip], TOP_K, "ann")
+    if ann.enabled:
+        raise AssertionError(f"{variant}: the shadow gate did not trip")
+    low0 = ann_fallbacks("low_confidence")
+    after_trip = rng.choice(eligible, (SERVE_CLIENTS, 2))
+    got, _ = ann_clients(svc, after_trip, TOP_K, "ann")
+    check_served(np, got, after_trip.ravel(), new_oracle, TOP_K,
+                 f"{variant}: every query after the gate tripped (exact)")
+    if ann_fallbacks("low_confidence") - low0 != after_trip.size:
+        raise AssertionError(f"{variant}: low_confidence not counted")
+    print(f"{variant}: shadow gate tripped after "
+          f"{svc.stats()['ann']['shadow_samples']} samples; "
+          f"{after_trip.size} queries counted low_confidence and exact")
+    return covered
+
+
+def router_ann(np, workdir, card, hin, art, covered):
+    """``dpathsim-torch router --workers 2 --topk-mode ann --platform
+    cuda`` with the CLI's artifact and a short JSONL script over rows
+    whose in-process answers covered the oracle's set: the routed
+    answers equal the host f64 oracle's."""
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    hin_h = tdl.with_headroom(hin, SERVE_HEADROOM)
+    mp = compile_metapath("APVPA", hin_h.schema)
+    rows = sorted(set(covered))[:: max(len(set(covered)) // 4, 1)][:4]
+    script = [{"id": i, "op": "topk", "row": r, "k": TOP_K}
+              for i, r in enumerate(rows)]
+    script += [{"id": 10, "op": "health"}, {"id": 11, "op": "shutdown"}]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "router",
+         "--workers", "2", "--topk-mode", "ann", "--index", str(art),
+         "--platform", "cuda", "--backend", "torch", "--dataset",
+         str(workdir / "bench.gexf")],
+        input="\n".join(json.dumps(r) for r in script) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"router exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    resps = {r["id"]: r for r in map(json.loads, proc.stdout.splitlines())}
+    if sorted(resps) != [0, 1, 2, 3, 10, 11] or not all(
+            r["ok"] for r in resps.values()):
+        raise AssertionError(f"router responses: {resps}")
+    oracle, _ = f64_topk(np, hin_h, mp)
+    ov, oi = oracle(np.asarray(rows), TOP_K)
+    ids = hin.indices["author"].ids
+    for j, r in enumerate(rows):
+        want = [(ids[int(i)], float(v)) for v, i in zip(ov[j], oi[j])
+                if np.isfinite(v)]
+        got = [(h["id"], h["score"]) for h in resps[j]["result"]["topk"]]
+        if got != want:
+            raise AssertionError(f"routed ann row {r} differs from the "
+                                 "oracle")
+    fb = [resps[j]["result"].get("ann_fallback") for j in range(len(rows))]
+    print(f"dpathsim-torch router --workers 2 --topk-mode ann --platform "
+          f"cuda: exit 0 in {wall:.1f} s (2 worker startups, each loading "
+          f"the artifact); {len(rows)} answers equal to the host f64 oracle, "
+          f"ann_fallback {fb} ({card})")
+
+
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     """Phase 2 at the main path's shapes + phase 6 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
@@ -3968,6 +4475,7 @@ def main() -> int:
         del c5
         sp_launches = sharded_partition(torch, ck, np, pathlib.Path(tmp),
                                         smi, hin, hin_ap, backend)
+        ann_launches = ann_tier(torch, ck, np, pathlib.Path(tmp), smi, hin)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
@@ -3975,6 +4483,7 @@ def main() -> int:
         kern["launches_serving_rest"] = sr_launches[kern["name"]]
         kern["launches_packed_sym_batch"] = pk_launches[kern["name"]]
         kern["launches_sharded_partition"] = sp_launches[kern["name"]]
+        kern["launches_ann"] = ann_launches[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

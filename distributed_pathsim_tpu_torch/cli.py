@@ -7,8 +7,10 @@ Replaces the reference's hard-coded ``__main__`` block
                    --backend torch --metapath APVPA --output out.log
 
 and routes ``dpathsim-torch serve ...`` to the online serving entry
-point (serving/cli.py) and ``dpathsim-torch worker / router /
-fleet-stats ...`` to the horizontal tier (router/cli.py).
+point (serving/cli.py), ``dpathsim-torch worker / router /
+fleet-stats ...`` to the horizontal tier (router/cli.py), ``batch`` to
+the campaigns (batch/cli.py) and ``index build / probe`` to the ANN
+tier's candidate index (index/cli.py).
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -229,8 +231,9 @@ def parse_args(argv: list[str]):
 # speaking the router-facing async protocol; ``router``: the
 # fault-tolerant fan-out over N of them; ``fleet-stats``: the one-shot
 # merged-fleet summary; ``batch``: corpus-scale campaigns (top-k for
-# every row, the similarity join) with checkpointed resume.
-SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch")
+# every row, the similarity join) with checkpointed resume; ``index``:
+# build / probe the ANN tier's MIPS candidate index.
+SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index")
 
 
 def _subcommand(name: str):
@@ -242,6 +245,10 @@ def _subcommand(name: str):
         from .batch.cli import batch_main
 
         return batch_main
+    if name == "index":
+        from .index.cli import index_main
+
+        return index_main
     from .router import cli as router_cli
 
     return {

@@ -1,2 +1,3 @@
 """Models over the PathSim primitives: the multi-metapath ensemble
-(:mod:`.multipath`)."""
+(:mod:`.multipath`) and the Cauchy-quadrature helpers of the analytic
+embedding map (:mod:`.neural`)."""

@@ -99,9 +99,8 @@ def default_specs(
     cold-start answerability floor (fraction of appended rows already
     absorbed into the towers, worst replica — a replica falling behind
     on absorbs is answering its cold-start authors through counted
-    fallbacks instead of the learned arm). The port serves neither the
-    ann nor the learned lane yet: those two floors see no observation
-    and never burn."""
+    fallbacks instead of the learned arm). The port does not serve the
+    learned lane yet: that floor sees no observation and never burns."""
     return (
         SLOSpec(
             name="availability", kind="availability",

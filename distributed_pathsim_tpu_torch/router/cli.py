@@ -29,9 +29,11 @@ instead (router/partition.py): worker ``w<i>`` runs with
 ``--partition-index i --partitions N --partition-replication R`` and
 holds range i plus the next R − 1 ranges of the half-chain factor
 (serving/partition.py); queries scatter over the ranges and merge
-exactly. The serve flags of lanes the port lacks answer "not ported
-yet". ``--factor-format`` is forwarded to every worker (torch-sparse's
-packed layouts; in partition mode the slice's layout).
+exactly. The serve flags of the learned lane, which the port lacks,
+answer "not ported yet". ``--factor-format`` is forwarded to every
+worker (torch-sparse's packed layouts; in partition mode the slice's
+layout), and so are the ANN flags (``--topk-mode ann``, ``--index``,
+``--ann-*``): each replica builds or loads its own candidate index.
 """
 
 from __future__ import annotations
@@ -198,10 +200,11 @@ _FORWARD_VALUE = (
     "cache_entries", "tile_cache_mb", "headroom", "delta_threshold",
     "tuning_table", "metrics_interval", "trace_sample", "factor_format",
     "compact_chain_len", "compact_headroom_frac", "compact_headroom",
-    "compact_cooldown",
+    "compact_cooldown", "topk_mode", "index", "ann_nprobe", "ann_cand_mult",
+    "ann_centroids", "ann_cluster_cap", "ann_variant", "ann_shadow_every",
 )
 _FORWARD_TRUE = ("no_warm", "no_metrics", "no_tuning", "approx",
-                 "batch_events", "no_compact")
+                 "batch_events", "no_compact", "no_ann_refresh")
 # artifact-path flags forwarded with a per-worker suffix: a fleet run
 # with --metrics-file/--trace-out/--metrics must leave N+1 artifacts
 # (one per process), not N processes clobbering one path

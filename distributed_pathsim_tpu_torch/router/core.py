@@ -118,8 +118,8 @@ class RouterConfig:
     scrape_interval_s: float = 5.0
     # declarative SLO specs evaluated over the merged stream; () ships
     # the defaults (availability / p99 latency / update-visible
-    # staleness, plus the JAX package's ann / learned floors, which a
-    # port fleet never feeds; obs/slo.py)
+    # staleness, the ann recall floor, and the JAX package's learned
+    # floor, which a port fleet never feeds; obs/slo.py)
     slo_specs: tuple = ()
     # flight-recorder tail threshold: a request slower than this is
     # kept even if nothing else went wrong. None derives it from the
@@ -697,7 +697,9 @@ class Router:
         # tail sampling: the flight recorder keeps EVERY request whose
         # outcome is worth explaining, independent of the head-sampling
         # coin flip (obs/flight.py — 100% of errored/shed/hedged/
-        # failed-over/slow requests, by construction)
+        # failed-over/slow/ann-degraded requests, by construction)
+        ann_fb = (resp.get("result") or {}).get("ann_fallback") \
+            if isinstance(resp.get("result"), dict) else None
         reasons = []
         if outcome == "error":
             reasons.append("error")
@@ -707,6 +709,8 @@ class Router:
             reasons.append("hedged")
         if p.failovers:
             reasons.append("failover")
+        if ann_fb is not None:
+            reasons.append("ann_fallback")
         if elapsed > self._slow_s:
             reasons.append("slow")
         if reasons:
@@ -716,7 +720,8 @@ class Router:
                 rid=p.rid, op=p.req.get("op", "topk"), row=p.row,
                 elapsed_ms=round(elapsed * 1e3, 3),
                 workers=list(p.tried), outcome=outcome,
-                error=resp.get("error"), failovers=p.failovers,
+                error=resp.get("error"), ann_fallback=ann_fb,
+                failovers=p.failovers,
             )
         p.future.set_result(client_resp)
 
@@ -1782,8 +1787,14 @@ class Router:
                             "epoch": w.epoch,
                             "lag": head - w.epoch,
                             "token": list(w.token) if w.token else None,
-                            # per-mode epoch map from the last pong (a
-                            # port replica serves the exact lane only)
+                            # ANN index epoch from the last pong (None =
+                            # exact-only replica): operators see which
+                            # replicas hold a fresh candidate index;
+                            # queries never NEED one — an ann request on
+                            # an index-less replica answers exactly
+                            "index": w.last_health.get("index"),
+                            # per-mode epoch map (exact / ann), each
+                            # with its own epoch
                             "modes": w.last_health.get("modes"),
                         }
                         for w in self.workers.values()

@@ -26,9 +26,13 @@ Robustness contracts implemented here:
   failure; ``delay`` → a stalled read loop (the stall the router's
   hedging exists for); ``crash`` → the process dies like a real kill.
 
-The port serves the exact lane: a ``topk`` with ``"mode": "ann"`` or
-``"learned"`` answers the same per-request "not ported yet" error as
-``serve``. A partition worker (serving/partition.py) answers the
+A ``topk`` may carry ``"mode": "ann"``: the service answers it through
+its candidate index, or exactly when it cannot (a replica with no index
+answers exactly, counted as ``no_index``), and the response's
+``ann_fallback`` names the reason whenever the ANN path did not answer —
+what lets the router's flight recorder keep every ann-degraded request.
+``"mode": "learned"`` answers the same per-request "not ported yet"
+error as ``serve``. A partition worker (serving/partition.py) answers the
 partition-exchange ops and refuses whole queries. ``batch_blocks`` (a batch campaign's row block, router/batch.py) is
 answered synchronously like the other non-query ops. A ``topk`` naming another closed ``metapath``
 answers through the service's engine for it, as ``serve`` does (the JAX
@@ -217,12 +221,13 @@ class WorkerRuntime:
             return
         k = int(req.get("k") or self.service.config.k_default)
         try:
-            # a lane the port does not serve (ann / learned) is refused
-            # per request, exactly as serve does
+            # a lane the port does not serve (learned) is refused per
+            # request, exactly as serve does
             check_lane(req)
         except (KeyError, ValueError) as exc:
             fail(str(exc.args[0] if exc.args else exc))
             return
+        mode = req.get("mode")
         t0 = time.perf_counter()
         # Transient dispatch faults retry LOCALLY first, under a policy
         # CLAMPED to the caller's remaining budget (deadline_ms →
@@ -241,12 +246,25 @@ class WorkerRuntime:
         # becomes the submit's ambient parent: the coalescer pipeline's
         # spans land inside the fleet trace
         ctx = wspan.context if wspan is not None else rctx
+        # fallback annotation for the router's tail sampler: a
+        # side-effect-free peek (the answering path counts it), read
+        # BEFORE the submit so the response can say "this ann request
+        # will answer exactly, and why"
         try:
+            ann_fallback = self.service.ann_fallback_reason(
+                row, mode, metapath=metapath)
+        except Exception:
+            ann_fallback = None
+        try:
+            # mode rides through: a replica WITHOUT an index answers an
+            # "ann" request exactly (counted as a no_index fallback) —
+            # which is what makes re-dispatching an ann query onto any
+            # surviving replica always safe
             with tracer.activate(ctx) if ctx is not None else _NULL_CTX:
                 future = resilient_call(
                     "worker_dispatch",
                     lambda: self.service.submit_topk(
-                        row, k, metapath=metapath),
+                        row, k, mode=mode, metapath=metapath),
                     policy,
                 )
         except LoadShedError:
@@ -283,6 +301,8 @@ class WorkerRuntime:
                         {"id": i_id, "label": lab, "score": float(v)}
                     )
                 result = {"row": int(row), "topk": hits}
+                if ann_fallback is not None:
+                    result["ann_fallback"] = ann_fallback
                 resp = {
                     "id": rid,
                     "ok": True,

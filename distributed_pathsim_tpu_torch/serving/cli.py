@@ -16,9 +16,10 @@ Prometheus textfile of the live registry, rewritten every
 ``--metrics-interval`` seconds. Per-request metapaths share a sub-chain
 memo (``--memo-budget-mb``, ``--max-metapaths``); background compaction
 runs by default (``--no-compact``, ``--compact-*``); ``--factor-format``
-holds torch-sparse's factor packed. Flags of the JAX
-package's ``serve`` that belong to lanes not ported yet are refused by
-name.
+holds torch-sparse's factor packed; ``--topk-mode ann`` answers through
+the MIPS candidate index (``--index``, ``--ann-*``). Flags of the JAX
+package's ``serve`` that belong to the learned lane, not ported yet,
+are refused by name, and so is ``--topk-mode learned``.
 
 The setup helpers here (:func:`parse_known`, :func:`prepare_platform`,
 :func:`run_config`, :func:`serve_config`, :func:`serving_process`) are
@@ -38,12 +39,8 @@ from ..ops.pathsim import VARIANTS
 from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
-# does not have yet: the ANN and learned lanes and the sharded backend's
-# device count.
+# does not have yet: the learned lane's.
 NOT_PORTED_FLAGS = frozenset({
-    "--topk-mode", "--index",
-    "--ann-nprobe", "--ann-cand-mult", "--ann-centroids", "--ann-cluster-cap",
-    "--ann-variant", "--ann-shadow-every", "--no-ann-refresh",
     "--learned-checkpoint", "--learned-dim", "--learned-steps",
     "--learned-neg-ratio", "--learned-cand-mult",
     "--learned-shadow-every", "--learned-recall-floor",
@@ -209,14 +206,69 @@ def build_serve_parser() -> argparse.ArgumentParser:
         help="disable the in-process metrics registry entirely "
         "(stats/metrics ops then report zeros)",
     )
+    p.add_argument(
+        "--topk-mode", default="exact",
+        choices=("exact", "ann", "learned"),
+        help="default topk answer path: 'exact' scores the full O(N) "
+        "row; 'ann' probes the MIPS candidate index and exact-reranks "
+        "C >> k candidates (per-request override via the protocol's "
+        "'mode' field; ineligible rows silently degrade to exact, "
+        "counted per reason); 'learned' is not ported yet",
+    )
+    p.add_argument(
+        "--index", default=None,
+        help="prebuilt `dpathsim-torch index build` artifact (.npz); "
+        "must match the served graph's base fingerprint. Absent with "
+        "--topk-mode ann, the struct-embedded index is built "
+        "in-process at startup",
+    )
+    p.add_argument(
+        "--ann-nprobe", type=int, default=None,
+        help="clusters probed per ANN query (default: tuning registry)",
+    )
+    p.add_argument(
+        "--ann-cand-mult", type=int, default=None,
+        help="candidates per ANN query as a multiple of k (default: "
+        "tuning registry)",
+    )
+    p.add_argument(
+        "--ann-centroids", type=int, default=None,
+        help="centroid count for the in-process index build "
+        "(default: tuned multiplier on sqrt(N))",
+    )
+    p.add_argument(
+        "--ann-cluster-cap", type=int, default=None,
+        help="packed-cluster capacity for the in-process index build "
+        "(default: tuning registry / auto)",
+    )
+    p.add_argument(
+        "--ann-variant", default=None,
+        choices=("rerank-all", "shortlist"),
+        help="candidate-generation strategy (default: tuning "
+        "registry; 'rerank-all' exact-reranks every probed member, "
+        "'shortlist' cuts to cand_mult*k by embedding similarity "
+        "first)",
+    )
+    p.add_argument(
+        "--ann-shadow-every", type=int, default=64,
+        help="every Nth ANN dispatch also runs the exact oracle and "
+        "feeds the recall-confidence gate (0 disables shadowing)",
+    )
+    p.add_argument(
+        "--no-ann-refresh", action="store_true",
+        help="disable the background re-embed of delta-staled index "
+        "rows (they then stay on the exact path until the "
+        "'refresh_index' op)",
+    )
     return p
 
 
 def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
                 command: str = "serve"):
     """Parse ``argv``; a flag of the JAX package's command that the port
-    lacks (``not_ported``) raises ValueError naming it, any other
-    unknown flag is argparse's usage error."""
+    lacks (``not_ported``) raises ValueError naming it, and so does
+    ``--topk-mode learned``; any other unknown flag is argparse's usage
+    error."""
     args, rest = parser.parse_known_args(argv)
     for token in rest:
         flag = token.split("=", 1)[0]
@@ -224,6 +276,8 @@ def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
             raise ValueError(f"{command} {flag} is not ported yet")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if getattr(args, "topk_mode", None) == "learned":
+        raise ValueError(f"{command} --topk-mode learned is not ported yet")
     return args
 
 
@@ -305,6 +359,15 @@ def serve_config(args) -> ServeConfig:
         compact_headroom_frac=args.compact_headroom_frac,
         compact_headroom=args.compact_headroom,
         compact_cooldown_s=args.compact_cooldown,
+        topk_mode=args.topk_mode,
+        index_path=args.index,
+        ann_nprobe=args.ann_nprobe,
+        ann_cand_mult=args.ann_cand_mult,
+        ann_centroids=args.ann_centroids,
+        ann_cluster_cap=args.ann_cluster_cap,
+        ann_variant=args.ann_variant,
+        ann_shadow_every=args.ann_shadow_every,
+        ann_auto_refresh=not args.no_ann_refresh,
     )
 
 

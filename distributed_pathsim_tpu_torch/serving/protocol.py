@@ -24,16 +24,25 @@ Requests::
     {"id": 14, "op": "topk", "row": 17, "metapath": "APTPA"}
     {"id": 15, "op": "scores", "row": 17, "metapath": "APA"}
     {"id": 16, "op": "compact"}
+    {"id": 17, "op": "topk", "row": 17, "mode": "ann"}
+    {"id": 18, "op": "refresh_index"}
     {"id": 8, "op": "update",
      "add_nodes": [{"type": "author", "id": "a_new", "label": "A. New"}],
      "add_edges": [{"rel": "author_of", "src": "a_new", "dst": "paper_7"}],
      "remove_edges": [{"rel": "author_of", "src_row": 4, "dst_row": 17}]}
 
+``topk`` accepts an optional ``mode`` (``"exact"`` | ``"ann"``, default
+the service's ``--topk-mode``): ``ann`` answers through the MIPS
+candidate index plus an exact f64 rerank, and silently degrades to the
+exact path (counted per reason) for rows the index cannot vouch for.
+``refresh_index`` re-embeds the delta-staled index rows and advances
+the index epoch to the service's token.
+
 Not ported yet, each answered with a per-request error that says so
 (never a silent exact answer, never a process exit): ``topk``'s
-``"mode": "ann"`` / ``"learned"``, and the ops ``refresh_index`` and
-``refresh_towers``. ``batch_blocks`` answers one row block of a batch
-campaign (router/batch.py). The partition-exchange ops (``resolve``,
+``"mode": "learned"`` and the op ``refresh_towers``. ``batch_blocks``
+answers one row block of a batch campaign (router/batch.py). The
+partition-exchange ops (``resolve``,
 ``part_info``, ``set_colsum``, ``tile_pull``, ``partial_topk``,
 ``partial_scores``, ``part_update``) are served by partition workers
 (serving/partition.py) behind ``dpathsim-torch router --mode
@@ -105,7 +114,8 @@ _QUERY_KEYS = ("source", "source_id", "row")
 # handled by serve_loop itself).
 PROTOCOL_OPS = frozenset({
     "ping", "stats", "metrics", "health", "invalidate", "topk",
-    "update", "scores", "trace", "compact", "batch_blocks",
+    "refresh_index", "update", "scores", "trace", "compact",
+    "batch_blocks",
     # partition-mode exchange ops: served by PartitionService workers
     # behind `dpathsim-torch router --mode partition`; on a replica
     # service they fail as clean per-request errors. part_update /
@@ -117,13 +127,13 @@ PROTOCOL_OPS = frozenset({
 
 # Ops of the JAX package's protocol whose lanes are not ported yet: each
 # answers a per-request "not ported yet" error.
-NOT_PORTED_OPS = frozenset({"refresh_index", "refresh_towers"})
+NOT_PORTED_OPS = frozenset({"refresh_towers"})
 
 _PARTITION_OPS = ("part_info", "set_colsum", "tile_pull", "partial_topk",
                   "partial_scores", "part_update")
 
-# topk answer modes of the JAX package; the port serves "exact" only.
-_NOT_PORTED_MODES = ("ann", "learned")
+# topk answer modes of the JAX package the port does not serve yet.
+_NOT_PORTED_MODES = ("learned",)
 
 # op → (latency-histogram cell, error-counter cell), bound on first use
 # so the steady-state path pays cell increments, never registry/label
@@ -204,14 +214,14 @@ class NotPorted(KeyError):
 
 def check_lane(req: dict) -> None:
     """Refuse, per request, what only an unported lane could answer: a
-    ``topk`` with a non-exact ``mode``."""
+    ``topk`` in the learned ``mode``."""
     mode = req.get("mode")
     if mode in _NOT_PORTED_MODES:
         raise NotPorted(
             f"topk mode {mode!r} is not ported yet; the port serves the "
-            "exact lane only (omit 'mode' or send 'exact')"
+            "exact and ann lanes (omit 'mode' or send 'exact' or 'ann')"
         )
-    if mode not in (None, "exact"):
+    if mode not in (None, "exact", "ann"):
         raise ValueError(
             f"unknown topk mode {mode!r}; choose 'exact', 'ann' or "
             "'learned'"
@@ -243,6 +253,7 @@ def _dispatch_op(
         hits = service.topk(
             k=req.get("k"),
             timeout_s=deadline.remaining_s() if deadline else None,
+            mode=req.get("mode"),
             metapath=req.get("metapath"),
             **kwargs,
         )
@@ -251,6 +262,8 @@ def _dispatch_op(
                 {"id": i, "label": lab, "score": s} for i, lab, s in hits
             ]
         }
+    if op == "refresh_index":
+        return service.refresh_index()
     if op == "compact":
         # force one background-style compaction synchronously
         # (serving/compact.py): re-encode with fresh pow-2 headroom,

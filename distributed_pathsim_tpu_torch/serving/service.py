@@ -29,8 +29,16 @@ compaction (``serving/compact.py``) re-encodes the graph with fresh
 capacity headroom off the serving path and hot-swaps it with the
 consistency token and both cache tiers intact.
 
-The port serves the EXACT lane of the JAX package's service, and the
-batch tier's ``batch_blocks`` op. Its ANN and learned lanes are not
+``mode="ann"`` (or ``--topk-mode ann``) answers through the centroid
+MIPS index (index/, serving/ann.py): the probe runs on the index's
+device, the candidates are reranked exactly in host f64, and a row the
+index cannot vouch for (stale, appended, degenerate, confidence lost,
+no index) answers through the exact lane, counted by reason. Whenever
+the candidates cover the exact top-k the ANN answer is bit-identical to
+the exact one.
+
+The port serves the exact and ANN lanes of the JAX package's service,
+and the batch tier's ``batch_blocks`` op. Its learned lane is not
 ported yet.
 """
 
@@ -136,6 +144,34 @@ class ServeConfig:
     compact_cooldown_s: float = 5.0
     # bounded build retries when deltas keep landing mid-build
     compact_attempts: int = 3
+    # -- ANN candidate generation (index/, serving/ann.py) -------------
+    # Default answer path: "exact" scores the full O(N) row; "ann"
+    # probes the MIPS index for C ≫ k candidates and exact-reranks
+    # them (per-request override via submit_topk's ``mode``). The
+    # learned lane ("learned") is not ported yet.
+    topk_mode: str = "exact"
+    # Prebuilt `dpathsim-torch index build` artifact; None + mode "ann"
+    # builds the struct-embedded index in-process at startup.
+    index_path: str | None = None
+    # Probe geometry; None resolves through the tuning registry
+    # (ann_nprobe / ann_cand_mult / ann_centroids / ann_cluster_cap /
+    # ann_probe_variant) with the documented heuristics as defaults.
+    ann_nprobe: int | None = None
+    ann_cand_mult: int | None = None
+    ann_centroids: int | None = None
+    ann_cluster_cap: int | None = None
+    ann_variant: str | None = None   # rerank-all | shortlist
+    # Shadow-recall confidence gate: every Nth ann dispatch also runs the
+    # exact oracle and folds recall@k into dpathsim_ann_recall_ratio;
+    # below the floor (after min_shadow samples) ann disables itself
+    # until the next refresh (0 disables shadowing).
+    ann_shadow_every: int = 64
+    ann_recall_floor: float = 0.98
+    ann_min_shadow: int = 8
+    # Background re-embed of delta-staled index rows (a daemon thread
+    # per delta burst, debounced); off = refresh only via the
+    # refresh_index op/method.
+    ann_auto_refresh: bool = True
 
 
 class PathSimService:
@@ -179,7 +215,7 @@ class PathSimService:
                 "dpathsim_serve_request_seconds",
                 "submit-to-resolve request latency by outcome",
             ).labels(outcome=outcome)
-            for outcome in ("hit_result", "hit_tile", "dispatch")
+            for outcome in ("hit_result", "hit_tile", "dispatch", "ann")
         }
         self._m_updates = reg.counter(
             "dpathsim_serve_updates_total",
@@ -188,6 +224,9 @@ class PathSimService:
         # compiles visible live: a steady-state serving process whose
         # counter moves is violating the shape-bucket contract
         install_compile_metrics()
+        self._resolve_mode(None)  # the default mode: refused up front
+        self._ann = None  # AnnState once _setup_ann builds/loads one
+        self._ann_refresh_inflight = False  # background-refresh debounce
         # Workload-level sub-chain memo + lazily-built per-metapath
         # engines (per-request ``metapath`` field). Built BEFORE the
         # backend install so a rebuild-time engine flush finds them.
@@ -294,6 +333,119 @@ class PathSimService:
                 k=self.config.k_default,
                 variant=self.variant,
             )
+        self._setup_ann(warm=warm)
+
+    def _setup_ann(self, warm: bool) -> None:
+        """(Re)build or load the ANN candidate index for the freshly
+        installed backend. Every defect degrades to exact serving with
+        a loud event, never a crash — exact is the ground truth, so
+        losing the index only loses the speedup. The index probes on
+        the backend's device (the host for the numpy oracle)."""
+        cfg = self.config
+        if self._ann is not None:
+            # a reload/rebuild replaces the state: release the old
+            # rerank pool (and drop its C/blocks snapshots) instead of
+            # leaking one executor per swap
+            self._ann.close()
+        self._ann = None
+        if cfg.topk_mode != "ann" and cfg.index_path is None:
+            return
+        from .. import tuning
+        from ..index import CentroidIndex, IndexMismatch, build_index
+        from ..index.build import half_chain_and_denominators
+        from .ann import AnnState
+
+        t0 = time.perf_counter()
+        device = getattr(self.backend, "device", None) or "cpu"
+        try:
+            c, d = half_chain_and_denominators(
+                self.hin, self.metapath, self.variant
+            )
+        except (ValueError, MemoryError) as exc:
+            runtime_event("ann_unavailable", reason=str(exc))
+            return
+        if cfg.index_path is not None:
+            try:
+                index = CentroidIndex.load(
+                    cfg.index_path, expect_base_fp=self._base_fp,
+                    device=device,
+                )
+            except (IndexMismatch, OSError, KeyError, ValueError) as exc:
+                runtime_event(
+                    "ann_index_rejected", path=cfg.index_path,
+                    reason=str(exc),
+                )
+                return
+            if tuple(index.token) != self.consistency_token:
+                # an artifact persisted mid-delta-stream: its rows may
+                # lag this replica's graph — refuse rather than serve
+                # candidates from an unverifiable epoch
+                runtime_event(
+                    "ann_index_rejected", path=cfg.index_path,
+                    reason=f"index token {index.token} != service "
+                    f"token {self.consistency_token}",
+                )
+                return
+            # the fingerprint pins the GRAPH; the embedding geometry
+            # must also match the served score function — candidates
+            # from a different variant/metapath would silently degrade
+            # recall while the exact rerank hides the mismatch
+            for axis, want in (("variant", self.variant),
+                               ("metapath", self.metapath.name)):
+                got = index.meta.get(axis)
+                if got is not None and got != want:
+                    runtime_event(
+                        "ann_index_rejected", path=cfg.index_path,
+                        reason=f"index {axis} {got!r} != served "
+                        f"{want!r}",
+                    )
+                    return
+        else:
+            index = build_index(
+                c=c, d=d, variant=self.variant, metapath=self.metapath,
+                n_centroids=cfg.ann_centroids,
+                cluster_cap=cfg.ann_cluster_cap,
+                token=self.consistency_token, device=device,
+            )
+        # scale-aware nprobe heuristic: K/3 clamped to [16, 96], the JAX
+        # package's recall-safe point for maps narrower than max_dim; a
+        # measured table trades it per box. Past max_dim the index's JL
+        # projection costs recall that nprobe does not buy back
+        # (PERF.md, the ANN tier)
+        nprobe = cfg.ann_nprobe or tuning.choose(
+            "ann_nprobe", n=self.n,
+            default=min(max(16, index.n_centroids // 3), 96),
+        )
+        cand_mult = cfg.ann_cand_mult or tuning.choose(
+            "ann_cand_mult", n=self.n, default=16
+        )
+        variant = cfg.ann_variant or tuning.choose(
+            "ann_probe_variant", n=self.n, default="rerank-all"
+        )
+        self._ann = AnnState(
+            index, c, d,
+            nprobe=int(nprobe), cand_mult=int(cand_mult),
+            variant=str(variant),
+            shadow_every=cfg.ann_shadow_every,
+            recall_floor=cfg.ann_recall_floor,
+            min_shadow=cfg.ann_min_shadow,
+        )
+        if warm and not (
+            self._ann.variant == "rerank-all" and self._ann.route_on_host
+        ):
+            # the ANN analog of the bucket warmup: the probe driven once
+            # per serving bucket (host routing has nothing to warm)
+            index.warm(self._bucket_ladder, self._ann.nprobe,
+                       variant=self._ann.variant)
+        runtime_event(
+            "ann_ready",
+            n=index.n, centroids=index.n_centroids,
+            cluster_cap=index.cluster_cap, dim=index.dim,
+            nprobe=self._ann.nprobe, cand_mult=self._ann.cand_mult,
+            variant=self._ann.variant,
+            source="file" if cfg.index_path else "built",
+            startup_s=round(time.perf_counter() - t0, 3),
+        )
 
     def _epoch_for(self, row: int) -> tuple:
         """Cache-identity prefix for one source row: install-time base
@@ -432,7 +584,12 @@ class PathSimService:
         counts handle. A secondary-metapath lane issues against its
         engine (present by construction — submit built it under the
         swap lock, and update/reload/compaction drain the pipeline
-        before dropping engines)."""
+        before dropping engines). The ``ann`` lane issues the index
+        probe instead — one batched matmul over the packed cluster
+        blocks (or the route alone), fetched by the completion half the
+        way the exact lane's rows are (``PendingRows``)."""
+        if lane == "ann":
+            return self._ann.issue(rows_padded)
         if lane.startswith(_MP_LANE):
             with self._engines_lock:
                 eng = self._engines[lane[len(_MP_LANE):]]
@@ -454,6 +611,8 @@ class PathSimService:
         under the metapath's own cache epoch. The tracer spans opened
         here parent into the batch's ``serve.complete`` span — the
         coalescer activated its context on this thread before calling."""
+        if lane == "ann":
+            return self._complete_ann(handle, rows, batch)
         span_args = {}
         if lane.startswith(_MP_LANE):
             name = lane[len(_MP_LANE):]
@@ -504,6 +663,71 @@ class PathSimService:
                 )
                 tracer.finish(req.span, outcome="dispatch")
 
+    def _complete_ann(
+        self, handle, rows: np.ndarray, batch: Sequence[Request]
+    ) -> None:
+        """Completion half of an ``ann`` batch: fetch the probe's
+        output, select each request's C = cand_mult·k candidates on
+        the host, exact-f64-rerank them against the C/d snapshot, fill
+        the ann result-cache tier, resolve futures. Every Nth dispatch
+        also runs the exact oracle for its row (shadow sampling) to
+        keep the recall-confidence gate honest."""
+        tracer = get_tracer()
+        ann = self._ann
+        t0 = time.perf_counter()
+        with tracer.child_span(
+            "serve.ann_probe_transfer", n=int(rows.shape[0])
+        ):
+            first = np.asarray(handle[0])
+            second = np.asarray(handle[1])
+        ann.observe_probe(time.perf_counter() - t0)
+
+        def _rerank_one(b: int):
+            row = int(rows[b])
+            k_eff = min(batch[b].k, max(self.n - 1, 1))
+            t1 = time.perf_counter()
+            if ann.variant == "rerank-all":
+                # (mem, top_c): exact-rerank every probed member
+                vals, idxs = ann.rerank_all(
+                    row, first[b], second[b], k_eff, self.n
+                )
+            else:
+                # (sims, mem): approximate shortlist → exact rerank
+                cand = ann.candidates_for(
+                    first[b], second[b], k_eff, self.n
+                )
+                vals, idxs = ann.rerank(row, cand, k_eff)
+            ann.observe_rerank(time.perf_counter() - t1)
+            return k_eff, vals, idxs
+
+        with tracer.child_span("serve.ann_rerank", n=len(batch)):
+            # per-request reranks are independent: fan them over the
+            # ann pool (numpy/BLAS release the GIL), resolve in order
+            reranked = list(ann.pool.map(_rerank_one, range(len(batch))))
+            shadows = []
+            for b, req in enumerate(batch):
+                row = int(rows[b])
+                k_eff, vals, idxs = reranked[b]
+                ann.count_answered()
+                if ann.should_shadow():
+                    # deferred: the O(N) oracle scan must never sit in
+                    # front of a waiting future — the sampled request's
+                    # (and the rest of the batch's) latency is exactly
+                    # what the ANN path exists to shrink
+                    shadows.append((row, k_eff, vals))
+                self.result_cache.put(self._ann_key(row, req.k), vals, idxs)
+                if not req.future.done():
+                    req.future.set_result((vals, idxs))
+                self._m_latency["ann"].observe(
+                    time.monotonic() - (req.t_submit or req.t_enqueue)
+                )
+                tracer.finish(req.span, outcome="ann")
+            for row, k_eff, vals in shadows:  # every future resolved
+                evals, _ = self.backend.topk_row(
+                    row, k=k_eff, variant=self.variant
+                )
+                ann.record_shadow(vals, evals, k_eff)
+
     def _record_batch(self, stats: BatchStats) -> None:
         self._bucket_hist[stats.bucket] = (
             self._bucket_hist.get(stats.bucket, 0) + 1
@@ -549,7 +773,51 @@ class PathSimService:
             node_type, label=source, node_id=source_id
         )
 
+    def _resolve_mode(self, mode: str | None) -> str:
+        """Per-request mode override → effective answer path."""
+        if mode is None:
+            mode = self.config.topk_mode
+        if mode == "learned":
+            raise ValueError(
+                "topk mode 'learned' is not ported yet; choose 'exact' "
+                "or 'ann'"
+            )
+        if mode not in ("exact", "ann"):
+            raise ValueError(
+                f"unknown topk mode {mode!r}; choose 'exact', 'ann' or "
+                "'learned'"
+            )
+        return mode
+
+    def ann_fallback_reason(self, row: int, mode: str | None = None,
+                            metapath: str | None = None) -> str | None:
+        """Would an (effective-)``ann`` query for ``row`` degrade to
+        the exact path right now, and why? A side-effect-free peek —
+        no fallback counters tick — for observers: the worker annotates
+        responses with it so the router's flight recorder can
+        tail-keep ann-degraded requests. None = the ANN path answers
+        (or the effective mode is exact, where "fallback" is
+        meaningless). A request naming another metapath answers
+        exactly (``metapath``): the index embeds the served one."""
+        if self._resolve_mode(mode) != "ann":
+            return None
+        if self._canon_metapath(metapath) != self.metapath.name:
+            return "metapath"
+        if self._ann is None:
+            return "no_index"
+        return self._ann.peek(int(row))
+
+    def _ann_key(self, row: int, k: int) -> tuple:
+        """ANN result-cache key: the exact path's epoch prefix (base
+        fp + per-row delta version — a delta on this row invalidates
+        both tiers' entries the same way) plus an ``ann`` axis so an
+        approximate answer can never be served to an exact query or
+        vice versa."""
+        return (*self._epoch_for(row), "ann", self._ann.variant,
+                self._ann.nprobe, self._ann.cand_mult, int(row), int(k))
+
     def submit_topk(self, row: int, k: int | None = None,
+                    mode: str | None = None,
                     metapath: str | None = None) -> Future:
         """Admit a top-k query; returns a Future of (values, indices).
         Cache hits resolve immediately; misses ride the coalescer.
@@ -557,25 +825,43 @@ class PathSimService:
         ``metapath`` (None → the served one) answers through that
         metapath's engine and lane.
 
+        ``mode`` (None → the service default ``config.topk_mode``)
+        picks the answer path: ``exact`` scores the full row; ``ann``
+        probes the candidate index and exact-reranks — and silently
+        degrades to exact (counted, per reason) whenever the index
+        can't vouch for this row (stale/unseen/degenerate/confidence
+        lost/no index). Exact is ground truth, so degrading is always
+        safe; it only costs the speedup.
+
         Every admission opens a root ``serve.request`` span: cache hits
         finish it here; coalesced misses carry it across the
         dispatcher/completer thread hop, so one request = one connected
         trace (enqueue → dispatch → device → transfer → cache fill)."""
         k = int(k or self.config.k_default)
+        mode = self._resolve_mode(mode)
         name = self._canon_metapath(metapath)
         tracer = get_tracer()
         root = tracer.start_span(
-            "serve.request", row=int(row), k=k, mode="exact",
-            metapath=name,
+            "serve.request", row=int(row), k=k, mode=mode, metapath=name,
         )
         t0 = time.monotonic()
         try:
             with self._swap_lock:
                 if name != self.metapath.name:
+                    if mode == "ann":
+                        # the candidate index embeds the DEFAULT
+                        # metapath's geometry; other chains answer
+                        # exactly (counted like every other fallback)
+                        get_registry().counter(
+                            "dpathsim_ann_fallbacks_total",
+                            "ann-requested queries answered exactly "
+                            "instead, by reason",
+                        ).inc(reason="metapath")
                     return self._submit_metapath_locked(
                         int(row), k, name, root, t0
                     )
-                return self._submit_topk_locked(int(row), k, root, t0)
+                return self._submit_topk_locked(int(row), k, root, t0,
+                                                mode)
         except BaseException as exc:
             tracer.finish(root, outcome=type(exc).__name__)
             raise
@@ -584,13 +870,8 @@ class PathSimService:
                        n: int, root, t0: float) -> Future | None:
         """Tiers 1 and 2 of an admission: a result-LRU hit, or a known
         score row re-selected for this k on the host. None on a miss."""
-        tracer = get_tracer()
-        hit = self.result_cache.get(key)
-        if hit is not None:
-            fut: Future = Future()
-            fut.set_result(hit)
-            self._m_latency["hit_result"].observe(time.monotonic() - t0)
-            tracer.finish(root, outcome="hit_result")
+        fut = self._result_hit(key, root, t0)
+        if fut is not None:
             return fut
         srow = self.tile_cache.get_row(epoch, row)
         if srow is None:
@@ -603,7 +884,18 @@ class PathSimService:
         fut = Future()
         fut.set_result((vals[0], idxs[0]))
         self._m_latency["hit_tile"].observe(time.monotonic() - t0)
-        tracer.finish(root, outcome="hit_tile")
+        get_tracer().finish(root, outcome="hit_tile")
+        return fut
+
+    def _result_hit(self, key: tuple, root, t0: float) -> Future | None:
+        """Tier 1 of an admission: a result-LRU hit, or None."""
+        hit = self.result_cache.get(key)
+        if hit is None:
+            return None
+        fut: Future = Future()
+        fut.set_result(hit)
+        self._m_latency["hit_result"].observe(time.monotonic() - t0)
+        get_tracer().finish(root, outcome="hit_result")
         return fut
 
     def _submit_metapath_locked(self, row: int, k: int, name: str,
@@ -625,11 +917,26 @@ class PathSimService:
         )
 
     def _submit_topk_locked(self, row: int, k: int, root=None,
-                            t0: float = 0.0) -> Future:
+                            t0: float = 0.0, mode: str = "exact") -> Future:
         # Under _swap_lock: an update/reload drains the pipeline then
         # swaps or patches the backend — admissions must not interleave
         # with that (the drain would never finish, and a request could
         # resolve rows against one graph and dispatch against another).
+        if mode == "ann":
+            if self._ann is None:
+                get_registry().counter(
+                    "dpathsim_ann_fallbacks_total",
+                    "ann-requested queries answered exactly instead, "
+                    "by reason",
+                ).inc(reason="no_index")
+            elif self._ann.eligible(row) is None:
+                fut = self._result_hit(self._ann_key(row, k), root, t0)
+                if fut is not None:
+                    return fut
+                return self.coalescer.submit(
+                    row, k, span=root, t_submit=t0, lane="ann"
+                )
+            # ineligible (already counted by reason): exact fallback
         epoch = self._epoch_for(row)
         fut = self._answer_cached(
             (*epoch, row, k), epoch, row, k, self.n, root, t0
@@ -640,6 +947,7 @@ class PathSimService:
 
     def topk_index(self, row: int, k: int | None = None,
                    timeout_s: float | None = None,
+                   mode: str | None = None,
                    metapath: str | None = None):
         """Synchronous top-k by dense row index → (values, indices).
         ``timeout_s`` caps the wait below the service-wide default —
@@ -648,9 +956,9 @@ class PathSimService:
         timeout = self.config.request_timeout_s
         if timeout_s is not None:
             timeout = min(timeout, max(timeout_s, 0.0))
-        return self.submit_topk(row, k, metapath=metapath).result(
-            timeout=timeout
-        )
+        return self.submit_topk(
+            row, k, mode=mode, metapath=metapath
+        ).result(timeout=timeout)
 
     def _ident(self, i: int, node_type: str | None = None) -> tuple[str, str]:
         """(id, label) for a dense index — huge synthetic graphs carry
@@ -675,7 +983,7 @@ class PathSimService:
 
     def topk(self, source: str | None = None, source_id: str | None = None,
              row: int | None = None, k: int | None = None,
-             timeout_s: float | None = None,
+             timeout_s: float | None = None, mode: str | None = None,
              metapath: str | None = None):
         """Synchronous top-k by label / id / row, resolved to ids:
         list of (target_id, target_label, score). ``metapath``
@@ -691,7 +999,7 @@ class PathSimService:
             source=source, source_id=source_id, row=row, metapath=name
         )
         vals, idxs = self.topk_index(
-            r, k, timeout_s=timeout_s, metapath=name
+            r, k, timeout_s=timeout_s, mode=mode, metapath=name
         )
         return [
             (*self._ident(int(i), node_type), float(v))
@@ -849,13 +1157,36 @@ class PathSimService:
                 "inflight": self._compactor.inflight,
                 "count": self._compactor.compactions,
             },
-            # per-mode epoch map: the exact lane is the only one ported
+            # index epoch: lets a router (or operator) see which
+            # replicas hold a fresh ANN index — a replica without one
+            # still answers every query, exactly (None = exact-only)
+            "index": (
+                {
+                    "mode": self.config.topk_mode,
+                    "epoch": list(self._ann.index.token),
+                    "stale_rows": self._ann.index.stale_count,
+                    "enabled": self._ann.enabled,
+                }
+                if self._ann is not None
+                else None
+            ),
+            # per-mode epoch map: one entry per answer path this replica
+            # serves (the learned lane is not ported), each with its own
+            # consistency epoch
             "modes": {
                 "exact": {
                     "epoch": [self._base_fp, self._delta_seq],
                     "stale_rows": 0,
                     "enabled": True,
                 },
+                "ann": (
+                    {
+                        "epoch": list(self._ann.index.token),
+                        "stale_rows": self._ann.index.stale_count,
+                        "enabled": self._ann.enabled,
+                    }
+                    if self._ann is not None else None
+                ),
             },
             # process-lifetime compile count (kernel builds and loads):
             # a steady-state replica whose number moves is violating
@@ -963,6 +1294,12 @@ class PathSimService:
                 self._delta_seq += 1
                 self._fp = plan.fingerprint
                 affected_n = int(affected.shape[0])
+                if self._ann is not None:
+                    # the index's rows for this delta are now a graph
+                    # behind: fence them onto the exact path until the
+                    # (background) refresh re-embeds them. Appended
+                    # rows are uncovered by construction.
+                    self._ann.index.mark_stale(affected)
                 if want_rows:
                     # a router's fencing needs the SET, not the count: a
                     # replica that missed this delta is fenced for
@@ -1011,6 +1348,167 @@ class PathSimService:
                 # None under rebuild: "all rows" — the fence must cover
                 # everything, not an empty set
                 result["affected_row_list"] = affected_list
+            if self._ann is not None:
+                result["ann_stale_rows"] = self._ann.index.stale_count
+                if (
+                    mode == "delta"
+                    and self.config.ann_auto_refresh
+                    and self._ann.index.stale_count
+                    # only the struct map re-embeds in place
+                    and self._ann.index.meta.get("embedding") == "struct"
+                    # debounced: one refresh in flight at a time — a
+                    # sustained delta stream must not spawn a thread
+                    # (and pay a half-chain fold) per delta only to
+                    # abandon at the token check; the in-flight
+                    # refresh snapshots the token AFTER taking the
+                    # lock, so it folds the newest graph state anyway
+                    and not self._ann_refresh_inflight
+                ):
+                    # background re-embed: stale rows answer exactly in
+                    # the meantime, so serving correctness never waits
+                    # on this thread (it blocks on the swap lock we
+                    # still hold, then runs). The spawning update's
+                    # span context rides along as a LINK: the refresh
+                    # runs as its own trace, but its root span names
+                    # the update span that caused it.
+                    cur = get_tracer().current()
+                    link = (
+                        f"{cur.trace_id}:{cur.span_id}"
+                        if cur is not None and cur.span_id else None
+                    )
+                    self._ann_refresh_inflight = True
+                    threading.Thread(
+                        target=self._refresh_index_quietly,
+                        args=(link,),
+                        name="pathsim-ann-refresh", daemon=True,
+                    ).start()
+            return result
+
+    def _refresh_index_quietly(self, link: str | None = None) -> None:
+        try:
+            # its own root span (head sampling applies — a refresh is a
+            # background job, not a request), LINKED to the update that
+            # scheduled it via the ``link`` arg ("trace:span")
+            with get_tracer().span("ann.refresh", link=link):
+                while True:
+                    # an abandoned attempt (a newer delta landed
+                    # mid-fold) retries against the newer token —
+                    # deltas that arrived while we were the debounced
+                    # in-flight refresh must not be left stale until
+                    # some future update happens by
+                    result = self.refresh_index()
+                    if result.get("abandoned"):
+                        continue
+                    # Close the debounce window: a delta landing after
+                    # refresh_index released the swap lock but before
+                    # we clear the flag saw inflight=True and skipped
+                    # scheduling — its staleness is ours to absorb.
+                    # Re-check under the lock that owns both the flag
+                    # and the index; the progress guard (refreshed > 0)
+                    # keeps rows refresh CANNOT clear from spinning this
+                    # thread forever.
+                    with self._swap_lock:
+                        ann = self._ann
+                        more = (
+                            ann is not None
+                            and ann.index.meta.get("embedding") == "struct"
+                            and ann.index.stale_count
+                            and result.get("refreshed", 0) > 0
+                        )
+                        if not more:
+                            self._ann_refresh_inflight = False
+                            return
+        except Exception as exc:  # background thread: report, never die
+            runtime_event("ann_refresh_failed", error=repr(exc))
+            with self._swap_lock:
+                self._ann_refresh_inflight = False
+
+    def refresh_index(self) -> dict:
+        """Re-embed every delta-staled index row in place and advance
+        the index's consistency token to the service's — the
+        "background refresh" half of the staleness contract.
+        Embeddings come from the PATCHED graph on the index's pinned
+        quadrature grid/projection, so refreshed rows stay
+        inner-product-consistent with the rest of the index. Rows the
+        index cannot hold (appended past the build) stay on the exact
+        path; the accounting reports them. Also re-snapshots C/d for
+        the exact rerank and resets the shadow-recall gate (old
+        evidence described the old index state).
+
+        The expensive inputs (half-chain fold, re-embedding) are
+        computed OUTSIDE the swap lock against a token snapshot —
+        serving keeps flowing while they build — and applied under the
+        lock only if no further delta landed meanwhile (a newer delta
+        has already scheduled its own refresh, so abandoning is
+        correct, not lossy). The probe's device mirror is dropped with
+        the pipeline drained, so no probe in flight reads a
+        half-refreshed block."""
+        from ..index.build import (
+            half_chain_and_denominators, refresh_embeddings,
+        )
+
+        t0 = time.perf_counter()
+        with self._swap_lock:
+            ann = self._ann
+            if ann is None:
+                return {"ann": False, "refreshed": 0}
+            if ann.index.meta.get("embedding") != "struct":
+                result = {
+                    "ann": True, "refreshed": 0,
+                    "stale_remaining": ann.index.stale_count,
+                    "unsupported": "learned-embedding index: rebuild "
+                    "offline (dpathsim-torch index build) and reload",
+                }
+                runtime_event("ann_refresh_unavailable", **result)
+                return result
+            token0 = self.consistency_token
+            hin = self.hin
+            stale_rows = np.flatnonzero(ann.index.stale)
+        tracer = get_tracer()
+        with tracer.child_span(
+            "index.half_chain_fold", stale=int(stale_rows.size)
+        ):
+            c, d = half_chain_and_denominators(
+                hin, self.metapath, self.variant
+            )
+        emb = (
+            refresh_embeddings(ann.index, stale_rows, c, d)
+            if stale_rows.size else None
+        )
+        with self._swap_lock:
+            if self._ann is not ann or self.consistency_token != token0:
+                runtime_event(
+                    "ann_refresh_abandoned", token=list(token0),
+                    reason="newer delta landed during the re-embed",
+                )
+                return {"ann": True, "refreshed": 0, "abandoned": True}
+            # drained like update(): the probe reads the index arrays
+            # this refresh mutates, and a batch must never straddle it
+            self.coalescer.drain()
+            unplaced: list[int] = []
+            if emb is not None:
+                unplaced = ann.index.refresh_rows(
+                    stale_rows, emb, token=token0
+                )
+            else:
+                ann.index.token = token0
+            c.flags.writeable = False
+            ann.c64 = c
+            ann.d = d
+            if ann.variant == "rerank-all":
+                ann.rebind_counts()  # blocks must mirror the new slots
+            ann.reset_confidence()
+            ms = round((time.perf_counter() - t0) * 1e3, 3)
+            result = {
+                "ann": True,
+                "refreshed": int(stale_rows.size) - len(unplaced),
+                "unplaced": len(unplaced),
+                "stale_remaining": ann.index.stale_count,
+                "uncovered_rows": max(self.n - ann.index.n, 0),
+                "token": list(ann.index.token),
+                "ms": ms,
+            }
+            runtime_event("ann_refresh", **result)
             return result
 
     def reload(self, backend: PathSimBackend) -> None:
@@ -1178,7 +1676,8 @@ class PathSimService:
                 ),
             },
             "factor": self.backend.factor_info(),
-            "topk_mode": "exact",
+            "topk_mode": self.config.topk_mode,
+            "ann": self._ann.snapshot() if self._ann is not None else None,
             "delta": {
                 "seq": self._delta_seq,
                 "base_fingerprint": self._base_fp,
@@ -1218,6 +1717,8 @@ class PathSimService:
         # a closed service answers nothing: its engines' device factors go
         with self._engines_lock:
             self._engines.clear()
+        if self._ann is not None:
+            self._ann.close()
 
 
 def build_service(

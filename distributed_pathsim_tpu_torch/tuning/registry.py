@@ -22,13 +22,16 @@ registered here only where the port has its decision point today:
   ``resolve_ring_kernel``). Its one arm is ``rect-cuda`` (K3): the torch
   fold is a plain version and runs only where K3 rejects the shape, so a
   table's other arm on a K3-feasible shape (the JAX ``jnp-fold``) counts
-  as a ``fallback`` lookup.
+  as a ``fallback`` lookup;
+- ``ann_centroids`` / ``ann_cluster_cap``: the MIPS index build
+  (index/build.py); ``ann_probe_variant`` / ``ann_nprobe`` /
+  ``ann_cand_mult``: the ANN serving lane (serving/service.py).
 
 The JAX package's other Pallas tile and variant knobs
 (``scores_variant``, ``scores_tile``, ``topk_rowtile``, ``k_tile``)
 have no port arm: an "xla" arm would put a kernel's plain version on the
 card's path, and the CUDA kernels' own configuration knobs come with the
-autotuner. The ANN and learned knobs come with their modules.
+autotuner. The learned knobs come with the learned tier.
 
 Every knob is **bit-invisible by construction**: choices only move work
 between tilings that share the exact integer-count + f64-normalize
@@ -150,6 +153,52 @@ KNOBS: dict[str, Knob] = {
             "it (k >= 16) and on the host, whatever a table says "
             "(parallel/ring.ring_topk_step).",
             candidates=lambda ctx: ["rect-cuda"],
+        ),
+        Knob(
+            name="ann_centroids",
+            doc="MIPS index centroid count as a multiplier on √N "
+            "(index/build.default_centroids): more centroids → "
+            "smaller clusters → cheaper probes but weaker cluster "
+            "locality (recall needs more nprobe).",
+            candidates=lambda ctx: [0.5, 1.0, 2.0],
+        ),
+        Knob(
+            name="ann_cluster_cap",
+            doc="packed-cluster capacity (pad-to) of the MIPS index "
+            "blocks: probe cost is nprobe·cap·dim, so a tight cap is "
+            "cheaper per probe but spills more members off their "
+            "nearest centroid (recall). Feasibility (K·cap ≥ N) is "
+            "re-checked at build; an infeasible tuned cap is raised "
+            "loudly, never trusted.",
+            candidates=lambda ctx: [64, 128, 256, 512],
+        ),
+        Knob(
+            name="ann_probe_variant",
+            doc="ANN candidate generation strategy: 'rerank-all' "
+            "routes only (centroid top-nprobe + member ids) and "
+            "exact-reranks every probed member against packed "
+            "per-cluster count blocks (wins when the half-chain "
+            "width V is narrow — the rerank matmul is cheaper than "
+            "embedding-space scoring); 'shortlist' scores the probed "
+            "embedding blocks in one batched matmul and exact-reranks "
+            "only the top cand_mult·k (wins at wide V / on matmul "
+            "hardware). Both are exact-reranked, both bit-identical "
+            "when the true top-k is covered.",
+            candidates=lambda ctx: ["rerank-all", "shortlist"],
+        ),
+        Knob(
+            name="ann_nprobe",
+            doc="clusters probed per ANN query: the recall/latency "
+            "dial of candidate generation. Arms failing the recall "
+            "floor are excluded by the tuner, not merely slow.",
+            candidates=lambda ctx: [8, 16, 32, 48, 64, 96],
+        ),
+        Knob(
+            name="ann_cand_mult",
+            doc="candidate multiplier: C = mult·k candidates survive "
+            "the probe into the exact f64 rerank. Larger mult buys "
+            "recall at O(C·V) rerank cost per query.",
+            candidates=lambda ctx: [4, 8, 16, 32],
         ),
         Knob(
             name="serve_buckets",

@@ -29,8 +29,12 @@ def process_state(monkeypatch):
     from distributed_pathsim_tpu_torch import obs as tobs
     from distributed_pathsim_tpu_torch import tuning
 
-    monkeypatch.delenv("PATHSIM_TUNING_TABLE", raising=False)
-    monkeypatch.delenv("PATHSIM_MAX_RETRIES", raising=False)
+    for var in ("PATHSIM_TUNING_TABLE", "PATHSIM_MAX_RETRIES"):
+        # setenv first, so the undo restores the prior state even when
+        # the variable was absent (delenv alone records nothing then)
+        # and a value the CLI exports does not outlive the test
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
     tracing = (jobs.get_tracer().enabled, tobs.get_tracer().enabled)
     yield
     tuning.reset()

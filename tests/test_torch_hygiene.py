@@ -167,7 +167,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "tuning.table", "models.multipath", "bench",
                 "resilience.degrade", "ops.packed", "data.compress",
                 "batch.campaign", "batch.simjoin", "batch.pairs", "batch.cli",
-                "router.batch", "index.mips", "parallel.mesh",
+                "router.batch", "index.mips", "index.build", "index.cli",
+                "serving.ann", "models.neural", "parallel.mesh",
                 "parallel.ring", "parallel.sharded", "parallel.tiling",
                 "parallel.multihost", "backends.torch_sharded",
                 "backends.partition_factors", "serving.partition",

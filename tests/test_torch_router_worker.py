@@ -75,8 +75,8 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         err = capsys.readouterr().err
         assert "no CUDA device" in err and "--platform cpu" in err, cmd
     for argv in (
-        ["worker", "--topk-mode", "ann"],
-        ["router", "--topk-mode", "ann"],
+        ["worker", "--topk-mode", "learned"],
+        ["router", "--topk-mode", "learned"],
     ):
         assert torch_main([*argv, "--dataset", SPEC,
                            "--platform", "cpu"]) == 1, argv

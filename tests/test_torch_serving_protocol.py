@@ -86,9 +86,7 @@ def _script(hin):
 
 # requests the port refuses per request: the lane is not ported yet
 NOT_PORTED = [
-    {"id": 101, "op": "topk", "row": 1, "mode": "ann"},
     {"id": 102, "op": "topk", "row": 1, "mode": "learned"},
-    {"id": 105, "op": "refresh_index"},
     {"id": 106, "op": "refresh_towers"},
 ]
 
@@ -249,8 +247,8 @@ def test_serve_refuses_without_a_card_and_unported_flags(
     assert torch_main(["serve", "--dataset", gexf]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device is available" in err and "--platform cpu" in err
-    for flag in (["--topk-mode", "ann"], ["--learned-checkpoint", "t.npz"],
-                 ["--index=idx.npz"]):
+    for flag in (["--topk-mode", "learned"], ["--learned-checkpoint", "t.npz"],
+                 ["--learned-steps=5"]):
         assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
                            *flag]) == 1
         assert "not ported yet" in capsys.readouterr().err, flag
