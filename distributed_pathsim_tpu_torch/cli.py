@@ -9,8 +9,9 @@ Replaces the reference's hard-coded ``__main__`` block
 and routes ``dpathsim-torch serve ...`` to the online serving entry
 point (serving/cli.py), ``dpathsim-torch worker / router /
 fleet-stats ...`` to the horizontal tier (router/cli.py), ``batch`` to
-the campaigns (batch/cli.py) and ``index build / probe`` to the ANN
-tier's candidate index (index/cli.py).
+the campaigns (batch/cli.py), ``index build / probe`` to the ANN
+tier's candidate index (index/cli.py) and ``learned inspect`` to the
+learned tier's tower checkpoints (learned/cli.py).
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -232,8 +233,10 @@ def parse_args(argv: list[str]):
 # fault-tolerant fan-out over N of them; ``fleet-stats``: the one-shot
 # merged-fleet summary; ``batch``: corpus-scale campaigns (top-k for
 # every row, the similarity join) with checkpointed resume; ``index``:
-# build / probe the ANN tier's MIPS candidate index.
-SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index")
+# build / probe the ANN tier's MIPS candidate index; ``learned``: inspect
+# a tower checkpoint (``train`` is not ported yet).
+SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index",
+               "learned")
 
 
 def _subcommand(name: str):
@@ -249,6 +252,10 @@ def _subcommand(name: str):
         from .index.cli import index_main
 
         return index_main
+    if name == "learned":
+        from .learned.cli import learned_main
+
+        return learned_main
     from .router import cli as router_cli
 
     return {

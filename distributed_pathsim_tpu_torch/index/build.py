@@ -9,8 +9,9 @@ The embedding source is inner-product-faithful to the exact score:
   ``max_dim`` a seeded Gaussian (JL) projection compresses it — inner
   products are preserved in expectation and the serving layer's
   shadow-recall gate measures what actually survived.
-- ``learned`` (a trained two-tower checkpoint) comes with the learned
-  tier; until then it raises a named "not ported yet" error.
+- ``learned`` (a trained NeuralPathSim checkpoint) comes with the
+  learned tier's training; until then it raises a named "not ported
+  yet" error.
 
 Everything here is host numpy, as in the JAX package's
 ``index/build.py``, so a port build equals a JAX build array for array.
@@ -97,8 +98,9 @@ def struct_embeddings(
 
 
 def learned_embeddings(model_path: str, n_expect: int) -> np.ndarray:
-    """Corpus embeddings from a trained two-tower checkpoint: the
-    learned tier is not ported yet, so this refuses by name."""
+    """Corpus embeddings from a trained NeuralPathSim checkpoint: the
+    learned tier's training is not ported yet, so this refuses by
+    name."""
     raise NotImplementedError(
         "index embedding 'learned' is not ported yet (it needs the "
         "learned tier's checkpoints); build with --embedding struct"

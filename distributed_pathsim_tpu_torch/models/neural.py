@@ -11,8 +11,8 @@ w_k, φ(j) = vec_k( sqrt(2·w_k) · e^(-d_j·t_k) · C_j ) satisfies
 This module holds the port's copy of the JAX package's
 ``models/neural.py`` helpers the index needs (host numpy, unchanged):
 the quadrature grid, its gates and the grid width ``QUAD_M``. The
-neural/learned tier (the two-tower trainer, its checkpoints and serving
-lane) extends this module when it is ported.
+learned tier's serving lane lives in ``learned/``; the two-tower trainer
+and its checkpoint extend this module when training is ported.
 """
 
 from __future__ import annotations

@@ -99,8 +99,8 @@ def default_specs(
     cold-start answerability floor (fraction of appended rows already
     absorbed into the towers, worst replica — a replica falling behind
     on absorbs is answering its cold-start authors through counted
-    fallbacks instead of the learned arm). The port does not serve the
-    learned lane yet: that floor sees no observation and never burns."""
+    fallbacks instead of the learned arm; a replica without towers
+    reports none)."""
     return (
         SLOSpec(
             name="availability", kind="availability",

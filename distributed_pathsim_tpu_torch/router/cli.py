@@ -29,11 +29,13 @@ instead (router/partition.py): worker ``w<i>`` runs with
 ``--partition-index i --partitions N --partition-replication R`` and
 holds range i plus the next R − 1 ranges of the half-chain factor
 (serving/partition.py); queries scatter over the ranges and merge
-exactly. The serve flags of the learned lane, which the port lacks,
-answer "not ported yet". ``--factor-format`` is forwarded to every
-worker (torch-sparse's packed layouts; in partition mode the slice's
-layout), and so are the ANN flags (``--topk-mode ann``, ``--index``,
-``--ann-*``): each replica builds or loads its own candidate index.
+exactly. ``--factor-format`` is forwarded to every worker
+(torch-sparse's packed layouts; in partition mode the slice's layout),
+and so are the ANN flags (``--topk-mode ann``, ``--index``, ``--ann-*``:
+each replica builds or loads its own candidate index) and the learned
+flags (``--topk-mode learned``, ``--learned-checkpoint``,
+``--learned-*``: each replica loads the towers). The serve flags that
+train towers in the service answer "not ported yet".
 """
 
 from __future__ import annotations
@@ -202,9 +204,12 @@ _FORWARD_VALUE = (
     "compact_chain_len", "compact_headroom_frac", "compact_headroom",
     "compact_cooldown", "topk_mode", "index", "ann_nprobe", "ann_cand_mult",
     "ann_centroids", "ann_cluster_cap", "ann_variant", "ann_shadow_every",
+    "learned_checkpoint", "learned_cand_mult", "learned_shadow_every",
+    "learned_recall_floor",
 )
 _FORWARD_TRUE = ("no_warm", "no_metrics", "no_tuning", "approx",
-                 "batch_events", "no_compact", "no_ann_refresh")
+                 "batch_events", "no_compact", "no_ann_refresh",
+                 "no_learned_refresh")
 # artifact-path flags forwarded with a per-worker suffix: a fleet run
 # with --metrics-file/--trace-out/--metrics must leave N+1 artifacts
 # (one per process), not N processes clobbering one path

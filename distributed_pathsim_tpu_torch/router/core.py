@@ -118,8 +118,8 @@ class RouterConfig:
     scrape_interval_s: float = 5.0
     # declarative SLO specs evaluated over the merged stream; () ships
     # the defaults (availability / p99 latency / update-visible
-    # staleness, the ann recall floor, and the JAX package's learned
-    # floor, which a port fleet never feeds; obs/slo.py)
+    # staleness, the ann recall floor, and the learned cold-start
+    # floor; obs/slo.py)
     slo_specs: tuple = ()
     # flight-recorder tail threshold: a request slower than this is
     # kept even if nothing else went wrong. None derives it from the
@@ -1793,8 +1793,10 @@ class Router:
                             # queries never NEED one — an ann request on
                             # an index-less replica answers exactly
                             "index": w.last_health.get("index"),
-                            # per-mode epoch map (exact / ann), each
-                            # with its own epoch
+                            # per-mode epoch map: exact / ann /
+                            # learned, each with its own epoch — a
+                            # learned request re-dispatched onto a
+                            # tower-less replica still answers, exactly
                             "modes": w.last_health.get("modes"),
                         }
                         for w in self.workers.values()

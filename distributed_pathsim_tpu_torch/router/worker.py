@@ -31,8 +31,9 @@ its candidate index, or exactly when it cannot (a replica with no index
 answers exactly, counted as ``no_index``), and the response's
 ``ann_fallback`` names the reason whenever the ANN path did not answer —
 what lets the router's flight recorder keep every ann-degraded request.
-``"mode": "learned"`` answers the same per-request "not ported yet"
-error as ``serve``. A partition worker (serving/partition.py) answers the
+``"mode": "learned"`` answers through the towers the same way, with a
+``learned_fallback`` annotation (a replica without towers answers
+ann-then-exact, counted as ``no_towers``). A partition worker (serving/partition.py) answers the
 partition-exchange ops and refuses whole queries. ``batch_blocks`` (a batch campaign's row block, router/batch.py) is
 answered synchronously like the other non-query ops. A ``topk`` naming another closed ``metapath``
 answers through the service's engine for it, as ``serve`` does (the JAX
@@ -60,7 +61,7 @@ from ..resilience import (
     resilient_call,
 )
 from ..serving.coalescer import LoadShedError, ServiceClosed
-from ..serving.protocol import check_lane, handle_request
+from ..serving.protocol import handle_request
 from ..serving.service import PathSimService
 from ..utils.logging import runtime_event
 
@@ -220,14 +221,10 @@ class WorkerRuntime:
             fail(str(exc.args[0] if exc.args else exc))
             return
         k = int(req.get("k") or self.service.config.k_default)
-        try:
-            # a lane the port does not serve (learned) is refused per
-            # request, exactly as serve does
-            check_lane(req)
-        except (KeyError, ValueError) as exc:
-            fail(str(exc.args[0] if exc.args else exc))
-            return
         mode = req.get("mode")
+        if mode not in (None, "exact", "ann", "learned"):
+            fail(f"unknown topk mode {mode!r}")
+            return
         t0 = time.perf_counter()
         # Transient dispatch faults retry LOCALLY first, under a policy
         # CLAMPED to the caller's remaining budget (deadline_ms →
@@ -255,6 +252,11 @@ class WorkerRuntime:
                 row, mode, metapath=metapath)
         except Exception:
             ann_fallback = None
+        try:
+            learned_fallback = self.service.learned_fallback_reason(
+                row, mode, metapath=metapath)
+        except Exception:
+            learned_fallback = None
         try:
             # mode rides through: a replica WITHOUT an index answers an
             # "ann" request exactly (counted as a no_index fallback) —
@@ -303,6 +305,8 @@ class WorkerRuntime:
                 result = {"row": int(row), "topk": hits}
                 if ann_fallback is not None:
                     result["ann_fallback"] = ann_fallback
+                if learned_fallback is not None:
+                    result["learned_fallback"] = learned_fallback
                 resp = {
                     "id": rid,
                     "ok": True,

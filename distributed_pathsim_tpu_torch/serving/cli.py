@@ -17,9 +17,13 @@ Prometheus textfile of the live registry, rewritten every
 memo (``--memo-budget-mb``, ``--max-metapaths``); background compaction
 runs by default (``--no-compact``, ``--compact-*``); ``--factor-format``
 holds torch-sparse's factor packed; ``--topk-mode ann`` answers through
-the MIPS candidate index (``--index``, ``--ann-*``). Flags of the JAX
-package's ``serve`` that belong to the learned lane, not ported yet,
-are refused by name, and so is ``--topk-mode learned``.
+the MIPS candidate index (``--index``, ``--ann-*``), ``--topk-mode
+learned`` through the two-tower candidates of a tower checkpoint
+(``--learned-checkpoint``, ``--learned-*``). The JAX package's flags
+that train towers in the service (``--learned-dim``,
+``--learned-steps``, ``--learned-neg-ratio``) are not ported yet and
+are refused by name, and so is ``--topk-mode learned`` without a
+checkpoint (the JAX package would train one).
 
 The setup helpers here (:func:`parse_known`, :func:`prepare_platform`,
 :func:`run_config`, :func:`serve_config`, :func:`serving_process`) are
@@ -39,12 +43,9 @@ from ..ops.pathsim import VARIANTS
 from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
-# does not have yet: the learned lane's.
+# does not have yet: those of training towers in the service.
 NOT_PORTED_FLAGS = frozenset({
-    "--learned-checkpoint", "--learned-dim", "--learned-steps",
-    "--learned-neg-ratio", "--learned-cand-mult",
-    "--learned-shadow-every", "--learned-recall-floor",
-    "--no-learned-refresh",
+    "--learned-dim", "--learned-steps", "--learned-neg-ratio",
 })
 
 
@@ -211,9 +212,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
         choices=("exact", "ann", "learned"),
         help="default topk answer path: 'exact' scores the full O(N) "
         "row; 'ann' probes the MIPS candidate index and exact-reranks "
-        "C >> k candidates (per-request override via the protocol's "
-        "'mode' field; ineligible rows silently degrade to exact, "
-        "counted per reason); 'learned' is not ported yet",
+        "C >> k candidates; 'learned' shortlists via the two-tower "
+        "encoder of --learned-checkpoint and exact-reranks (per-request "
+        "override via the protocol's 'mode' field; ineligible rows "
+        "silently degrade learned -> ann -> exact, counted per reason)",
     )
     p.add_argument(
         "--index", default=None,
@@ -260,6 +262,34 @@ def build_serve_parser() -> argparse.ArgumentParser:
         "rows (they then stay on the exact path until the "
         "'refresh_index' op)",
     )
+    p.add_argument(
+        "--learned-checkpoint", default=None,
+        help="tower checkpoint (.npz) written by the JAX package's "
+        "`dpathsim learned train` or by this package; must match the "
+        "served graph's base fingerprint and token. Required with "
+        "--topk-mode learned (training towers here is not ported yet)",
+    )
+    p.add_argument(
+        "--learned-cand-mult", type=int, default=None,
+        help="candidates per learned query as a multiple of k "
+        "(default: tuning registry)",
+    )
+    p.add_argument(
+        "--learned-shadow-every", type=int, default=64,
+        help="every Nth learned dispatch also runs the exact oracle "
+        "and feeds the recall-confidence gate (0 disables shadowing)",
+    )
+    p.add_argument(
+        "--learned-recall-floor", type=float, default=None,
+        help="shadow score-recall floor below which the learned arm "
+        "disables itself (default: tuning registry)",
+    )
+    p.add_argument(
+        "--no-learned-refresh", action="store_true",
+        help="disable the background tower re-embed after deltas "
+        "(stale/appended rows then degrade until the "
+        "'refresh_towers' op)",
+    )
     return p
 
 
@@ -267,8 +297,9 @@ def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
                 command: str = "serve"):
     """Parse ``argv``; a flag of the JAX package's command that the port
     lacks (``not_ported``) raises ValueError naming it, and so does
-    ``--topk-mode learned``; any other unknown flag is argparse's usage
-    error."""
+    ``--topk-mode learned`` without ``--learned-checkpoint`` (the JAX
+    package would train towers in the service); any other unknown flag
+    is argparse's usage error."""
     args, rest = parser.parse_known_args(argv)
     for token in rest:
         flag = token.split("=", 1)[0]
@@ -276,8 +307,14 @@ def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
             raise ValueError(f"{command} {flag} is not ported yet")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if getattr(args, "topk_mode", None) == "learned":
-        raise ValueError(f"{command} --topk-mode learned is not ported yet")
+    if (getattr(args, "topk_mode", None) == "learned"
+            and getattr(args, "learned_checkpoint", None) is None):
+        raise ValueError(
+            f"{command} --topk-mode learned without --learned-checkpoint "
+            "is not ported yet (training towers in the service comes "
+            "with the learned tier's training slice); pass a tower "
+            "checkpoint"
+        )
     return args
 
 
@@ -368,6 +405,11 @@ def serve_config(args) -> ServeConfig:
         ann_variant=args.ann_variant,
         ann_shadow_every=args.ann_shadow_every,
         ann_auto_refresh=not args.no_ann_refresh,
+        learned_checkpoint=args.learned_checkpoint,
+        learned_cand_mult=args.learned_cand_mult,
+        learned_shadow_every=args.learned_shadow_every,
+        learned_recall_floor=args.learned_recall_floor,
+        learned_auto_refresh=not args.no_learned_refresh,
     )
 
 

@@ -76,9 +76,9 @@ class Request:
     origin-comparable; 0.0 when the caller didn't stamp one.
 
     ``lane`` routes the batch to one of the service's dispatch paths:
-    a batch is single-lane (the batch former never mixes lanes). The
-    port's service serves one lane, ``exact``; the JAX package's ANN
-    and learned lanes would each coalesce into batches of their own."""
+    a batch is single-lane (the batch former never mixes lanes):
+    ``exact``, ``ann``, ``learned`` and one ``mp:<metapath>`` lane per
+    secondary metapath each coalesce into batches of their own."""
 
     row: int
     k: int

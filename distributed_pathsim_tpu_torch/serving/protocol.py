@@ -26,23 +26,26 @@ Requests::
     {"id": 16, "op": "compact"}
     {"id": 17, "op": "topk", "row": 17, "mode": "ann"}
     {"id": 18, "op": "refresh_index"}
+    {"id": 19, "op": "topk", "row": 17, "mode": "learned"}
+    {"id": 20, "op": "refresh_towers"}
     {"id": 8, "op": "update",
      "add_nodes": [{"type": "author", "id": "a_new", "label": "A. New"}],
      "add_edges": [{"rel": "author_of", "src": "a_new", "dst": "paper_7"}],
      "remove_edges": [{"rel": "author_of", "src_row": 4, "dst_row": 17}]}
 
-``topk`` accepts an optional ``mode`` (``"exact"`` | ``"ann"``, default
-the service's ``--topk-mode``): ``ann`` answers through the MIPS
-candidate index plus an exact f64 rerank, and silently degrades to the
-exact path (counted per reason) for rows the index cannot vouch for.
+``topk`` accepts an optional ``mode`` (``"exact"`` | ``"ann"`` |
+``"learned"``, default the service's ``--topk-mode``): ``ann`` answers
+through the MIPS candidate index plus an exact f64 rerank, and silently
+degrades to the exact path (counted per reason) for rows the index
+cannot vouch for; ``learned`` answers through the two-tower candidates
+plus the same exact rerank, degrading ann-then-exact.
 ``refresh_index`` re-embeds the delta-staled index rows and advances
-the index epoch to the service's token.
+the index epoch to the service's token; ``refresh_towers`` re-embeds
+the delta-staled and appended rows through the towers' inductive
+encoder (cold start) and advances the towers' epoch.
 
-Not ported yet, each answered with a per-request error that says so
-(never a silent exact answer, never a process exit): ``topk``'s
-``"mode": "learned"`` and the op ``refresh_towers``. ``batch_blocks``
-answers one row block of a batch campaign (router/batch.py). The
-partition-exchange ops (``resolve``,
+``batch_blocks`` answers one row block of a batch campaign
+(router/batch.py). The partition-exchange ops (``resolve``,
 ``part_info``, ``set_colsum``, ``tile_pull``, ``partial_topk``,
 ``partial_scores``, ``part_update``) are served by partition workers
 (serving/partition.py) behind ``dpathsim-torch router --mode
@@ -114,8 +117,8 @@ _QUERY_KEYS = ("source", "source_id", "row")
 # handled by serve_loop itself).
 PROTOCOL_OPS = frozenset({
     "ping", "stats", "metrics", "health", "invalidate", "topk",
-    "refresh_index", "update", "scores", "trace", "compact",
-    "batch_blocks",
+    "refresh_index", "refresh_towers", "update", "scores", "trace",
+    "compact", "batch_blocks",
     # partition-mode exchange ops: served by PartitionService workers
     # behind `dpathsim-torch router --mode partition`; on a replica
     # service they fail as clean per-request errors. part_update /
@@ -125,15 +128,8 @@ PROTOCOL_OPS = frozenset({
     "partial_scores", "part_update",
 })
 
-# Ops of the JAX package's protocol whose lanes are not ported yet: each
-# answers a per-request "not ported yet" error.
-NOT_PORTED_OPS = frozenset({"refresh_towers"})
-
 _PARTITION_OPS = ("part_info", "set_colsum", "tile_pull", "partial_topk",
                   "partial_scores", "part_update")
-
-# topk answer modes of the JAX package the port does not serve yet.
-_NOT_PORTED_MODES = ("learned",)
 
 # op → (latency-histogram cell, error-counter cell), bound on first use
 # so the steady-state path pays cell increments, never registry/label
@@ -207,27 +203,6 @@ def metrics_snapshot(service: PathSimService) -> dict:
     }
 
 
-class NotPorted(KeyError):
-    """A request for a lane, op or field value of the JAX package's
-    protocol that the port does not serve yet."""
-
-
-def check_lane(req: dict) -> None:
-    """Refuse, per request, what only an unported lane could answer: a
-    ``topk`` in the learned ``mode``."""
-    mode = req.get("mode")
-    if mode in _NOT_PORTED_MODES:
-        raise NotPorted(
-            f"topk mode {mode!r} is not ported yet; the port serves the "
-            "exact and ann lanes (omit 'mode' or send 'exact' or 'ann')"
-        )
-    if mode not in (None, "exact", "ann"):
-        raise ValueError(
-            f"unknown topk mode {mode!r}; choose 'exact', 'ann' or "
-            "'learned'"
-        )
-
-
 def _dispatch_op(
     service: PathSimService, op: str, req: dict,
     deadline: Deadline | None = None,
@@ -246,7 +221,6 @@ def _dispatch_op(
         service.invalidate()
         return {"invalidated": True}
     if op == "topk":
-        check_lane(req)
         kwargs = {key: req.get(key) for key in _QUERY_KEYS}
         if all(v is None for v in kwargs.values()):
             raise KeyError("topk needs one of source / source_id / row")
@@ -264,6 +238,10 @@ def _dispatch_op(
         }
     if op == "refresh_index":
         return service.refresh_index()
+    if op == "refresh_towers":
+        # absorb the patched graph into the learned tier (re-embed the
+        # stale + appended rows through the inductive encoder)
+        return service.refresh_towers()
     if op == "compact":
         # force one background-style compaction synchronously
         # (serving/compact.py): re-encode with fresh pow-2 headroom,
@@ -324,8 +302,6 @@ def _dispatch_op(
         }
     if op in _PARTITION_OPS:
         return _partition_op(service, op, req)
-    if op in NOT_PORTED_OPS:
-        raise NotPorted(f"op {op!r} is not ported yet")
     raise KeyError(f"unknown op {op!r}")
 
 

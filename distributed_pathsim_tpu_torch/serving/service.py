@@ -37,9 +37,19 @@ no index) answers through the exact lane, counted by reason. Whenever
 the candidates cover the exact top-k the ANN answer is bit-identical to
 the exact one.
 
-The port serves the exact and ANN lanes of the JAX package's service,
-and the batch tier's ``batch_blocks`` op. Its learned lane is not
-ported yet.
+``mode="learned"`` (or ``--topk-mode learned``) answers through the
+two-tower candidates of a tower checkpoint (learned/): the tower probe
+and the top-C pick run on the backend's device, the candidates are
+reranked exactly in host f64, and a row the towers cannot vouch for
+(stale, degenerate, confidence lost, another metapath, no towers)
+degrades learned → ann → exact, counted by reason. ``refresh_towers``
+re-embeds the delta-touched and appended rows through the inductive
+encoder (cold start). Training towers in the service (the JAX package's
+fallback when no usable checkpoint is given) is not ported yet: a
+learned-mode service without one refuses to start.
+
+The port serves the exact, ANN and learned lanes of the JAX package's
+service, and the batch tier's ``batch_blocks`` op.
 """
 
 from __future__ import annotations
@@ -147,8 +157,8 @@ class ServeConfig:
     # -- ANN candidate generation (index/, serving/ann.py) -------------
     # Default answer path: "exact" scores the full O(N) row; "ann"
     # probes the MIPS index for C ≫ k candidates and exact-reranks
-    # them (per-request override via submit_topk's ``mode``). The
-    # learned lane ("learned") is not ported yet.
+    # them; "learned" shortlists through the two-tower encoder and
+    # exact-reranks (per-request override via submit_topk's ``mode``).
     topk_mode: str = "exact"
     # Prebuilt `dpathsim-torch index build` artifact; None + mode "ann"
     # builds the struct-embedded index in-process at startup.
@@ -172,6 +182,26 @@ class ServeConfig:
     # per delta burst, debounced); off = refresh only via the
     # refresh_index op/method.
     ann_auto_refresh: bool = True
+    # -- learned candidate generation (learned/) -----------------------
+    # A tower checkpoint (the JAX package's `dpathsim learned train`
+    # artifact). Mode "learned" requires one: training towers in the
+    # service is not ported yet.
+    learned_checkpoint: str | None = None
+    # candidates per learned query as a multiple of k (None → the
+    # tuned learned_cand_mult knob)
+    learned_cand_mult: int | None = None
+    # Shadow-recall confidence gate (the ann gate's twin): every Nth
+    # learned dispatch also runs the exact oracle; measured
+    # score-recall below the floor disables the learned arm until a
+    # refresh. None floor → the tuned learned_conf_floor knob.
+    learned_shadow_every: int = 64
+    learned_recall_floor: float | None = None
+    learned_min_shadow: int = 8
+    # Re-embed delta-staled/appended rows in a background thread after
+    # patch updates (stale/cold rows answer by counted fallback in the
+    # meantime); cadence (every Nth delta) is the tuned
+    # learned_refresh_deltas knob.
+    learned_auto_refresh: bool = True
 
 
 class PathSimService:
@@ -215,7 +245,9 @@ class PathSimService:
                 "dpathsim_serve_request_seconds",
                 "submit-to-resolve request latency by outcome",
             ).labels(outcome=outcome)
-            for outcome in ("hit_result", "hit_tile", "dispatch", "ann")
+            for outcome in (
+                "hit_result", "hit_tile", "dispatch", "ann", "learned"
+            )
         }
         self._m_updates = reg.counter(
             "dpathsim_serve_updates_total",
@@ -227,6 +259,10 @@ class PathSimService:
         self._resolve_mode(None)  # the default mode: refused up front
         self._ann = None  # AnnState once _setup_ann builds/loads one
         self._ann_refresh_inflight = False  # background-refresh debounce
+        self._learned = None  # LearnedState once _setup_learned loads one
+        self._learned_refresh_inflight = False
+        self._learned_deltas = 0  # deltas since the last tower refresh
+        self._learned_refresh_every = 1  # tuned cadence (re-set at setup)
         # Workload-level sub-chain memo + lazily-built per-metapath
         # engines (per-request ``metapath`` field). Built BEFORE the
         # backend install so a rebuild-time engine flush finds them.
@@ -334,6 +370,7 @@ class PathSimService:
                 variant=self.variant,
             )
         self._setup_ann(warm=warm)
+        self._setup_learned(warm=warm)
 
     def _setup_ann(self, warm: bool) -> None:
         """(Re)build or load the ANN candidate index for the freshly
@@ -444,6 +481,119 @@ class PathSimService:
             nprobe=self._ann.nprobe, cand_mult=self._ann.cand_mult,
             variant=self._ann.variant,
             source="file" if cfg.index_path else "built",
+            startup_s=round(time.perf_counter() - t0, 3),
+        )
+
+    def _setup_learned(self, warm: bool) -> None:
+        """(Re)load the learned-tower candidate state for the freshly
+        installed backend from ``learned_checkpoint``. The checkpoint
+        must be keyed to this graph and token and to the served variant
+        and metapath; an unusable one on a service where the learned arm
+        is optional degrades quietly (``learned_towers_rejected``). A
+        learned-mode service would distill its own towers there, as the
+        JAX package's does — training is not ported yet, so its first
+        install raises :class:`~..learned.TrainingNotPorted` instead,
+        and a later one (an update's rebuild, a reload: the new graph's
+        fingerprint no longer matches the towers) serves on without the
+        arm, loudly (``learned_unavailable``; learned queries count
+        ``no_towers`` and answer ann-then-exact). The towers embed the
+        corpus on the backend's device (the host for the numpy
+        oracle)."""
+        cfg = self.config
+        if self._learned is not None:
+            self._learned.close()
+        self._learned = None
+        if cfg.topk_mode != "learned" and cfg.learned_checkpoint is None:
+            return
+        from .. import tuning
+        from ..index.build import half_chain_and_denominators
+        from ..learned import (
+            TRAINING_SLICE,
+            LearnedState,
+            TowerMismatch,
+            TrainingNotPorted,
+            load_towers,
+        )
+
+        t0 = time.perf_counter()
+        encoder = token = None
+        reason = "no tower checkpoint"
+        if cfg.learned_checkpoint is not None:
+            try:
+                encoder, token = load_towers(
+                    cfg.learned_checkpoint, expect_base_fp=self._base_fp
+                )
+            except (TowerMismatch, OSError, KeyError, ValueError) as exc:
+                reason = str(exc)
+            if encoder is not None and tuple(token) != self.consistency_token:
+                # an artifact trained mid-delta-stream: its towers may
+                # lag this replica's graph — refuse rather than serve
+                # candidates from an unverifiable epoch
+                reason = (f"towers token {list(token)} != service "
+                          f"token {self.consistency_token}")
+                encoder = None
+            if encoder is not None:
+                for axis, want in (("variant", self.variant),
+                                   ("metapath", self.metapath.name)):
+                    got = getattr(encoder, axis)
+                    if got != want:
+                        reason = f"towers {axis} {got!r} != served {want!r}"
+                        encoder = None
+                        break
+            if encoder is None:
+                runtime_event(
+                    "learned_towers_rejected",
+                    path=cfg.learned_checkpoint, reason=reason,
+                )
+                if cfg.topk_mode != "learned":
+                    # the learned arm was optional here — degrade quietly
+                    return
+        if encoder is None:
+            msg = (f"topk mode 'learned' has no usable tower checkpoint "
+                   f"({reason}), and {TRAINING_SLICE}")
+            if getattr(self, "coalescer", None) is None:  # first install
+                raise TrainingNotPorted(msg)
+            runtime_event("learned_unavailable", reason=msg)
+            return
+        try:
+            c, d = half_chain_and_denominators(
+                self.hin, self.metapath, self.variant
+            )
+        except (ValueError, MemoryError) as exc:
+            runtime_event("learned_unavailable", reason=str(exc))
+            return
+        cand_mult = cfg.learned_cand_mult or int(tuning.choose(
+            "learned_cand_mult", n=self.n, default=16
+        ))
+        recall_floor = (
+            cfg.learned_recall_floor
+            if cfg.learned_recall_floor is not None
+            else float(tuning.choose(
+                "learned_conf_floor", n=self.n, default=0.98
+            ))
+        )
+        self._learned = LearnedState(
+            encoder, c, d,
+            cand_mult=cand_mult,
+            shadow_every=cfg.learned_shadow_every,
+            recall_floor=recall_floor,
+            min_shadow=cfg.learned_min_shadow,
+            token=token,
+            device=getattr(self.backend, "device", None) or "cpu",
+        )
+        if warm:
+            # the probe driven once per serving bucket, so the first
+            # request of each pays no device set-up
+            self._learned.warm(self._bucket_ladder, cfg.k_default)
+        self._learned_deltas = 0
+        self._learned_refresh_every = max(int(tuning.choose(
+            "learned_refresh_deltas", n=self.n, default=1
+        )), 1)
+        runtime_event(
+            "learned_ready",
+            n=self._learned.n, dim=encoder.dim, hidden=encoder.hidden,
+            cand_mult=cand_mult, recall_floor=recall_floor,
+            source="file",
             startup_s=round(time.perf_counter() - t0, 3),
         )
 
@@ -587,7 +737,11 @@ class PathSimService:
         before dropping engines). The ``ann`` lane issues the index
         probe instead — one batched matmul over the packed cluster
         blocks (or the route alone), fetched by the completion half the
-        way the exact lane's rows are (``PendingRows``)."""
+        way the exact lane's rows are (``PendingRows``). The ``learned``
+        lane issues the tower probe and the top-C pick on the towers'
+        device, fetched the same way."""
+        if lane == "learned":
+            return self._learned.probe_batch(rows_padded, k)
         if lane == "ann":
             return self._ann.issue(rows_padded)
         if lane.startswith(_MP_LANE):
@@ -611,6 +765,8 @@ class PathSimService:
         under the metapath's own cache epoch. The tracer spans opened
         here parent into the batch's ``serve.complete`` span — the
         coalescer activated its context on this thread before calling."""
+        if lane == "learned":
+            return self._complete_learned(handle, rows, batch)
         if lane == "ann":
             return self._complete_ann(handle, rows, batch)
         span_args = {}
@@ -728,6 +884,58 @@ class PathSimService:
                 )
                 ann.record_shadow(vals, evals, k_eff)
 
+    def _complete_learned(
+        self, handle, rows: np.ndarray, batch: Sequence[Request]
+    ) -> None:
+        """Completion half of a ``learned`` batch: fetch the probe's
+        candidate ids, exact-f64 rerank each request's shortlist INSIDE
+        learned/ (this method never sees a raw similarity), fill the
+        learned result-cache tier, resolve futures. Every Nth dispatch
+        also runs the exact oracle (shadow sampling) to keep the
+        recall-confidence gate honest — deferred past future resolution
+        like the ANN path, because an O(N) oracle scan must never sit in
+        front of a waiting caller."""
+        tracer = get_tracer()
+        lr = self._learned
+        t0 = time.perf_counter()
+        with tracer.child_span(
+            "serve.learned_probe_transfer", n=int(rows.shape[0])
+        ):
+            handle.fetch()
+        lr.observe_probe(time.perf_counter() - t0)
+
+        def _rerank_one(b: int):
+            row = int(rows[b])
+            k_eff = min(batch[b].k, max(self.n - 1, 1))
+            t1 = time.perf_counter()
+            vals, idxs = lr.answer_from_handle(handle, b, row, k_eff)
+            lr.observe_rerank(time.perf_counter() - t1)
+            return k_eff, vals, idxs
+
+        with tracer.child_span("serve.learned_rerank", n=len(batch)):
+            reranked = list(lr.pool.map(_rerank_one, range(len(batch))))
+            shadows = []
+            for b, req in enumerate(batch):
+                row = int(rows[b])
+                k_eff, vals, idxs = reranked[b]
+                lr.count_answered()
+                if lr.should_shadow():
+                    shadows.append((row, k_eff, vals))
+                self.result_cache.put(
+                    self._learned_key(row, req.k), vals, idxs
+                )
+                if not req.future.done():
+                    req.future.set_result((vals, idxs))
+                self._m_latency["learned"].observe(
+                    time.monotonic() - (req.t_submit or req.t_enqueue)
+                )
+                tracer.finish(req.span, outcome="learned")
+            for row, k_eff, vals in shadows:  # every future resolved
+                evals, _ = self.backend.topk_row(
+                    row, k=k_eff, variant=self.variant
+                )
+                lr.record_shadow(vals, evals, k_eff)
+
     def _record_batch(self, stats: BatchStats) -> None:
         self._bucket_hist[stats.bucket] = (
             self._bucket_hist.get(stats.bucket, 0) + 1
@@ -777,12 +985,7 @@ class PathSimService:
         """Per-request mode override → effective answer path."""
         if mode is None:
             mode = self.config.topk_mode
-        if mode == "learned":
-            raise ValueError(
-                "topk mode 'learned' is not ported yet; choose 'exact' "
-                "or 'ann'"
-            )
-        if mode not in ("exact", "ann"):
+        if mode not in ("exact", "ann", "learned"):
             raise ValueError(
                 f"unknown topk mode {mode!r}; choose 'exact', 'ann' or "
                 "'learned'"
@@ -807,6 +1010,33 @@ class PathSimService:
             return "no_index"
         return self._ann.peek(int(row))
 
+    def learned_fallback_reason(self, row: int, mode: str | None = None,
+                                metapath: str | None = None) -> str | None:
+        """Would a learned-mode query for ``row`` degrade right now,
+        and why? Side-effect-free peek (no counters), the twin of
+        :meth:`ann_fallback_reason` — the worker annotates responses
+        with it so the router's flight recorder can tail-keep
+        learned-degraded requests. None = the learned path answers (or
+        the effective mode isn't learned). The towers embed the served
+        metapath only (``metapath``)."""
+        if self._resolve_mode(mode) != "learned":
+            return None
+        if self._canon_metapath(metapath) != self.metapath.name:
+            return "metapath"
+        if self._learned is None:
+            return "no_towers"
+        return self._learned.peek(int(row))
+
+    def _learned_key(self, row: int, k: int) -> tuple:
+        """Learned result-cache key: the exact epoch prefix plus a
+        ``learned`` axis and the knobs that shape the candidate set —
+        a learned answer can never be served to an exact or ann query
+        (and vice versa), and retuning cand_mult can't replay old
+        shortlists."""
+        lr = self._learned
+        return (*self._epoch_for(row), "learned", lr.encoder.dim,
+                lr.cand_mult, int(row), int(k))
+
     def _ann_key(self, row: int, k: int) -> tuple:
         """ANN result-cache key: the exact path's epoch prefix (base
         fp + per-row delta version — a delta on this row invalidates
@@ -830,8 +1060,10 @@ class PathSimService:
         probes the candidate index and exact-reranks — and silently
         degrades to exact (counted, per reason) whenever the index
         can't vouch for this row (stale/unseen/degenerate/confidence
-        lost/no index). Exact is ground truth, so degrading is always
-        safe; it only costs the speedup.
+        lost/no index); ``learned`` probes the towers and exact-reranks,
+        degrading ann-then-exact (counted, per reason) the same way.
+        Exact is ground truth, so degrading is always safe; it only
+        costs the speedup.
 
         Every admission opens a root ``serve.request`` span: cache hits
         finish it here; coalesced misses carry it across the
@@ -856,6 +1088,14 @@ class PathSimService:
                             "dpathsim_ann_fallbacks_total",
                             "ann-requested queries answered exactly "
                             "instead, by reason",
+                        ).inc(reason="metapath")
+                    elif mode == "learned":
+                        # same story for the towers: they embed the
+                        # default chain only
+                        get_registry().counter(
+                            "dpathsim_learned_fallbacks_total",
+                            "learned-requested queries degraded to "
+                            "ann/exact, by reason",
                         ).inc(reason="metapath")
                     return self._submit_metapath_locked(
                         int(row), k, name, root, t0
@@ -922,6 +1162,26 @@ class PathSimService:
         # swaps or patches the backend — admissions must not interleave
         # with that (the drain would never finish, and a request could
         # resolve rows against one graph and dispatch against another).
+        if mode == "learned":
+            if self._learned is None:
+                get_registry().counter(
+                    "dpathsim_learned_fallbacks_total",
+                    "learned-requested queries degraded to ann/exact, "
+                    "by reason",
+                ).inc(reason="no_towers")
+            elif self._learned.eligible(row) is None:
+                fut = self._result_hit(self._learned_key(row, k), root, t0)
+                if fut is not None:
+                    return fut
+                return self.coalescer.submit(
+                    row, k, span=root, t_submit=t0, lane="learned"
+                )
+            # ineligible (counted by reason): degrade ANN-then-exact —
+            # the ann cascade below re-checks its own eligibility and
+            # counts its own fallbacks, so a doubly-degraded query
+            # lands on exact with both arms' accounting intact
+            if self._ann is not None:
+                mode = "ann"
         if mode == "ann":
             if self._ann is None:
                 get_registry().counter(
@@ -1171,8 +1431,10 @@ class PathSimService:
                 else None
             ),
             # per-mode epoch map: one entry per answer path this replica
-            # serves (the learned lane is not ported), each with its own
-            # consistency epoch
+            # serves, each with its own consistency epoch — a router
+            # re-dispatching a learned query onto a tower-less replica
+            # reads this, and the fallback story guarantees the answer
+            # is exact either way
             "modes": {
                 "exact": {
                     "epoch": [self._base_fp, self._delta_seq],
@@ -1186,6 +1448,15 @@ class PathSimService:
                         "enabled": self._ann.enabled,
                     }
                     if self._ann is not None else None
+                ),
+                "learned": (
+                    {
+                        "epoch": list(self._learned.token),
+                        "stale_rows": self._learned.stale_count,
+                        "pending_appends": self._learned.pending_appends,
+                        "enabled": self._learned.enabled,
+                    }
+                    if self._learned is not None else None
                 ),
             },
             # process-lifetime compile count (kernel builds and loads):
@@ -1300,6 +1571,17 @@ class PathSimService:
                     # (background) refresh re-embeds them. Appended
                     # rows are uncovered by construction.
                     self._ann.index.mark_stale(affected)
+                if self._learned is not None:
+                    # the same fence for the towers: affected rows answer
+                    # exactly until absorb() re-embeds them; appended
+                    # source rows (headroom slots made real) go
+                    # cold-start pending (the SLO gauge tracks them)
+                    self._learned.mark_stale(affected)
+                    self._learned.note_appends(sum(
+                        a.n for a in plan.delta.nodes
+                        if a.node_type == self.node_type
+                    ))
+                    self._learned_deltas += 1
                 if want_rows:
                     # a router's fencing needs the SET, not the count: a
                     # replica that missed this delta is fenced for
@@ -1381,6 +1663,37 @@ class PathSimService:
                         target=self._refresh_index_quietly,
                         args=(link,),
                         name="pathsim-ann-refresh", daemon=True,
+                    ).start()
+            if self._learned is not None:
+                result["learned_stale_rows"] = self._learned.stale_count
+                result["learned_pending_appends"] = (
+                    self._learned.pending_appends
+                )
+                if (
+                    mode == "delta"
+                    and self.config.learned_auto_refresh
+                    and (
+                        self._learned.stale_count
+                        or self._learned.pending_appends
+                    )
+                    # cadence knob: a sustained delta stream re-embeds
+                    # every Nth landing (staled rows answer exactly in
+                    # the meantime: speed only, never correctness)
+                    and self._learned_deltas >= self._learned_refresh_every
+                    # debounced like the ann refresh: one in flight
+                    and not self._learned_refresh_inflight
+                ):
+                    cur = get_tracer().current()
+                    link = (
+                        f"{cur.trace_id}:{cur.span_id}"
+                        if cur is not None and cur.span_id else None
+                    )
+                    self._learned_refresh_inflight = True
+                    self._learned_deltas = 0
+                    threading.Thread(
+                        target=self._refresh_towers_quietly,
+                        args=(link,),
+                        name="pathsim-learned-refresh", daemon=True,
                     ).start()
             return result
 
@@ -1509,6 +1822,98 @@ class PathSimService:
                 "ms": ms,
             }
             runtime_event("ann_refresh", **result)
+            return result
+
+    def _refresh_towers_quietly(self, link: str | None = None) -> None:
+        try:
+            with get_tracer().span("learned.refresh", link=link):
+                while True:
+                    # abandoned attempts (a newer delta landed mid-fold)
+                    # retry against the newer token — the newer update
+                    # saw inflight=True and skipped scheduling, so its
+                    # staleness is ours to absorb
+                    result = self.refresh_towers()
+                    if result.get("abandoned"):
+                        continue
+                    with self._swap_lock:
+                        lr = self._learned
+                        more = (
+                            lr is not None
+                            and (lr.stale_count or lr.pending_appends)
+                            and result.get("refreshed", 0) > 0
+                        )
+                        if not more:
+                            self._learned_refresh_inflight = False
+                            return
+        except Exception as exc:  # background thread: report, never die
+            runtime_event("learned_refresh_failed", error=repr(exc))
+            with self._swap_lock:
+                self._learned_refresh_inflight = False
+
+    def refresh_towers(self) -> dict:
+        """Absorb the patched graph into the learned tier: swap in the
+        current C/d snapshot and re-embed exactly the stale + appended
+        rows through the inductive encoder on the towers' device — O(Δ)
+        tower work, nothing compiled, the cold-start path that makes a
+        never-seen appended author answerable in learned mode before any
+        full re-embed. Mirrors :meth:`refresh_index`'s locking: the
+        half-chain fold runs OUTSIDE the swap lock against a token
+        snapshot; the absorb applies under the lock with the pipeline
+        drained (no probe in flight reads the embeddings it replaces)
+        only if no further delta landed meanwhile. A contraction-width
+        change (a new venue vocabulary moved the feature space) is
+        reported, not raised — the service keeps degrading those rows,
+        correctly, until retrained."""
+        from ..index.build import half_chain_and_denominators
+
+        t0 = time.perf_counter()
+        with self._swap_lock:
+            lr = self._learned
+            if lr is None:
+                return {"learned": False, "refreshed": 0}
+            token0 = self.consistency_token
+            hin = self.hin
+            stale_n = lr.stale_count
+            pending = lr.pending_appends
+        tracer = get_tracer()
+        with tracer.child_span(
+            "learned.half_chain_fold", stale=stale_n, appends=pending
+        ):
+            c, d = half_chain_and_denominators(
+                hin, self.metapath, self.variant
+            )
+        with self._swap_lock:
+            if self._learned is not lr or self.consistency_token != token0:
+                runtime_event(
+                    "learned_refresh_abandoned", token=list(token0),
+                    reason="newer delta landed during the fold",
+                )
+                return {"learned": True, "refreshed": 0, "abandoned": True}
+            self.coalescer.drain()
+            try:
+                with tracer.child_span("learned.absorb"):
+                    acct = lr.absorb(c, d, token0)
+            except ValueError as exc:
+                result = {
+                    "learned": True, "refreshed": 0,
+                    "stale_remaining": lr.stale_count,
+                    "unsupported": str(exc),
+                }
+                runtime_event("learned_refresh_unavailable", **result)
+                return result
+            # old shadow evidence described the pre-absorb towers
+            lr.reset_confidence()
+            ms = round((time.perf_counter() - t0) * 1e3, 3)
+            result = {
+                "learned": True,
+                "refreshed": acct["re_embedded"],
+                "appended": acct["appended"],
+                "stale_remaining": lr.stale_count,
+                "pending_appends": lr.pending_appends,
+                "token": list(lr.token),
+                "ms": ms,
+            }
+            runtime_event("learned_refresh", **result)
             return result
 
     def reload(self, backend: PathSimBackend) -> None:
@@ -1678,6 +2083,10 @@ class PathSimService:
             "factor": self.backend.factor_info(),
             "topk_mode": self.config.topk_mode,
             "ann": self._ann.snapshot() if self._ann is not None else None,
+            "learned": (
+                self._learned.snapshot()
+                if self._learned is not None else None
+            ),
             "delta": {
                 "seq": self._delta_seq,
                 "base_fingerprint": self._base_fp,
@@ -1719,6 +2128,8 @@ class PathSimService:
             self._engines.clear()
         if self._ann is not None:
             self._ann.close()
+        if self._learned is not None:
+            self._learned.close()
 
 
 def build_service(

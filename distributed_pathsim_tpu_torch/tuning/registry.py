@@ -25,13 +25,18 @@ registered here only where the port has its decision point today:
   as a ``fallback`` lookup;
 - ``ann_centroids`` / ``ann_cluster_cap``: the MIPS index build
   (index/build.py); ``ann_probe_variant`` / ``ann_nprobe`` /
-  ``ann_cand_mult``: the ANN serving lane (serving/service.py).
+  ``ann_cand_mult``: the ANN serving lane (serving/service.py);
+- ``learned_cand_mult`` / ``learned_conf_floor`` /
+  ``learned_refresh_deltas``: the learned serving lane
+  (serving/service.py); ``learned_dim`` / ``learned_neg_ratio`` shape
+  the trainer's towers (kept for the JAX package's table keys; training
+  is not ported yet).
 
 The JAX package's other Pallas tile and variant knobs
 (``scores_variant``, ``scores_tile``, ``topk_rowtile``, ``k_tile``)
 have no port arm: an "xla" arm would put a kernel's plain version on the
 card's path, and the CUDA kernels' own configuration knobs come with the
-autotuner. The learned knobs come with the learned tier.
+autotuner.
 
 Every knob is **bit-invisible by construction**: choices only move work
 between tilings that share the exact integer-count + f64-normalize
@@ -199,6 +204,54 @@ KNOBS: dict[str, Knob] = {
             "the probe into the exact f64 rerank. Larger mult buys "
             "recall at O(C·V) rerank cost per query.",
             candidates=lambda ctx: [4, 8, 16, 32],
+        ),
+        Knob(
+            name="learned_dim",
+            doc="learned-tower output width (the trainer's; the port "
+            "serves towers of any width): probe cost per query is "
+            "O(N·dim) and checkpoint bytes O(N·dim + F·hidden); wider "
+            "towers separate candidates better (recall at a fixed "
+            "cand_mult) but cost latency. Bit-invisible: towers only "
+            "SHORTLIST — every answer is exact-f64 reranked, so dim "
+            "moves recall/latency, never a served score.",
+            candidates=lambda ctx: [16, 32, 64],
+        ),
+        Knob(
+            name="learned_neg_ratio",
+            doc="uniform-negative fraction of distillation training "
+            "slates (1 - HARD_FRAC): more uniform negatives teach "
+            "global score calibration, more exact-teacher hard "
+            "candidates sharpen the top of the ranking the serving "
+            "shortlist is cut from. Arms are judged by shadow "
+            "score-recall at the shipped cand_mult.",
+            candidates=lambda ctx: [0.25, 0.5, 0.75],
+        ),
+        Knob(
+            name="learned_cand_mult",
+            doc="learned candidate multiplier: C = mult·k shortlist "
+            "survivors enter the exact f64 rerank (same recall-vs-"
+            "rerank-cost dial as ann_cand_mult, against tower "
+            "similarities instead of MIPS probes).",
+            candidates=lambda ctx: [8, 16, 32, 64],
+        ),
+        Knob(
+            name="learned_refresh_deltas",
+            doc="background tower-refresh cadence: deltas absorbed "
+            "between re-embed passes (serving/service.refresh_towers). "
+            "Every landing fences its affected rows onto the exact "
+            "path immediately, so a longer cadence batches the "
+            "half-chain fold at the cost of more queries degrading "
+            "meanwhile — speed, never correctness.",
+            candidates=lambda ctx: [1, 4, 16],
+        ),
+        Knob(
+            name="learned_conf_floor",
+            doc="shadow score-recall floor of the learned confidence "
+            "gate: measured recall below it disables the learned arm "
+            "(every query degrades ann-then-exact, counted) until a "
+            "refresh resets the gate. Higher floors trade learned-arm "
+            "uptime for tighter worst-case recall.",
+            candidates=lambda ctx: [0.95, 0.98, 0.99],
         ),
         Knob(
             name="serve_buckets",

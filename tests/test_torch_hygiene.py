@@ -1,10 +1,11 @@
-"""Port hygiene: the PyTorch port imports neither JAX nor the JAX
-package, and it never carries on quietly on the host — without a CUDA
-device its entry points raise unless the CPU is asked for. The
-compaction hot-swap is reached only through the service's doorway, the
-packed layout only through its sanctioned factory, the batch sweeps
-only through the campaign runners, a partition's factor slice only
-through the partition exchange."""
+"""Port hygiene: the PyTorch port imports neither JAX (nor flax, optax
+or msgpack) nor the JAX package, and it never carries on quietly on the
+host — without a CUDA device its entry points raise unless the CPU is
+asked for. The compaction hot-swap is reached only through the
+service's doorway, the packed layout only through its sanctioned
+factory, the batch sweeps only through the campaign runners, a
+partition's factor slice only through the partition exchange, and the
+learned tier's raw tower similarities never outside learned/."""
 
 import json
 import pkgutil
@@ -158,6 +159,18 @@ def test_packed_layout_and_batch_sweeps_stay_behind_their_doorways():
                    and node.attr in FACTOR_SURFACE}
     assert slice_users == {root / "backends" / "partition_factors.py",
                            root / "serving" / "partition.py"}, slice_users
+    # the learned tier's raw tower similarities (LEARNED_SURFACE, the JAX
+    # analyzer's LN001) are named only inside learned/: everyone else
+    # gets exact-reranked answers through answer_from_handle
+    from distributed_pathsim_tpu_torch.learned import LEARNED_SURFACE
+
+    raw_users = {path for path in sorted(root.rglob("*.py"))
+                 + [root.parent / "chip_smoke.py"]
+                 for node in ast.walk(ast.parse(path.read_text()))
+                 if isinstance(node, ast.Attribute)
+                 and node.attr in LEARNED_SURFACE}
+    assert raw_users and all(root / "learned" in path.parents
+                             for path in raw_users), raw_users
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -172,14 +185,16 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "parallel.ring", "parallel.sharded", "parallel.tiling",
                 "parallel.multihost", "backends.torch_sharded",
                 "backends.partition_factors", "serving.partition",
-                "router.partition"):
+                "router.partition", "learned.encoder", "learned.checkpoint",
+                "learned.serving", "learned.cli"):
         assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib') or "
-        "m.startswith(('jax.', 'jaxlib.')) or m == 'distributed_pathsim_tpu' "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'flax', 'optax', 'msgpack') or m.startswith(('jax.', 'jaxlib.', "
+        "'flax.', 'optax.', 'msgpack.')) or m == 'distributed_pathsim_tpu' "
         "or m.startswith('distributed_pathsim_tpu.'))\n"
         "print(json.dumps(bad))\n"
     )

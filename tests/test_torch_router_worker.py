@@ -74,13 +74,26 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         assert torch_main([cmd, "--dataset", SPEC]) == 1
         err = capsys.readouterr().err
         assert "no CUDA device" in err and "--platform cpu" in err, cmd
+    # the learned lane serves a tower checkpoint; training towers in the
+    # service (learned mode without one, the training flags) is not
+    # ported yet
     for argv in (
         ["worker", "--topk-mode", "learned"],
         ["router", "--topk-mode", "learned"],
+        ["worker", "--learned-dim", "16"],
+        ["router", "--topk-mode", "learned", "--learned-checkpoint",
+         "t.npz", "--learned-steps", "5"],
     ):
         assert torch_main([*argv, "--dataset", SPEC,
                            "--platform", "cpu"]) == 1, argv
         assert "not ported yet" in capsys.readouterr().err, argv
+    from distributed_pathsim_tpu_torch.router.cli import parse_worker_args
+
+    args = parse_worker_args(["--dataset", SPEC, "--topk-mode", "learned",
+                              "--learned-checkpoint", "t.npz",
+                              "--learned-cand-mult", "8"])
+    assert (args.topk_mode, args.learned_checkpoint,
+            args.learned_cand_mult) == ("learned", "t.npz", 8)
     # partition mode is ported: its flags parse, and what they refuse is
     # what the JAX package's worker refuses
     for argv, msg in (

@@ -2,10 +2,12 @@
 ``serve_loop`` (same graph, CPU): every response equal apart from timing
 fields and the backend's name, and each validated against the checked-in
 wire contract ``artifacts/wire_schema.json`` — per-request metapaths,
-the ``compact`` op and ``batch_blocks`` included. Requests for lanes the
-port has not ported get a per-request "not ported yet" error. Then the
-``dpathsim-torch serve`` subprocess on the CPU, and its refusals: no card
-without ``--platform cpu``, and JAX-only flags by name."""
+the ``compact`` op and ``batch_blocks`` included. The learned lane's
+requests on a replica without towers answer as the JAX service's do
+(exactly, through the counted fallback). Then the ``dpathsim-torch
+serve`` subprocess on the CPU, and its refusals: no card without
+``--platform cpu``, and the flags of training towers in the service by
+name."""
 
 import io
 import json
@@ -84,8 +86,8 @@ def _script(hin):
     ]
 
 
-# requests the port refuses per request: the lane is not ported yet
-NOT_PORTED = [
+# the learned lane's requests, sent to a replica without towers
+LEARNED_NO_TOWERS = [
     {"id": 102, "op": "topk", "row": 1, "mode": "learned"},
     {"id": 106, "op": "refresh_towers"},
 ]
@@ -186,12 +188,18 @@ def test_protocol_script_matches_jax_and_wire_schema():
         # the swap kept the answers: the same topk after it is a hit
         assert by_id[27]["result"] == by_id[10]["result"]
         assert by_id[28]["result"] == by_id[22]["result"]
-        # the port refuses what only an unported lane could answer
-        out = _run(serve_loop, ts, NOT_PORTED + [{"id": 199, "op": "ping"}])
-        del out[1]
-        for req, resp in zip(NOT_PORTED, out):
+        # the learned lane on a replica without towers: a learned topk
+        # answers exactly (counted no_towers), refresh_towers reports no
+        # towers — the JAX service's answers
+        script = LEARNED_NO_TOWERS + [{"id": 199, "op": "ping"}]
+        out, out_j = _run(serve_loop, ts, script), _run(jloop, js, script)
+        del out[1], out_j[1]
+        for req, resp, want in zip(LEARNED_NO_TOWERS, out, out_j):
             _validate(req, resp)
-            assert not resp["ok"] and "not ported yet" in resp["error"], resp
+            assert resp["ok"] and want["ok"], resp
+            assert resp["result"] == want["result"], req
+        assert out[0]["result"]["topk"]
+        assert out[1]["result"] == {"learned": False, "refreshed": 0}
         assert out[-1]["ok"]  # the process keeps serving
         # the partition-exchange ops belong to partition workers: a
         # replica refuses them per request, as the JAX service does
@@ -247,11 +255,30 @@ def test_serve_refuses_without_a_card_and_unported_flags(
     assert torch_main(["serve", "--dataset", gexf]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device is available" in err and "--platform cpu" in err
-    for flag in (["--topk-mode", "learned"], ["--learned-checkpoint", "t.npz"],
-                 ["--learned-steps=5"]):
+    # training towers in the service is not ported: its flags, learned
+    # mode without a checkpoint, and learned mode whose checkpoint is
+    # unusable (the JAX service would train there)
+    for flag in (["--topk-mode", "learned"], ["--learned-steps=5"],
+                 ["--learned-dim", "16"], ["--learned-neg-ratio", "0.5"],
+                 ["--topk-mode", "learned", "--learned-checkpoint",
+                  str(tmp_path / "missing.npz")]):
         assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
                            *flag]) == 1
         assert "not ported yet" in capsys.readouterr().err, flag
+    # the learned lane's serving flags are ported
+    from distributed_pathsim_tpu_torch.serving.cli import (
+        parse_serve_args,
+        serve_config,
+    )
+
+    cfg = serve_config(parse_serve_args([
+        "--dataset", gexf, "--topk-mode", "learned", "--learned-checkpoint",
+        "t.npz", "--learned-cand-mult", "8", "--learned-shadow-every", "0",
+        "--learned-recall-floor", "0.9", "--no-learned-refresh"]))
+    assert (cfg.topk_mode, cfg.learned_checkpoint, cfg.learned_cand_mult,
+            cfg.learned_shadow_every, cfg.learned_recall_floor,
+            cfg.learned_auto_refresh) == ("learned", "t.npz", 8, 0, 0.9,
+                                          False)
     # the packed layouts are served by torch-sparse only
     assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
                        "--factor-format", "blocked"]) == 1
