@@ -117,7 +117,7 @@ nonzero and no result line is printed):
    ``dpathsim-torch router --workers 1 --backend torch-sparse
    --factor-format bitpacked`` answering the same; the symmetric
    half-sweep (``topk_scores(symmetric=True)``, approx) on config 5's
-   shape cut to 786432 authors against the full sweep (K3) by config 5's
+   shape cut to 393216 authors against the full sweep (K3) by config 5's
    rule (values within 1e-6, the same columns where the k-th and
    (k+1)-th scores are further apart), seconds and ms per tile pair, a
    child process running it SIGTERMed mid-sweep (exit 75) and the resume
@@ -206,12 +206,37 @@ nonzero and no result line is printed):
    delta, answered through ``stale`` before ``refresh_towers`` and
    through the towers after it, bit-identical both times, with the
    refresh re-embedding only the stale rows; a foreign artifact refused
-   (``TowerMismatch``) and learned mode without a usable checkpoint
-   refused as not ported yet; ``dpathsim-torch serve`` and a two-worker
+   (``TowerMismatch``), and a learned-mode service given it distilling
+   its own towers; ``dpathsim-torch serve`` and a two-worker
    ``router`` with ``--topk-mode learned --learned-checkpoint`` as
    subprocesses, their learned answers equal to the oracle; its
    launches are ``launches_learned`` in the kernels line (K1 once, for
    the rank-all; the probe is torch ops);
+6f. the learned tier's training on the card: on a 2000-author graph a
+   CPU model and a card model from one seed start from equal weights,
+   mine equal lists, and agree over 5 steps from one pool (losses rtol
+   1e-4, embeddings atol 1e-5), and two 200-step card runs are
+   bit-identical; at the bench shape (headroom 0.25) mining 512 sources
+   (k 32) on the card equals the CPU port's lists bit for bit (its ms
+   printed), a window of train steps at the artifact's recipe gives the
+   ms per step and the card's busy share with 0 compiles after the first
+   (captured) steps; ``dpathsim-torch learned train`` as a subprocess at
+   the committed artifact's recipe (dim 32, hidden 64, 60000 steps, seed
+   0, 512 hard sources, k 32), its token the graph's fingerprint, its
+   train_s and steps/s printed; a learned service on those card-trained
+   towers under the learned phase's load (every covering answer
+   bit-identical to the exact lane's, score recall@10 at least the JAX
+   artifact's less 0.03, QPS, 0 compiles, K1's rank-all against the
+   oracle's sets); a learned-mode service with no checkpoint distilling
+   its towers at install (startup s; 256 learned queries, covering
+   answers bit-identical) and ``dpathsim-torch serve --topk-mode learned
+   --learned-steps 200`` as a subprocess answering with no checkpoint;
+   ``neural_cli train --mine 64`` on the card on a written GEXF, its
+   ``query --index rerank`` answers equal to the host f64 oracle where
+   they cover it, ``index build --embedding learned --model`` and
+   ``index probe`` on the card; its launches are ``launches_train`` in
+   the kernels line (K1 once, for the rank-all; the train step and
+   mining are torch ops);
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -291,6 +316,25 @@ LEARNED_ARTIFACT = (HERE / "distributed_pathsim_tpu_torch" / "learned"
 LEARNED_JAX_RECALL = 0.836474609375
 LEARNED_RECALL_TOL = 0.005
 LEARNED_OTHER_METAPATH = "APA"
+LEARNED_RETRAIN_STEPS = 50
+# The learned tier's training (phase 6f): card against CPU on a small graph
+# (5 steps at batch 256, two 200-step card runs); mining and the committed
+# artifact's recipe at the bench shape with serve's headroom, `learned
+# train` as a subprocess (TRAIN_RECIPE, the trainer's batch of 512 pairs);
+# a window of TRAIN_WINDOW steps for the step time and the busy share; the
+# card-trained towers served on the learned phase's rows, their recall
+# within LEARNED_TRAINED_RECALL_TOL below the JAX artifact's (the packages
+# draw different initial weights, so the towers differ); in-service
+# distillation at the default learned_steps with DISTILL_QUERIES queries.
+TRAIN_SMALL = dict(n_authors=2000, n_papers=3000, n_venues=64, seed=11)
+TRAIN_SMALL_MODEL = dict(dim=32, hidden=64, seed=5)
+TRAIN_REPEAT_STEPS = 200
+TRAIN_RECIPE = dict(dim=32, hidden=64, steps=60000, seed=0, hard_sources=512,
+                    hard_k=32)
+TRAIN_BATCH, TRAIN_WINDOW = 512, 2000
+LEARNED_TRAINED_RECALL_TOL = 0.03
+DISTILL_QUERIES = 256
+NEURAL_CLI_ROWS = 3
 # The router fleet: two workers on the one card over the bench graph
 # (author ids materialized, so the update's appended authors can be
 # named on the wire), the serving phase's load and update.
@@ -314,8 +358,9 @@ SR_SAMPLES_PER_VERSION = 4
 # 5's graph through the packed layouts; a bitpacked service and router at
 # the bench shape under the serving phase's update (PK_SERVE_SAMPLES rows
 # sampled before it); the symmetric half-sweep on config 5's shape cut to
-# SYM_AUTHORS authors (3/4 of config 5: ~10.7 ms a tile pair on an H100
-# 80GB HBM3 at 700 W puts its 4656 pairs near 60 s; papers cut with them;
+# SYM_AUTHORS authors (3/8 of config 5, cut from 3/4 to make room for the
+# learned tier's training phase: ~10.7 ms a tile pair on an H100 80GB
+# HBM3 at 700 W puts its 1176 pairs near 13 s; papers cut with them;
 # 64 venues, 8192-row tiles and approx kept), SIGTERMed after
 # SYM_KILL_AFTER row units; the first batch campaign on the bench graph,
 # the others on the 8192-author all-pairs graph (a campaign is host-bound:
@@ -325,7 +370,7 @@ SR_SAMPLES_PER_VERSION = 4
 # pair on that graph, 0.02 finds some).
 PACKED_FORMATS = ("blocked", "bitpacked")
 PK_SERVE_SAMPLES = 64
-SYM_AUTHORS = 786_432
+SYM_AUTHORS = 393_216
 SYM_PAPERS = SYM_AUTHORS * (C5_PAPERS // C5_AUTHORS)
 SYM_KILL_AFTER = 8
 BATCH_TAUS, BATCH_KILL_AFTER, BATCH_KILL_BLOCK_ROWS = (0.5, 0.02), 40, 32
@@ -4342,10 +4387,11 @@ def learned_tier(torch, ck, np, workdir, card, hin):
         learned_load(torch, np, card, svc, mp)
         learned_fallback_checks(np, svc, mp)
         learned_cold_start(np, svc, mp)
-        learned_refusals(np, workdir, svc, enc)
         if compiles_total() != compiles0:
             raise AssertionError(f"the phase compiled or loaded a kernel: "
                                  f"{compiles0} -> {compiles_total()}")
+        # after the count: the retraining captures its train step
+        learned_refusals(np, workdir, svc, enc)
     finally:
         svc.close()
     launches = dict(ck.LAUNCHES)
@@ -4356,12 +4402,14 @@ def learned_tier(torch, ck, np, workdir, card, hin):
     return launches
 
 
-def learned_load(torch, np, card, svc, mp):
+def learned_load(torch, np, card, svc, mp, recall_floor=None):
     """(b) and (g): the load through the learned lane, every answer held
     against the host f64 oracle and the exact lane on the same rows,
     every answer whose candidate set covers the oracle's top-k
     bit-identical to the exact lane's, score recall@k beside the JAX
-    package's, K1's rank-all sets against the oracle's, zero compiles."""
+    package's (within LEARNED_RECALL_TOL of it on the JAX towers, at
+    least ``recall_floor`` when given), K1's rank-all sets against the
+    oracle's, zero compiles. Returns the recall."""
     from distributed_pathsim_tpu_torch.utils.compile_counter import (
         CompileCounter,
     )
@@ -4398,13 +4446,22 @@ def learned_load(torch, np, card, svc, mp):
           f" {rerank_p50:.3f} ms ({card})")
     _, recall = ann_check(np, answers, rows.ravel(), oracle, c64, TOP_K,
                           "learned load")
-    print(f"learned: score recall@{TOP_K} {recall:.5f} against the JAX "
-          f"package's {LEARNED_JAX_RECALL:.5f} on the same rows and towers "
-          f"(tolerance {LEARNED_RECALL_TOL})")
-    if abs(recall - LEARNED_JAX_RECALL) > LEARNED_RECALL_TOL:
-        raise AssertionError(f"learned recall {recall:.5f} is not within "
-                             f"{LEARNED_RECALL_TOL} of the JAX package's "
-                             f"{LEARNED_JAX_RECALL:.5f}")
+    if recall_floor is None:
+        print(f"learned: score recall@{TOP_K} {recall:.5f} against the JAX "
+              f"package's {LEARNED_JAX_RECALL:.5f} on the same rows and "
+              f"towers (tolerance {LEARNED_RECALL_TOL})")
+        if abs(recall - LEARNED_JAX_RECALL) > LEARNED_RECALL_TOL:
+            raise AssertionError(f"learned recall {recall:.5f} is not within "
+                                 f"{LEARNED_RECALL_TOL} of the JAX package's "
+                                 f"{LEARNED_JAX_RECALL:.5f}")
+    else:
+        print(f"learned: score recall@{TOP_K} {recall:.5f} of the card-"
+              f"trained towers beside the JAX artifact's "
+              f"{LEARNED_JAX_RECALL:.5f} on the same rows (floor "
+              f"{recall_floor:.5f})")
+        if recall < recall_floor:
+            raise AssertionError(f"learned recall {recall:.5f} of the card-"
+                                 f"trained towers is below {recall_floor:.5f}")
     exact, wall = ann_clients(svc, rows, TOP_K, "exact")
     regime_latencies(svc, len(exact), wall, "learned: the same rows through "
                      "the exact lane", card)
@@ -4462,6 +4519,7 @@ def learned_load(torch, np, card, svc, mp):
           f"{n_cand}) of {batch.shape[0]} rows on the card {probe_ms:.4f} ms; "
           f"the exact lane's gather + GEMM of the same rows {gemm_ms:.4f} ms "
           f"(CUDA events, median of {REPS}; {card})")
+    return recall
 
 
 def learned_fallback_checks(np, svc, mp):
@@ -4592,12 +4650,11 @@ def learned_cold_start(np, svc, mp):
 
 
 def learned_refusals(np, workdir, svc, enc):
-    """(e): a foreign artifact raises TowerMismatch; learned mode with no
-    checkpoint (or an unusable one) refuses with the named "not ported
-    yet" error — the JAX service would train towers there."""
+    """(e): a foreign artifact raises TowerMismatch; a learned-mode service
+    given it distills its own towers instead (``source="trained"``), as the
+    JAX service does."""
     from distributed_pathsim_tpu_torch.learned import (
         TowerMismatch,
-        TrainingNotPorted,
         load_towers,
         save_towers,
     )
@@ -4614,20 +4671,23 @@ def learned_refusals(np, workdir, svc, enc):
         mismatch = str(exc)
     else:
         raise AssertionError("a foreign artifact loaded")
-    refused = []
-    for path in (str(foreign), None):
-        try:
-            PathSimService(svc.backend, config=ServeConfig(
-                warm=False, topk_mode="learned", learned_checkpoint=path))
-        except TrainingNotPorted as exc:
-            if "not ported yet" not in str(exc):
-                raise
-            refused.append(path)
-        else:
-            raise AssertionError(f"learned mode with {path} started")
+    t0 = time.perf_counter()
+    retrained = PathSimService(svc.backend, config=ServeConfig(
+        warm=False, topk_mode="learned", learned_checkpoint=str(foreign),
+        learned_steps=LEARNED_RETRAIN_STEPS, learned_shadow_every=0))
+    try:
+        lr = retrained._learned
+        if lr is None or lr.encoder.meta != {"steps": LEARNED_RETRAIN_STEPS,
+                                             "seed": 0} or \
+                lr.token != retrained.consistency_token:
+            raise AssertionError("learned mode with a foreign artifact did "
+                                 "not distill its own towers")
+    finally:
+        retrained.close()
     print(f"refusals: TowerMismatch for a foreign artifact ({mismatch[:70]}"
-          f"...); learned mode with it, and with no checkpoint, "
-          f"TrainingNotPorted ('not ported yet')")
+          f"...); learned mode with it distilled its own towers "
+          f"({LEARNED_RETRAIN_STEPS} steps) in {time.perf_counter() - t0:.2f}"
+          f" s, keyed to the service's token")
 
 
 def learned_subprocesses(np, workdir, card, hin):
@@ -4691,6 +4751,360 @@ def learned_subprocesses(np, workdir, card, hin):
               f"--learned-checkpoint (subprocess): exit 0 in {wall:.1f} s; "
               f"{len(rows)} learned answers equal to the host f64 oracle"
               f"{extra_note} ({card})")
+
+
+# -- the learned tier's training -------------------------------------------------
+
+
+def learned_training(torch, ck, np, workdir, card, hin):
+    """Phase 6f: the learned tier's training on the card. Returns the
+    launches of the phase per kernel (K1 once, for the rank-all the
+    card-trained towers' answers are held against; the train step and
+    mining are torch ops)."""
+    from distributed_pathsim_tpu_torch.data import delta as tdl
+
+    phase(f"the learned tier's training: card against CPU on "
+          f"{TRAIN_SMALL}, mining and `learned train` at "
+          f"{N_AUTHORS}x{N_PAPERS}x{N_VENUES} headroom {SERVE_HEADROOM} "
+          f"({TRAIN_RECIPE}), the card-trained towers served, in-service "
+          f"distillation, neural_cli and index build --embedding learned")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    train_card_vs_cpu(torch, np, card)
+    hin_h = tdl.with_headroom(hin, SERVE_HEADROOM)
+    mine_ms = train_bench_window(torch, np, card, hin_h)
+    towers = learned_train_cli(np, workdir, card, hin_h, mine_ms)
+    serve_trained_towers(torch, np, card, hin_h, towers)
+    in_service_distillation(np, workdir, card, hin_h)
+    neural_cli_checkpoint(np, workdir, card)
+    launches = dict(ck.LAUNCHES)
+    print(f"launches {launches} (K1: the rank-all the card-trained towers' "
+          f"answers are held against)")
+    print(f"learned training phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_card_vs_cpu(torch, np, card):
+    """(a): two models with one seed, on the CPU and on the card, start
+    from equal weights; with the same mined pool, 5 steps agree to
+    rtol 1e-4 (losses) and atol 1e-5 (embeddings); two 200-step card
+    runs from one seed give bit-identical losses and embeddings."""
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.models.neural import NeuralPathSim
+
+    hin = synthetic_hin(**TRAIN_SMALL)
+    cpu = NeuralPathSim(hin, "APVPA", device="cpu", **TRAIN_SMALL_MODEL)
+    gpu = NeuralPathSim(hin, "APVPA", device="cuda", **TRAIN_SMALL_MODEL)
+    for (name, a), (_, b) in zip(cpu.model.named_parameters(),
+                                 gpu.model.named_parameters()):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"initial {name} differs card vs CPU")
+    pool = cpu.mine_hard_candidates(256, k=32, seed=0)
+    for a, b in zip(gpu.mine_hard_candidates(256, k=32, seed=0), pool):
+        if not np.array_equal(a, b):
+            raise AssertionError("mined lists differ card vs CPU")
+    for m in (cpu, gpu):
+        m.set_hard_pool(*pool)
+    lc = cpu.train(steps=5, batch_size=256, seed=7)
+    lg = gpu.train(steps=5, batch_size=256, seed=7)
+    loss_rel = float(np.max(np.abs(np.asarray(lg) / np.asarray(lc) - 1)))
+    emb_err = float(np.abs(gpu.embeddings() - cpu.embeddings()).max())
+    if loss_rel > 1e-4 or emb_err > 1e-5:
+        raise AssertionError(f"card vs CPU: losses rel {loss_rel:.3g}, "
+                             f"embeddings {emb_err:.3g}")
+    runs = []
+    for _ in range(2):
+        m = NeuralPathSim(hin, "APVPA", device="cuda", **TRAIN_SMALL_MODEL)
+        m.set_hard_pool(*pool)
+        runs.append((m.train(steps=TRAIN_REPEAT_STEPS, batch_size=512,
+                             seed=0), m.embeddings()))
+    if runs[0][0] != runs[1][0] or not np.array_equal(runs[0][1],
+                                                      runs[1][1]):
+        raise AssertionError("two card runs from one seed differ")
+    print(f"card against CPU ({cpu.n} authors, V {cpu.v}): equal initial "
+          f"weights, equal mined lists, 5 steps: losses within "
+          f"{loss_rel:.3g} (rtol 1e-4), embeddings within {emb_err:.3g} "
+          f"(atol 1e-5); two {TRAIN_REPEAT_STEPS}-step card runs "
+          f"bit-identical (loss {runs[0][0][0]:.4f} -> {runs[0][0][-1]:.4f})")
+
+
+def train_bench_window(torch, np, card, hin_h):
+    """(b) and (g), with the busy share of (c): mining 512 sources at the
+    bench shape on the card equal to the CPU port's lists bit for bit;
+    then the artifact's recipe on the card for a window of steps after the
+    first (captured) ones: ms per step, the card's busy share over the
+    window and 0 compiles in it. Returns the card's mining ms."""
+    from distributed_pathsim_tpu_torch.models.neural import NeuralPathSim
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+
+    kw = {k: TRAIN_RECIPE[k] for k in ("dim", "hidden", "seed")}
+    gpu = NeuralPathSim(hin_h, "APVPA", device="cuda", **kw)
+    cpu = NeuralPathSim(hin_h, "APVPA", device="cpu", **kw)
+    n_src, k = TRAIN_RECIPE["hard_sources"], TRAIN_RECIPE["hard_k"]
+    gpu.mine_hard_candidates(n_src, k=k, seed=0)  # first call: set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = gpu.mine_hard_candidates(n_src, k=k, seed=0)
+    mine_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = cpu.mine_hard_candidates(n_src, k=k, seed=0)
+    cpu_s = time.perf_counter() - t0
+    for a, b in zip(pool, want):
+        if not np.array_equal(a, b):
+            raise AssertionError("bench-shape mining differs card vs CPU")
+    print(f"mining {n_src} sources, k {k}, at {gpu.n}x{gpu.v} on the card: "
+          f"{mine_ms:.3f} ms (a [{n_src}, {gpu.v}] x [{gpu.v}, {gpu.n}] "
+          f"true-f32 product, the division and a stable sort, host clock "
+          f"with the fetch); equal to the CPU port's lists bit for bit (CPU "
+          f"{cpu_s:.2f} s) ({card})")
+    gpu.set_hard_pool(*pool)
+    gpu.train(steps=10, batch_size=TRAIN_BATCH, seed=0)
+    with CompileCounter() as compiles:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu.train(steps=TRAIN_WINDOW, batch_size=TRAIN_BATCH, seed=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_WINDOW * 1e3
+        busy = device_busy_share(torch, lambda: gpu.train(
+            steps=TRAIN_WINDOW // 4, batch_size=TRAIN_BATCH, seed=2), reps=1)
+    if compiles.count:
+        raise AssertionError(f"{compiles.count} compiles after the first "
+                             f"train steps: {compiles.by_kind}")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WINDOW):
+        gpu.sample_batch(TRAIN_BATCH, rng)
+    sample_ms = (time.perf_counter() - t0) / TRAIN_WINDOW * 1e3
+    print(f"train step at the recipe ({TRAIN_BATCH // gpu.SLATE} sources x "
+          f"{gpu.SLATE} slate, F {gpu.features.shape[1]}, hidden "
+          f"{kw['hidden']}, dim {kw['dim']}): {step_ms:.4f} ms a step over "
+          f"{TRAIN_WINDOW} steps after the captured one (host clock, "
+          f"sampler included), the host sampler alone {sample_ms:.4f} ms; "
+          "card busy share over a window "
+          + ("not measured (no device time in the profile)" if busy is None
+             else f"{busy:.4f}")
+          + f"; 0 compiles after the first steps ({card})")
+    return mine_ms
+
+
+def learned_train_cli(np, workdir, card, hin_h, mine_ms):
+    """(c): ``dpathsim-torch learned train`` as a subprocess on the card at
+    the committed artifact's recipe; its token is the graph's
+    fingerprint. Returns the checkpoint's path."""
+    from distributed_pathsim_tpu_torch.serving.cache import graph_fingerprint
+
+    out = workdir / "towers_card.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "learned",
+         "train", "--dataset", ROUTER_SPEC, "--headroom",
+         str(SERVE_HEADROOM), "--out", str(out), "--platform", "cuda",
+         *[f"--{k.replace('_', '-')}={v}" for k, v in TRAIN_RECIPE.items()]],
+        capture_output=True, text=True, timeout=900, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"learned train exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout)
+    fp = graph_fingerprint(hin_h)
+    if info["token"] != [fp, 0] or info["hard_pool"] != \
+            TRAIN_RECIPE["hard_sources"] or not np.isfinite(
+                info["final_loss"]):
+        raise AssertionError(f"learned train: {info}")
+    steps = TRAIN_RECIPE["steps"]
+    print(f"dpathsim-torch learned train (subprocess, --platform cuda): exit "
+          f"0 in {wall:.1f} s; train_s {info['train_s']} (set-up, mining and "
+          f"{steps} steps) -> {steps / info['train_s']:.1f} steps/s; mining "
+          f"{mine_ms:.3f} ms (in-process, above); final_loss "
+          f"{info['final_loss']}; token {info['token']} (the graph's "
+          f"fingerprint) ({card})")
+    return out
+
+
+def serve_trained_towers(torch, np, card, hin_h, towers):
+    """(d): a learned service on the card-trained towers, the learned
+    phase's rows and load at k = 10: every covering answer bit-identical
+    to the exact lane's, score recall@10 at least the JAX artifact's less
+    LEARNED_TRAINED_RECALL_TOL, QPS, 0 compiles in the load, K1's
+    rank-all of the served graph against the oracle's sets."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+
+    mp = compile_metapath("APVPA", hin_h.schema)
+    t0 = time.perf_counter()
+    svc = PathSimService(
+        create_backend("torch", hin_h, mp, device="cuda"),
+        config=ServeConfig(max_batch=SERVE_MAX_BATCH, k_default=TOP_K,
+                           topk_mode="learned",
+                           learned_checkpoint=str(towers),
+                           learned_shadow_every=0,
+                           learned_auto_refresh=False))
+    try:
+        lr = svc._learned
+        if lr is None or lr.encoder.meta.get("steps") != \
+                TRAIN_RECIPE["steps"]:
+            raise AssertionError("the card-trained towers did not load")
+        print(f"service on the card-trained towers: start "
+              f"{time.perf_counter() - t0:.2f} s")
+        learned_load(torch, np, card, svc, mp,
+                     recall_floor=LEARNED_JAX_RECALL
+                     - LEARNED_TRAINED_RECALL_TOL)
+    finally:
+        svc.close()
+
+
+def in_service_distillation(np, workdir, card, hin_h):
+    """(e): a learned-mode service with no checkpoint at the bench shape
+    and the default learned_steps distills its towers at install
+    (source "trained"); DISTILL_QUERIES learned queries, every covering
+    answer bit-identical to the host f64 oracle; then ``dpathsim-torch
+    serve --topk-mode learned --learned-steps 200`` as a subprocess
+    answering a learned topk and stats with no checkpoint."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+
+    mp = compile_metapath("APVPA", hin_h.schema)
+    cfg = ServeConfig(max_batch=SERVE_MAX_BATCH, k_default=TOP_K,
+                      topk_mode="learned", learned_shadow_every=0,
+                      learned_auto_refresh=False)
+    t0 = time.perf_counter()
+    svc = PathSimService(create_backend("torch", hin_h, mp, device="cuda"),
+                         config=cfg)
+    startup = time.perf_counter() - t0
+    try:
+        lr = svc._learned
+        if lr is None or lr.encoder.meta != {"steps": cfg.learned_steps,
+                                             "seed": 0} or \
+                lr.token != svc.consistency_token:
+            raise AssertionError("learned mode with no checkpoint did not "
+                                 "distill its towers")
+        oracle, c64 = f64_topk(np, svc.hin, mp)
+        rng = np.random.default_rng(SEED + 11)
+        rows = rng.choice(np.flatnonzero(lr.d[: svc.n] > 0),
+                          (SERVE_CLIENTS, DISTILL_QUERIES // SERVE_CLIENTS))
+        answers, wall = ann_clients(svc, rows, TOP_K, "learned")
+        covered, recall = ann_check(np, answers, rows.ravel(), oracle, c64,
+                                    TOP_K, "in-service distillation")
+        print(f"in-service distillation: service start {startup:.2f} s "
+              f"(backend, warmup, mining, {cfg.learned_steps} steps, corpus "
+              f"embed); {rows.size} learned queries in {wall:.3f} s, "
+              f"{len(covered)} covering answers bit-identical, recall@{TOP_K}"
+              f" {recall:.5f} ({card})")
+    finally:
+        svc.close()
+    ids = hin_h.indices["author"].ids
+    oracle, _ = f64_topk(np, hin_h, mp)
+    row = int(rows.ravel()[0])
+    ov, oi = oracle(np.asarray([row]), TOP_K)
+    want = [(ids[int(i)], float(v)) for v, i in zip(ov[0], oi[0])
+            if np.isfinite(v)]
+    script = [{"id": 1, "op": "topk", "row": row, "k": TOP_K,
+               "mode": "learned"}, {"id": 2, "op": "stats"},
+              {"id": 3, "op": "shutdown"}]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "serve",
+         "--dataset", str(workdir / "bench.gexf"), "--backend", "torch",
+         "--platform", "cuda", "--topk-mode", "learned", "--learned-steps",
+         str(cfg.learned_steps), "--learned-cand-mult", "4096"],
+        input="\n".join(json.dumps(r) for r in script) + "\n",
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --topk-mode learned exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    resps = {r["id"]: r for r in map(json.loads, proc.stdout.splitlines())}
+    got = [(h["id"], h["score"]) for h in resps[1]["result"]["topk"]]
+    st = resps[2]["result"]["learned"]
+    if got != want or not st or not st["enabled"]:
+        raise AssertionError(f"serve --topk-mode learned: {resps}")
+    print(f"dpathsim-torch serve --topk-mode learned --learned-steps "
+          f"{cfg.learned_steps} (subprocess, no checkpoint): exit 0 in "
+          f"{wall:.1f} s; the learned answer equal to the host f64 oracle, "
+          f"stats learned enabled ({card})")
+
+
+def neural_cli_checkpoint(np, workdir, card):
+    """(f): ``neural_cli train --mine 64`` on the card on a written GEXF,
+    ``neural_cli query --index rerank`` answers equal to the host f64
+    oracle wherever they cover its set, and ``dpathsim-torch index build
+    --embedding learned --model`` building from that checkpoint and
+    ``index probe`` probing it on the card."""
+    from distributed_pathsim_tpu_torch.data.synthetic import (
+        synthetic_hin,
+        write_gexf,
+    )
+    from distributed_pathsim_tpu_torch.ops import planner
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    hin = synthetic_hin(**TRAIN_SMALL, materialize_ids=True)
+    gexf, model = workdir / "neural.gexf", workdir / "neural.npz"
+    write_gexf(hin, str(gexf))
+
+    def run(module, *argv):
+        proc = subprocess.run([sys.executable, "-m", module, *argv],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=HERE)
+        if proc.returncode != 0:
+            raise AssertionError(f"{module} {argv[:2]} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    t0 = time.perf_counter()
+    out = run("distributed_pathsim_tpu_torch.neural_cli", "train",
+              "--dataset", str(gexf), "--out", str(model), "--steps", "600",
+              "--mine", "64", "--platform", "cuda")
+    train_s = time.perf_counter() - t0
+    mp = compile_metapath("APVPA", hin.schema)
+    oracle, _ = f64_topk(np, hin, mp)
+    ids, labels = hin.indices["author"].ids, hin.indices["author"].labels
+    c64 = planner.dense_half(hin, mp, dtype=np.float64)
+    live = np.flatnonzero(c64 @ c64.sum(0) > 0)
+    rows = live[np.linspace(0, live.size - 1, NEURAL_CLI_ROWS).astype(int)]
+    ov, oi = oracle(rows, TOP_K)
+    covered = 0
+    for j, row in enumerate(rows):
+        text = run("distributed_pathsim_tpu_torch.neural_cli", "query",
+                   "--model", str(model), "--dataset", str(gexf),
+                   "--source-id", ids[int(row)], "--index", "rerank",
+                   "--top-k", str(TOP_K), "--platform", "cuda")
+        got = [line.split(None, 1) for line in text.splitlines()[1:]]
+        want = [(f"{v:.6f}", f"{labels[int(i)]} ({ids[int(i)]})")
+                for v, i in zip(ov[j], oi[j]) if np.isfinite(v)]
+        if {g[1] for g in got} == {w[1] for w in want}:
+            covered += 1
+            if [tuple(g) for g in got] != want:
+                raise AssertionError(f"neural_cli rerank row {row} covers "
+                                     "the oracle's set but differs from it")
+    if not covered:
+        raise AssertionError("no neural_cli rerank answer covered the oracle")
+    idx = workdir / "neural_idx.npz"
+    built = json.loads(run(
+        "distributed_pathsim_tpu_torch.cli", "index", "build", "--dataset",
+        str(gexf), "--out", str(idx), "--embedding", "learned", "--model",
+        str(model), "--headroom", "0", "--platform", "cuda"))
+    probed = json.loads(run(
+        "distributed_pathsim_tpu_torch.cli", "index", "probe", "--index",
+        str(idx), "--row", str(int(rows[1])), "--dataset", str(gexf),
+        "--platform", "cuda"))
+    if built["embedding"] != "learned" or not probed["topk"]:
+        raise AssertionError(f"index build/probe learned: {built} {probed}")
+    print(f"neural_cli train --mine 64 --platform cuda: {out.strip()} "
+          f"({train_s:.1f} s); query --index rerank on {len(rows)} rows: "
+          f"{covered} cover the host f64 oracle's set and equal it; index "
+          f"build --embedding learned: {built['n']} rows, dim {built['dim']}, "
+          f"{built['centroids']} centroids; index probe on the card: "
+          f"{len(probed['topk'])} reranked hits ({card})")
 
 
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
@@ -4924,6 +5338,8 @@ def main() -> int:
         ann_launches = ann_tier(torch, ck, np, pathlib.Path(tmp), smi, hin)
         learned_launches = learned_tier(torch, ck, np, pathlib.Path(tmp),
                                         smi, hin)
+        train_launches = learned_training(torch, ck, np, pathlib.Path(tmp),
+                                          smi, hin)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
@@ -4933,6 +5349,7 @@ def main() -> int:
         kern["launches_sharded_partition"] = sp_launches[kern["name"]]
         kern["launches_ann"] = ann_launches[kern["name"]]
         kern["launches_learned"] = learned_launches[kern["name"]]
+        kern["launches_train"] = train_launches[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

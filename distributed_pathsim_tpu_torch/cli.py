@@ -10,8 +10,8 @@ and routes ``dpathsim-torch serve ...`` to the online serving entry
 point (serving/cli.py), ``dpathsim-torch worker / router /
 fleet-stats ...`` to the horizontal tier (router/cli.py), ``batch`` to
 the campaigns (batch/cli.py), ``index build / probe`` to the ANN
-tier's candidate index (index/cli.py) and ``learned inspect`` to the
-learned tier's tower checkpoints (learned/cli.py).
+tier's candidate index (index/cli.py) and ``learned train / inspect``
+to the learned tier's tower checkpoints (learned/cli.py).
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -233,8 +233,8 @@ def parse_args(argv: list[str]):
 # fault-tolerant fan-out over N of them; ``fleet-stats``: the one-shot
 # merged-fleet summary; ``batch``: corpus-scale campaigns (top-k for
 # every row, the similarity join) with checkpointed resume; ``index``:
-# build / probe the ANN tier's MIPS candidate index; ``learned``: inspect
-# a tower checkpoint (``train`` is not ported yet).
+# build / probe the ANN tier's MIPS candidate index; ``learned``: train
+# or inspect a tower checkpoint.
 SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index",
                "learned")
 

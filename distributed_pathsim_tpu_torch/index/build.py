@@ -9,12 +9,13 @@ The embedding source is inner-product-faithful to the exact score:
   ``max_dim`` a seeded Gaussian (JL) projection compresses it — inner
   products are preserved in expectation and the serving layer's
   shadow-recall gate measures what actually survived.
-- ``learned`` (a trained NeuralPathSim checkpoint) comes with the
-  learned tier's training; until then it raises a named "not ported
-  yet" error.
+- ``learned``: a trained :class:`~..models.neural.NeuralPathSim`
+  checkpoint's two-tower embeddings (O(d) with d≪m·V; a checkpoint of
+  either package), the tower run on the build's device.
 
-Everything here is host numpy, as in the JAX package's
-``index/build.py``, so a port build equals a JAX build array for array.
+Everything else here is host numpy, as in the JAX package's
+``index/build.py``, so a port struct build equals a JAX build array
+for array.
 Centroid count and cluster cap resolve through the tuning registry
 (``ann_centroids``, ``ann_cluster_cap``) with the documented heuristics
 as defaults.
@@ -97,14 +98,21 @@ def struct_embeddings(
     return out
 
 
-def learned_embeddings(model_path: str, n_expect: int) -> np.ndarray:
-    """Corpus embeddings from a trained NeuralPathSim checkpoint: the
-    learned tier's training is not ported yet, so this refuses by
-    name."""
-    raise NotImplementedError(
-        "index embedding 'learned' is not ported yet (it needs the "
-        "learned tier's checkpoints); build with --embedding struct"
-    )
+def learned_embeddings(model_path: str, n_expect: int,
+                       device=None) -> np.ndarray:
+    """Corpus embeddings from a trained NeuralPathSim checkpoint (written
+    by either package), validated against the served corpus size; the
+    tower runs on ``device`` (None: CUDA)."""
+    from ..models.neural import NeuralPathSim
+
+    model = NeuralPathSim.load(model_path, device=device)
+    if model.n != n_expect:
+        raise ValueError(
+            f"checkpoint {model_path!r} embeds {model.n} nodes; the "
+            f"served graph has {n_expect} — retrain/rebuild against "
+            "the served dataset"
+        )
+    return np.asarray(model.embeddings(), dtype=np.float32)
 
 
 def default_centroids(n: int, mult: float = 1.0) -> int:
@@ -130,8 +138,8 @@ def build_index(
     """The one build entry point (CLI, serving startup, tests). Pass
     either a graph (``hin`` + ``metapath``) or precomputed ``c``/``d``
     (the serving layer already holds both). ``device`` is where the
-    built index will probe (None: CUDA); the build itself is host
-    work."""
+    built index will probe (None: CUDA); the build is host work but
+    for a learned embedding, whose tower runs there."""
     from .. import tuning
 
     if c is None or d is None:
@@ -146,7 +154,7 @@ def build_index(
     elif embedding == "learned":
         if model_path is None:
             raise ValueError("embedding='learned' needs model_path")
-        emb = learned_embeddings(model_path, n)
+        emb = learned_embeddings(model_path, n, device=device)
     else:
         raise ValueError(
             f"unknown embedding source {embedding!r}; "

@@ -8,11 +8,13 @@
         --dataset dblp/dblp_small.gexf --row 17 --k 10
 
 ``build`` folds the half-chain factor, embeds every node (the analytic
-Cauchy map; ``--embedding learned`` is not ported yet), runs k-means,
+Cauchy map, or with ``--embedding learned --model m.npz`` a trained
+NeuralPathSim checkpoint's tower on the card), runs k-means,
 packs the clusters, and writes the ``.npz`` artifact stamped with the
 graph's base fingerprint — ``dpathsim-torch serve --topk-mode ann
 --index idx.npz`` refuses any artifact whose fingerprint doesn't match
-the served graph. The build is host work; the artifact is the JAX
+the served graph. The build is host work (but for a learned
+embedding's tower); the artifact is the JAX
 package's format, so ``dpathsim index`` and ``dpathsim serve`` read it
 too, and the reverse.
 
@@ -65,9 +67,10 @@ def build_index_parser() -> argparse.ArgumentParser:
     b.add_argument("--out", required=True, help="index .npz path")
     b.add_argument("--embedding", default="struct",
                    choices=("struct", "learned"),
-                   help="embedding source ('learned' is not ported yet)")
+                   help="embedding source ('learned': the tower of "
+                   "--model, run on --platform's device)")
     b.add_argument("--model", default=None,
-                   help="two-tower checkpoint (--embedding learned)")
+                   help="NeuralPathSim checkpoint (--embedding learned)")
     b.add_argument("--centroids", type=int, default=None,
                    help="centroid count (default: tuned sqrt(N) mult)")
     b.add_argument("--cluster-cap", type=int, default=None,
@@ -83,7 +86,8 @@ def build_index_parser() -> argparse.ArgumentParser:
     b.add_argument("--tuning-table", default=None)
     _platform_arg(b, "device the built index is meant for: 'cuda' "
                   "(default) fails when no card is present; the build "
-                  "itself is host work either way")
+                  "itself is host work but for --embedding learned's "
+                  "tower, which runs there")
 
     q = sub.add_parser("probe", help="query an index artifact")
     q.add_argument("--index", required=True, help="index .npz path")

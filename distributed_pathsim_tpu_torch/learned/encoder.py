@@ -19,9 +19,9 @@ go through the SAME arithmetic on the same device, so "inductively
 embedded" and "corpus" embeddings never drift apart. On the CPU it
 equals the JAX package's numpy forward to f32 rounding.
 
-Training the towers (the JAX package's ``from_model`` export of a
-trained two-tower model) is not ported yet; this module serves towers
-read from a checkpoint.
+:meth:`InductiveEncoder.from_model` exports a trained
+:class:`~..models.neural.NeuralPathSim`'s towers into this form (the
+serving tier's model producer, learned/trainer.py).
 """
 
 from __future__ import annotations
@@ -91,6 +91,33 @@ class InductiveEncoder:
     @property
     def hidden(self) -> int:
         return int(self.layers[0][0].shape[1])
+
+    @classmethod
+    def from_model(cls, model, meta: dict | None = None) -> "InductiveEncoder":
+        """Export a trained :class:`~..models.neural.NeuralPathSim`'s
+        towers into the numpy form (the module's flax-layout parameters
+        → plain host f32 arrays)."""
+        from ..models.neural import params_to_flax
+
+        params = params_to_flax(model.model)["params"]
+        layers = [
+            (
+                np.array(params[f"Dense_{i}"]["kernel"], dtype=np.float32),
+                np.array(params[f"Dense_{i}"]["bias"], dtype=np.float32),
+            )
+            for i in range(3)
+        ]
+        deg = np.log1p(model._d)
+        return cls(
+            layers=layers,
+            quad_t=np.asarray(model._quad_t, dtype=np.float64),
+            quad_w=np.asarray(model._quad_w, dtype=np.float64),
+            deg_denom=max(float(deg.max(initial=0.0)), 1.0),
+            target_scale=float(model.target_scale),
+            variant=model.variant,
+            metapath=model.metapath.name,
+            meta=dict(meta or {}),
+        )
 
     # -- the row-local feature map ----------------------------------------
 

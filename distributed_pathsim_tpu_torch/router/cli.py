@@ -34,8 +34,8 @@ exactly. ``--factor-format`` is forwarded to every worker
 and so are the ANN flags (``--topk-mode ann``, ``--index``, ``--ann-*``:
 each replica builds or loads its own candidate index) and the learned
 flags (``--topk-mode learned``, ``--learned-checkpoint``,
-``--learned-*``: each replica loads the towers). The serve flags that
-train towers in the service answer "not ported yet".
+``--learned-*``: each replica loads the towers, or distills its own
+without a checkpoint).
 """
 
 from __future__ import annotations
@@ -204,7 +204,8 @@ _FORWARD_VALUE = (
     "compact_chain_len", "compact_headroom_frac", "compact_headroom",
     "compact_cooldown", "topk_mode", "index", "ann_nprobe", "ann_cand_mult",
     "ann_centroids", "ann_cluster_cap", "ann_variant", "ann_shadow_every",
-    "learned_checkpoint", "learned_cand_mult", "learned_shadow_every",
+    "learned_checkpoint", "learned_dim", "learned_steps",
+    "learned_neg_ratio", "learned_cand_mult", "learned_shadow_every",
     "learned_recall_floor",
 )
 _FORWARD_TRUE = ("no_warm", "no_metrics", "no_tuning", "approx",

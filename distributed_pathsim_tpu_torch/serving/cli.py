@@ -19,11 +19,9 @@ runs by default (``--no-compact``, ``--compact-*``); ``--factor-format``
 holds torch-sparse's factor packed; ``--topk-mode ann`` answers through
 the MIPS candidate index (``--index``, ``--ann-*``), ``--topk-mode
 learned`` through the two-tower candidates of a tower checkpoint
-(``--learned-checkpoint``, ``--learned-*``). The JAX package's flags
-that train towers in the service (``--learned-dim``,
-``--learned-steps``, ``--learned-neg-ratio``) are not ported yet and
-are refused by name, and so is ``--topk-mode learned`` without a
-checkpoint (the JAX package would train one).
+(``--learned-checkpoint``, ``--learned-*``) or, without one, of towers
+distilled in the service at startup (``--learned-dim``,
+``--learned-steps``, ``--learned-neg-ratio``).
 
 The setup helpers here (:func:`parse_known`, :func:`prepare_platform`,
 :func:`run_config`, :func:`serve_config`, :func:`serving_process`) are
@@ -43,10 +41,9 @@ from ..ops.pathsim import VARIANTS
 from .service import ServeConfig, build_service
 
 # Flags of the JAX package's ``dpathsim serve`` whose features the port
-# does not have yet: those of training towers in the service.
-NOT_PORTED_FLAGS = frozenset({
-    "--learned-dim", "--learned-steps", "--learned-neg-ratio",
-})
+# does not have yet: none (the name stays for the commands that pass it
+# to :func:`parse_known`).
+NOT_PORTED_FLAGS: frozenset[str] = frozenset()
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -213,7 +210,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
         help="default topk answer path: 'exact' scores the full O(N) "
         "row; 'ann' probes the MIPS candidate index and exact-reranks "
         "C >> k candidates; 'learned' shortlists via the two-tower "
-        "encoder of --learned-checkpoint and exact-reranks (per-request "
+        "encoder (--learned-checkpoint, or towers distilled at startup) "
+        "and exact-reranks (per-request "
         "override via the protocol's 'mode' field; ineligible rows "
         "silently degrade learned -> ann -> exact, counted per reason)",
     )
@@ -264,10 +262,24 @@ def build_serve_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--learned-checkpoint", default=None,
-        help="tower checkpoint (.npz) written by the JAX package's "
-        "`dpathsim learned train` or by this package; must match the "
-        "served graph's base fingerprint and token. Required with "
-        "--topk-mode learned (training towers here is not ported yet)",
+        help="tower checkpoint (.npz) written by `dpathsim-torch learned "
+        "train` or the JAX package's `dpathsim learned train`; must match "
+        "the served graph's base fingerprint and token. Absent with "
+        "--topk-mode learned, a tower is distilled in-process at startup",
+    )
+    p.add_argument(
+        "--learned-dim", type=int, default=None,
+        help="tower output width for the in-process distillation "
+        "(default: tuning registry)",
+    )
+    p.add_argument(
+        "--learned-steps", type=int, default=200,
+        help="distillation steps for the in-process startup training",
+    )
+    p.add_argument(
+        "--learned-neg-ratio", type=float, default=None,
+        help="uniform-negative fraction of in-process training slates "
+        "(default: tuning registry)",
     )
     p.add_argument(
         "--learned-cand-mult", type=int, default=None,
@@ -296,10 +308,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
 def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
                 command: str = "serve"):
     """Parse ``argv``; a flag of the JAX package's command that the port
-    lacks (``not_ported``) raises ValueError naming it, and so does
-    ``--topk-mode learned`` without ``--learned-checkpoint`` (the JAX
-    package would train towers in the service); any other unknown flag
-    is argparse's usage error."""
+    lacks (``not_ported``) raises ValueError naming it; any other unknown
+    flag is argparse's usage error."""
     args, rest = parser.parse_known_args(argv)
     for token in rest:
         flag = token.split("=", 1)[0]
@@ -307,14 +317,6 @@ def parse_known(parser: argparse.ArgumentParser, argv, not_ported,
             raise ValueError(f"{command} {flag} is not ported yet")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if (getattr(args, "topk_mode", None) == "learned"
-            and getattr(args, "learned_checkpoint", None) is None):
-        raise ValueError(
-            f"{command} --topk-mode learned without --learned-checkpoint "
-            "is not ported yet (training towers in the service comes "
-            "with the learned tier's training slice); pass a tower "
-            "checkpoint"
-        )
     return args
 
 
@@ -406,6 +408,9 @@ def serve_config(args) -> ServeConfig:
         ann_shadow_every=args.ann_shadow_every,
         ann_auto_refresh=not args.no_ann_refresh,
         learned_checkpoint=args.learned_checkpoint,
+        learned_dim=args.learned_dim,
+        learned_steps=args.learned_steps,
+        learned_neg_ratio=args.learned_neg_ratio,
         learned_cand_mult=args.learned_cand_mult,
         learned_shadow_every=args.learned_shadow_every,
         learned_recall_floor=args.learned_recall_floor,

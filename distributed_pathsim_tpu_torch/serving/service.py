@@ -44,9 +44,9 @@ reranked exactly in host f64, and a row the towers cannot vouch for
 (stale, degenerate, confidence lost, another metapath, no towers)
 degrades learned → ann → exact, counted by reason. ``refresh_towers``
 re-embeds the delta-touched and appended rows through the inductive
-encoder (cold start). Training towers in the service (the JAX package's
-fallback when no usable checkpoint is given) is not ported yet: a
-learned-mode service without one refuses to start.
+encoder (cold start). A learned-mode service without a usable
+checkpoint distills its own towers at install, on the backend's device
+(``learned_ready`` with ``source="trained"``).
 
 The port serves the exact, ANN and learned lanes of the JAX package's
 service, and the batch tier's ``batch_blocks`` op.
@@ -183,10 +183,16 @@ class ServeConfig:
     # refresh_index op/method.
     ann_auto_refresh: bool = True
     # -- learned candidate generation (learned/) -----------------------
-    # A tower checkpoint (the JAX package's `dpathsim learned train`
-    # artifact). Mode "learned" requires one: training towers in the
-    # service is not ported yet.
+    # A `dpathsim-torch learned train` (or the JAX package's `dpathsim
+    # learned train`) tower artifact; None + mode "learned" distills a
+    # tower in-process at install (exact-teacher mining).
     learned_checkpoint: str | None = None
+    # In-process training geometry (None resolves the tuned
+    # learned_dim / learned_neg_ratio knobs); steps stay small — the
+    # exact rerank carries correctness, the tower only needs recall.
+    learned_dim: int | None = None
+    learned_steps: int = 200
+    learned_neg_ratio: float | None = None
     # candidates per learned query as a multiple of k (None → the
     # tuned learned_cand_mult knob)
     learned_cand_mult: int | None = None
@@ -485,20 +491,17 @@ class PathSimService:
         )
 
     def _setup_learned(self, warm: bool) -> None:
-        """(Re)load the learned-tower candidate state for the freshly
-        installed backend from ``learned_checkpoint``. The checkpoint
-        must be keyed to this graph and token and to the served variant
-        and metapath; an unusable one on a service where the learned arm
-        is optional degrades quietly (``learned_towers_rejected``). A
-        learned-mode service would distill its own towers there, as the
-        JAX package's does — training is not ported yet, so its first
-        install raises :class:`~..learned.TrainingNotPorted` instead,
-        and a later one (an update's rebuild, a reload: the new graph's
-        fingerprint no longer matches the towers) serves on without the
-        arm, loudly (``learned_unavailable``; learned queries count
-        ``no_towers`` and answer ann-then-exact). The towers embed the
-        corpus on the backend's device (the host for the numpy
-        oracle)."""
+        """(Re)build the learned-tower candidate state for the freshly
+        installed backend. A ``learned_checkpoint`` must be keyed to this
+        graph and token and to the served variant and metapath; an
+        unusable one on a service where the learned arm is optional
+        degrades quietly (``learned_towers_rejected``). A learned-mode
+        service with no usable checkpoint — at startup, or at a later
+        install whose graph the towers no longer match — distills its
+        own towers in-process on the backend's device (exact-teacher
+        mining + ``learned_steps`` steps), as the JAX package's does.
+        The towers embed the corpus on the backend's device (the host
+        for the numpy oracle)."""
         cfg = self.config
         if self._learned is not None:
             self._learned.close()
@@ -508,17 +511,25 @@ class PathSimService:
         from .. import tuning
         from ..index.build import half_chain_and_denominators
         from ..learned import (
-            TRAINING_SLICE,
             LearnedState,
             TowerMismatch,
-            TrainingNotPorted,
             load_towers,
+            train_towers,
         )
 
         t0 = time.perf_counter()
+        device = getattr(self.backend, "device", None) or "cpu"
+        try:
+            c, d = half_chain_and_denominators(
+                self.hin, self.metapath, self.variant
+            )
+        except (ValueError, MemoryError) as exc:
+            runtime_event("learned_unavailable", reason=str(exc))
+            return
         encoder = token = None
-        reason = "no tower checkpoint"
+        source = "file"
         if cfg.learned_checkpoint is not None:
+            reason = None
             try:
                 encoder, token = load_towers(
                     cfg.learned_checkpoint, expect_base_fp=self._base_fp
@@ -549,19 +560,33 @@ class PathSimService:
                     # the learned arm was optional here — degrade quietly
                     return
         if encoder is None:
-            msg = (f"topk mode 'learned' has no usable tower checkpoint "
-                   f"({reason}), and {TRAINING_SLICE}")
-            if getattr(self, "coalescer", None) is None:  # first install
-                raise TrainingNotPorted(msg)
-            runtime_event("learned_unavailable", reason=msg)
-            return
-        try:
-            c, d = half_chain_and_denominators(
-                self.hin, self.metapath, self.variant
+            # no checkpoint, or a rejected one on a learned-mode service:
+            # distill in-process (the rejection already shouted; a
+            # learned-mode replica must still come up serving learned)
+            dim = cfg.learned_dim or int(tuning.choose(
+                "learned_dim", n=self.n, default=32
+            ))
+            neg_ratio = (
+                cfg.learned_neg_ratio
+                if cfg.learned_neg_ratio is not None
+                else float(tuning.choose(
+                    "learned_neg_ratio", n=self.n, default=0.5
+                ))
             )
-        except (ValueError, MemoryError) as exc:
-            runtime_event("learned_unavailable", reason=str(exc))
-            return
+            try:
+                encoder, _ = train_towers(
+                    self.hin, self.metapath, variant=self.variant,
+                    dim=dim, steps=cfg.learned_steps,
+                    hard_frac=1.0 - neg_ratio,
+                    hard_sources=min(self.n, 512),
+                    token=self.consistency_token,
+                    device=device,
+                )
+            except (ValueError, MemoryError) as exc:
+                runtime_event("learned_unavailable", reason=str(exc))
+                return
+            token = self.consistency_token
+            source = "trained"
         cand_mult = cfg.learned_cand_mult or int(tuning.choose(
             "learned_cand_mult", n=self.n, default=16
         ))
@@ -579,7 +604,7 @@ class PathSimService:
             recall_floor=recall_floor,
             min_shadow=cfg.learned_min_shadow,
             token=token,
-            device=getattr(self.backend, "device", None) or "cpu",
+            device=device,
         )
         if warm:
             # the probe driven once per serving bucket, so the first
@@ -593,7 +618,7 @@ class PathSimService:
             "learned_ready",
             n=self._learned.n, dim=encoder.dim, hidden=encoder.hidden,
             cand_mult=cand_mult, recall_floor=recall_floor,
-            source="file",
+            source=source,
             startup_s=round(time.perf_counter() - t0, 3),
         )
 

@@ -29,8 +29,8 @@ registered here only where the port has its decision point today:
 - ``learned_cand_mult`` / ``learned_conf_floor`` /
   ``learned_refresh_deltas``: the learned serving lane
   (serving/service.py); ``learned_dim`` / ``learned_neg_ratio`` shape
-  the trainer's towers (kept for the JAX package's table keys; training
-  is not ported yet).
+  the trainer's towers (``dpathsim-torch learned train`` and the
+  service's in-process distillation).
 
 The JAX package's other Pallas tile and variant knobs
 (``scores_variant``, ``scores_tile``, ``topk_rowtile``, ``k_tile``)

@@ -250,11 +250,17 @@ def test_no_index_fallback_counted():
         for svc in (js, ts):
             got = svc.topk_index(3, k=5, mode="learned")
             assert _same(got, svc.topk_index(3, k=5, mode="exact"))
-        # learned mode without a checkpoint would train towers in the
-        # service: not ported yet
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            PathSimService(ts.backend, config=ServeConfig(
-                topk_mode="learned", warm=False))
+        # learned mode without a checkpoint trains towers in the service
+        # (as the JAX service does) and answers through them
+        ls = PathSimService(ts.backend, config=ServeConfig(
+            topk_mode="learned", warm=False, learned_steps=5,
+            learned_cand_mult=4096, learned_shadow_every=0))
+        try:
+            assert ls.stats()["learned"]["enabled"]
+            assert _same(ls.topk_index(3, k=5),
+                         ts.topk_index(3, k=5, mode="exact"))
+        finally:
+            ls.close()
     finally:
         js.close()
         ts.close()

@@ -186,7 +186,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "parallel.multihost", "backends.torch_sharded",
                 "backends.partition_factors", "serving.partition",
                 "router.partition", "learned.encoder", "learned.checkpoint",
-                "learned.serving", "learned.cli"):
+                "learned.serving", "learned.cli", "learned.trainer",
+                "models.flax_msgpack", "neural_cli"):
         assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"

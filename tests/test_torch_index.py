@@ -271,16 +271,34 @@ def test_learned_embedding_and_missing_card_refused(small, tmp_path,
                                                     monkeypatch, capsys):
     from distributed_pathsim_tpu_torch.cli import main as tmain
 
+    from distributed_pathsim_tpu_torch.data.delta import with_headroom
+    from distributed_pathsim_tpu_torch.index.cli import _parse_dataset
+    from distributed_pathsim_tpu_torch.models.neural import NeuralPathSim
+
     c, d = small
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_index(c=c, d=d, embedding="learned", model_path="m.npz",
-                    device="cpu")
     spec = "synthetic:authors=40,papers=60,venues=4,seed=1"
+    # --embedding learned is ported: a NeuralPathSim checkpoint of the
+    # served graph (index build's default headroom) embeds the corpus...
+    model = NeuralPathSim(with_headroom(_parse_dataset(spec), 0.25),
+                          "APVPA", dim=8, hidden=16, device="cpu")
+    model.train(steps=2, batch_size=64)
+    model.save(str(tmp_path / "m.npz"))
     capsys.readouterr()
     assert tmain(["index", "build", "--dataset", spec, "--out",
                   str(tmp_path / "x.npz"), "--platform", "cpu",
+                  "--embedding", "learned", "--model",
+                  str(tmp_path / "m.npz")]) == 0
+    built = json.loads(capsys.readouterr().out)
+    assert (built["embedding"], built["dim"], built["n"]) == (
+        "learned", 8, model.n)
+    # ...and one of another graph, or none, is refused by name
+    with pytest.raises(ValueError, match="retrain/rebuild"):
+        build_index(c=c, d=d, embedding="learned",
+                    model_path=str(tmp_path / "m.npz"), device="cpu")
+    assert tmain(["index", "build", "--dataset", spec, "--out",
+                  str(tmp_path / "x.npz"), "--platform", "cpu",
                   "--embedding", "learned", "--model", "m.npz"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    assert capsys.readouterr().err.startswith("error:")  # missing file
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for action in (["build", "--dataset", spec, "--out",
                     str(tmp_path / "y.npz")],

@@ -17,8 +17,8 @@ for row:
 - the cold-start append answered bit-identically before and after
   ``refresh_towers``, by hand and by the background refresh;
 - a checkpoint the service cannot use: refused quietly where the arm is
-  optional, and with the named "not ported yet" error under learned
-  mode (the JAX service would train towers there);
+  optional, and under learned mode replaced by towers the service
+  distills itself, as the JAX service does;
 - the ``refresh_towers`` op and ``"mode": "learned"`` through the port's
   ``serve_loop`` against the JAX one.
 """
@@ -47,7 +47,6 @@ from distributed_pathsim_tpu.tuning import dispatch as jtuning
 from distributed_pathsim_tpu_torch import tuning
 from distributed_pathsim_tpu_torch.backends.base import create_backend
 from distributed_pathsim_tpu_torch.data import delta as tdelta
-from distributed_pathsim_tpu_torch.learned import TrainingNotPorted
 from distributed_pathsim_tpu_torch.obs.metrics import get_registry
 from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 from distributed_pathsim_tpu_torch.serving import PathSimService, ServeConfig
@@ -383,9 +382,10 @@ def test_background_refresh_after_a_delta(graphs, towers):
 def test_unusable_checkpoints_refused(graphs, towers, tmp_path):
     """A checkpoint keyed to another graph or token: refused quietly where
     the learned arm is optional (``learned_towers_rejected``; JAX too);
-    under learned mode the JAX service trains towers instead, which the
-    port refuses with the named error — as it refuses learned mode with
-    no checkpoint at all."""
+    under learned mode the service distills its own towers instead, as
+    the JAX service does — and so it does with no checkpoint at all:
+    towers keyed to the service's token, answers bit-identical to the
+    exact lane's."""
     from distributed_pathsim_tpu.learned import load_towers as jload
 
     enc, _ = jload(towers)
@@ -397,20 +397,29 @@ def test_unusable_checkpoints_refused(graphs, towers, tmp_path):
     backend = create_backend("torch", thin,
                              compile_metapath("APVPA", thin.schema),
                              device="cpu")
-    for path in (foreign, lagging, str(tmp_path / "missing.npz")):
+    for path in (foreign, lagging, str(tmp_path / "missing.npz"), None):
+        if path is not None:
+            svc = PathSimService(backend, config=ServeConfig(
+                warm=False, learned_checkpoint=path))
+            try:
+                assert svc.stats()["learned"] is None
+                assert svc.learned_fallback_reason(1, "learned") == \
+                    "no_towers"
+            finally:
+                svc.close()
         svc = PathSimService(backend, config=ServeConfig(
-            warm=False, learned_checkpoint=path))
+            warm=False, topk_mode="learned", learned_checkpoint=path,
+            learned_steps=10, learned_cand_mult=32,
+            learned_shadow_every=0))
         try:
-            assert svc.stats()["learned"] is None
-            assert svc.learned_fallback_reason(1, "learned") == "no_towers"
+            snap = svc.stats()["learned"]
+            assert snap is not None and snap["enabled"], path
+            assert snap["token"] == list(svc.consistency_token)
+            assert svc._learned.encoder.meta == {"steps": 10, "seed": 0}
+            assert _same(svc.topk_index(4, k=5, mode="learned"),
+                         svc.topk_index(4, k=5, mode="exact")), path
         finally:
             svc.close()
-        with pytest.raises(TrainingNotPorted, match="not ported yet"):
-            PathSimService(backend, config=ServeConfig(
-                warm=False, topk_mode="learned", learned_checkpoint=path))
-    with pytest.raises(TrainingNotPorted, match="training slice"):
-        PathSimService(backend, config=ServeConfig(warm=False,
-                                                   topk_mode="learned"))
     # the optional arm on an exact service: loaded, and learned queries
     # answer through it while exact stays the default
     svc = PathSimService(backend, config=ServeConfig(

@@ -46,7 +46,6 @@ from distributed_pathsim_tpu_torch.learned import (
     LEARNED_SURFACE,
     InductiveEncoder,
     TowerMismatch,
-    TrainingNotPorted,
     load_towers,
     save_towers,
     train_towers,
@@ -209,12 +208,18 @@ def test_closed_taxonomy_surface_and_knobs_equal_jax():
             jregistry.KNOBS[knob].candidates({}), knob
         assert tuning.make_key(knob, "cpu", n=130) == jtuning.make_key(
             knob, "cpu", n=130)
-    with pytest.raises(TrainingNotPorted, match="training slice"):
-        train_towers(None, "APVPA")
+    # the trainer is ported: the JAX signature, plus the device it runs on
+    import inspect
+
+    from distributed_pathsim_tpu.learned import train_towers as jtrain
+
+    ours = list(inspect.signature(train_towers).parameters)
+    assert ours == [*inspect.signature(jtrain).parameters, "device"]
 
 
 def test_learned_cli_inspect_matches_jax_and_train_refused(tmp_path,
-                                                           capsys):
+                                                           capsys,
+                                                           monkeypatch):
     from distributed_pathsim_tpu.cli import main as jmain
     from distributed_pathsim_tpu_torch.cli import main as torch_main
 
@@ -225,11 +230,27 @@ def test_learned_cli_inspect_matches_jax_and_train_refused(tmp_path,
     assert torch_main(["learned", "inspect", "--towers", path]) == 0
     got = capsys.readouterr().out
     assert got == want and json.loads(got)["delta_seq"] == 2
-    assert torch_main(["learned", "train", "--dataset",
-                       "synthetic:authors=80,papers=140,venues=6,seed=3",
-                       "--out", str(tmp_path / "t.npz")]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    # train runs on the card unless asked for the CPU: without a card
+    # the default refuses before anything is written, --platform cpu
+    # trains and writes a checkpoint inspect reads
+    train = ["learned", "train", "--dataset",
+             "synthetic:authors=80,papers=140,venues=6,seed=3",
+             "--out", str(tmp_path / "t.npz"), "--steps", "5", "--dim", "8",
+             "--hard-sources", "16", "--hard-k", "4"]
+    import torch
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        assert torch_main(train) == 1
+        assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "t.npz").exists()
+    assert torch_main([*train, "--platform", "cpu"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert torch_main(["learned", "inspect", "--towers",
+                       str(tmp_path / "t.npz")]) == 0
+    meta = json.loads(capsys.readouterr().out)
+    assert (meta["dim"], meta["base_fp"], meta["meta"]["steps"]) == (
+        8, info["token"][0], 5)
     assert torch_main(["learned", "inspect", "--towers",
                        str(tmp_path / "missing.npz")]) == 1
 
@@ -261,8 +282,16 @@ def test_router_forwards_the_learned_flags_to_workers():
     wargs = parse_worker_args(argv[argv.index("--worker-id"):])
     assert (wargs.learned_checkpoint, wargs.learned_recall_floor,
             wargs.no_learned_refresh) == ("/data/towers.npz", 0.95, True)
-    with pytest.raises(ValueError, match="not ported yet"):
-        parse_router_args(["--dataset", "g.gexf", "--learned-dim", "16"])
+    # the training flags are ported: parsed, and forwarded as JAX's are
+    argv = _worker_argv(parse_router_args([
+        "--dataset", "g.gexf", "--topk-mode", "learned", "--learned-dim",
+        "16", "--learned-steps", "5", "--learned-neg-ratio", "0.25"]), 1)
+    for flag, val in (("--learned-dim", "16"), ("--learned-steps", "5"),
+                      ("--learned-neg-ratio", "0.25")):
+        assert argv[argv.index(flag) + 1] == val, flag
+    wargs = parse_worker_args(argv[argv.index("--worker-id"):])
+    assert (wargs.learned_dim, wargs.learned_steps,
+            wargs.learned_neg_ratio) == (16, 5, 0.25)
 
 
 # -- the committed artifact -------------------------------------------------

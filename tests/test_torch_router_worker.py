@@ -74,9 +74,15 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         assert torch_main([cmd, "--dataset", SPEC]) == 1
         err = capsys.readouterr().err
         assert "no CUDA device" in err and "--platform cpu" in err, cmd
-    # the learned lane serves a tower checkpoint; training towers in the
-    # service (learned mode without one, the training flags) is not
-    # ported yet
+    # training towers in the service is ported: learned mode without a
+    # checkpoint and the training flags parse for worker and router (the
+    # router forwards them), as the JAX package's commands do
+    from distributed_pathsim_tpu_torch.router.cli import (
+        _worker_argv,
+        parse_router_args,
+        parse_worker_args,
+    )
+
     for argv in (
         ["worker", "--topk-mode", "learned"],
         ["router", "--topk-mode", "learned"],
@@ -84,11 +90,15 @@ def test_refusals_without_a_card_and_for_unported_modes(monkeypatch, capsys):
         ["router", "--topk-mode", "learned", "--learned-checkpoint",
          "t.npz", "--learned-steps", "5"],
     ):
-        assert torch_main([*argv, "--dataset", SPEC,
-                           "--platform", "cpu"]) == 1, argv
-        assert "not ported yet" in capsys.readouterr().err, argv
-    from distributed_pathsim_tpu_torch.router.cli import parse_worker_args
-
+        parse = parse_router_args if argv[0] == "router" else \
+            parse_worker_args
+        args = parse([*argv[1:], "--dataset", SPEC, "--platform", "cpu"])
+        for flag, val in zip(argv[1::2], argv[2::2]):
+            assert str(getattr(args, flag[2:].replace("-", "_"))) == val, argv
+        if argv[0] == "router":
+            fwd = _worker_argv(args, 0)
+            for flag, val in zip(argv[1::2], argv[2::2]):
+                assert fwd[fwd.index(flag) + 1] == val, argv
     args = parse_worker_args(["--dataset", SPEC, "--topk-mode", "learned",
                               "--learned-checkpoint", "t.npz",
                               "--learned-cand-mult", "8"])

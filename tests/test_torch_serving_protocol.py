@@ -255,22 +255,39 @@ def test_serve_refuses_without_a_card_and_unported_flags(
     assert torch_main(["serve", "--dataset", gexf]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device is available" in err and "--platform cpu" in err
-    # training towers in the service is not ported: its flags, learned
-    # mode without a checkpoint, and learned mode whose checkpoint is
-    # unusable (the JAX service would train there)
-    for flag in (["--topk-mode", "learned"], ["--learned-steps=5"],
-                 ["--learned-dim", "16"], ["--learned-neg-ratio", "0.5"],
-                 ["--topk-mode", "learned", "--learned-checkpoint",
-                  str(tmp_path / "missing.npz")]):
-        assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
-                           *flag]) == 1
-        assert "not ported yet" in capsys.readouterr().err, flag
-    # the learned lane's serving flags are ported
+    # training towers in the service is ported: its flags parse into the
+    # config, and learned mode without a usable checkpoint distills towers
+    # at startup (the JAX service's behaviour) and answers learned topk
     from distributed_pathsim_tpu_torch.serving.cli import (
         parse_serve_args,
         serve_config,
     )
 
+    for flag, want in ((["--learned-steps=5"], ("learned_steps", 5)),
+                       (["--learned-dim", "16"], ("learned_dim", 16)),
+                       (["--learned-neg-ratio", "0.5"],
+                        ("learned_neg_ratio", 0.5))):
+        cfg = serve_config(parse_serve_args(["--dataset", gexf, *flag]))
+        assert getattr(cfg, want[0]) == want[1], flag
+    for flag in (["--topk-mode", "learned"],
+                 ["--topk-mode", "learned", "--learned-checkpoint",
+                  str(tmp_path / "missing.npz")]):
+        script = [{"id": 1, "op": "topk", "source_id": "author_3", "k": 5,
+                   "mode": "learned"},
+                  {"id": 2, "op": "topk", "source_id": "author_3", "k": 5,
+                   "mode": "exact"},
+                  {"id": 3, "op": "stats"}, {"id": 4, "op": "shutdown"}]
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            "\n".join(json.dumps(r) for r in script) + "\n"))
+        assert torch_main(["serve", "--dataset", gexf, "--platform", "cpu",
+                           "--learned-steps", "5", "--learned-cand-mult",
+                           "256", *flag]) == 0, flag
+        resps = [json.loads(line) for line in
+                 capsys.readouterr().out.splitlines()]
+        assert [r["id"] for r in resps] == [1, 2, 3, 4], flag
+        assert resps[0]["result"]["topk"] == resps[1]["result"]["topk"]
+        assert resps[2]["result"]["learned"]["enabled"], flag
+    # the learned lane's serving flags are ported
     cfg = serve_config(parse_serve_args([
         "--dataset", gexf, "--topk-mode", "learned", "--learned-checkpoint",
         "t.npz", "--learned-cand-mult", "8", "--learned-shadow-every", "0",
