@@ -237,6 +237,23 @@ nonzero and no result line is printed):
    ``index probe`` on the card; its launches are ``launches_train`` in
    the kernels line (K1 once, for the rank-all; the train step and
    mining are torch ops);
+6g. tuning on the card: K1 and K3 against their plain versions
+   (``torch.equal``) at every stripe width the ``twopass_stripe_tiles``
+   and ``rect_target_units`` knobs can hand them, on a 6000-row factor
+   with 1-, 2- and 3-limb rows; ``dpathsim-torch tune --knobs
+   twopass_stripe_tiles,rect_target_units,sparse_tile_rows,ring_kernel,
+   serve_buckets`` in a child process at the bench shape and a 131072 x
+   64 sparse point (2 rounds): exit 0, every entry keyed with the card's
+   name, K1 and K3 launched, no plain version (nor the ring's torch fold)
+   called with a CUDA tensor; the main path's rank-all under the table it
+   wrote cmp-identical to the untuned ranking, K1 at the tuned width (the
+   width and the lookup counts printed); a 512-author service under the
+   table with hit lookups, its answers equal to the host f64 oracle and 0
+   compiles after warmup, no plain version on the card there either; K1
+   at the bench shape and K3's tile sweeps (the bench factor, the sparse
+   point) at the tuned setting against the default, in turns; its
+   launches are ``launches_tune`` and its times ``tuned`` in the kernels
+   line;
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -718,7 +735,7 @@ def kernel_checks(torch, ck, np, synthetic_hin):
     check_scores(torch, ck, c, d, "APVPA 3001x64")
     print("K1/K2 narrow (APVPA, n=3001, v=64, k in 1/10/16, both masks; K1 "
           "also with stripes of 1 and 3 tiles besides the default "
-          f"{ck.twopass_stripe_tiles(c.shape[0])}): equal")
+          f"{ck.twopass_stripe_tiles(*c.shape, 10, dev)}): equal")
     check_k3_k4(torch, ck, c, d, "APVPA 3001x64")
     print("K3/K4 narrow (APVPA, n=3001, v=64; K3 k in 1/10/15, all rows with "
           "the default stripes and an odd row tile with 4-tile stripes; K4 k "
@@ -1387,13 +1404,14 @@ def uniform_hin(n_authors, n_papers, n_venues, seed):
     })
 
 
-def smallest_past_twopass(ck, k, device) -> int:
+def smallest_past_twopass(ck, k, device, v) -> int:
     """The smallest row count whose K1 candidate buffer exceeds its
-    budget on ``device`` (cuda_kernels.candidate_bytes)."""
+    budget on ``device`` for a factor V wide
+    (cuda_kernels.candidate_bytes)."""
     lo, hi = 1, 1 << 22
     while lo < hi:
         mid = (lo + hi) // 2
-        if ck.twopass_fits(mid, k, device):
+        if ck.twopass_fits(mid, k, device, v):
             lo = mid + 1
         else:
             hi = mid
@@ -1408,14 +1426,14 @@ def dense_rect_arm(torch, ck, np, launches):
 
     phase("dense backend past K1's candidate budget (the rect arm)")
     dev = torch.device("cuda")
-    n = smallest_past_twopass(ck, TOP_K, dev)
+    n = smallest_past_twopass(ck, TOP_K, dev, 64)
     hin = uniform_hin(n, 2 * n, 64, SEED)
     mp = compile_metapath("APVPA", hin.schema)
     backend = create_backend("torch", hin, mp)
     (vals, idxs), counts, _ = counted(
         torch, ck, launches, lambda: backend.topk(k=TOP_K),
         f"dense topk at n={n} (candidate buffer "
-        f"{ck.candidate_bytes(n, TOP_K)} > budget "
+        f"{ck.candidate_bytes(n, TOP_K, 64, dev)} > budget "
         f"{ck.candidate_budget_bytes(dev)} bytes) k={TOP_K}",
     )
     if counts["topk_rect_candidates"] < 1 or counts["topk_twopass_candidates"]:
@@ -2894,8 +2912,9 @@ def serving_rest_kernels(torch, ck, np, backend, aptpa, k1_before,
     print(f"K1 topk_twopass_candidates k={TOP_K}: {k1_before:.3f} ms on the "
           f"{shape_before} factor before compaction, {k1_after:.3f} ms on the "
           f"compacted {tuple(c.shape)} factor (stripes of "
-          f"{ck.twopass_stripe_tiles(shape_before[0]) * ck.TILE} and "
-          f"{ck.twopass_stripe_tiles(c.shape[0]) * ck.TILE} columns; CUDA "
+          f"{ck.twopass_stripe_tiles(*shape_before, TOP_K, c.device)} and "
+          f"{ck.twopass_stripe_tiles(*c.shape, TOP_K, c.device)} column "
+          f"tiles of {ck.TILE}; CUDA "
           f"events, median of {REPS}; {card})")
     return launches
 
@@ -5107,6 +5126,307 @@ def neural_cli_checkpoint(np, workdir, card):
           f"{len(probed['topk'])} reranked hits ({card})")
 
 
+# -- tuning on the card --------------------------------------------------------
+
+# The tuning phase: K1 and K3 against their plain versions at every width
+# the two kernel knobs can hand them, on a multi-limb factor of
+# TUNE_CHECK_ROWS rows (wide enough that every rect_target_units
+# candidate gives K3 its own stripe width); `dpathsim-torch tune` in a
+# child process over TUNE_KNOBS at TUNE_SHAPES (the bench shape, and a
+# sparse point of config 5's width whose K3 sweep spans 32 row tiles)
+# with TUNE_REPS rounds; the main path's rank-all under the table it
+# wrote; a service over TUNE_SERVE_AUTHORS authors (the serve_buckets
+# key the table holds at the default max_batch of 32) under
+# TUNE_SERVE_CLIENTS x TUNE_SERVE_PER_CLIENT topk requests; K1 at the
+# bench shape and K3's sweep at the sparse point at the tuned setting
+# against the default.
+TUNE_CHECK_ROWS = 6000
+TUNE_KNOBS = ("twopass_stripe_tiles,rect_target_units,sparse_tile_rows,"
+              "ring_kernel,serve_buckets")
+TUNE_SPARSE = (131_072, 64, 655_360)
+TUNE_SHAPES = (f"{N_AUTHORS}x{N_VENUES},"
+               f"{TUNE_SPARSE[0]}x{TUNE_SPARSE[1]}x{TUNE_SPARSE[2]}")
+TUNE_REPS = 2
+TUNE_SERVE_AUTHORS, TUNE_SERVE_CLIENTS, TUNE_SERVE_PER_CLIENT = 512, 8, 32
+# The kernels' plain versions (ops/cuda_kernels.py), the ring's torch
+# fold and torch-sparse's torch folds beside K3 (ops/sparse.py's scanned
+# and per-tile folds): none may run on the card on the paths the tuning
+# phase drives.
+PLAIN_VERSIONS = ("fused_scores_plain", "fused_topk_twopass_plain",
+                  "topk_twopass_candidates_plain", "fused_topk_plain",
+                  "topk_rect_candidates_plain",
+                  "fused_topk_twopass_rect_plain")
+SPARSE_FOLDS = ("stream_row_tile_topk", "stream_merge_topk")
+
+TUNE_CHILD = """
+import json, sys
+import torch
+import chip_smoke
+from distributed_pathsim_tpu_torch.cli import main
+from distributed_pathsim_tpu_torch.ops import cuda_kernels as ck
+counts, _ = chip_smoke.count_plain_on_card(torch, ck)
+rc = main(["tune", *sys.argv[1:]])
+print(json.dumps({"rc": rc, "launches": dict(ck.LAUNCHES),
+                  "plain_on_card": counts}))
+sys.exit(rc)
+"""
+
+
+def count_plain_on_card(torch, ck):
+    """Wrap every plain version (and the ring's and torch-sparse's torch
+    folds) so that each call holding a CUDA tensor is counted. Returns
+    the counts (by name) and a function that puts the originals back."""
+    from distributed_pathsim_tpu_torch.ops import sparse as sp
+    from distributed_pathsim_tpu_torch.parallel import ring
+
+    counts: dict[str, int] = {}
+    originals = []
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def counted_fn(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+
+        originals.append((mod, name, fn))
+        setattr(mod, name, counted_fn)
+
+    for name in PLAIN_VERSIONS:
+        wrap(ck, name)
+    wrap(ring, "_fold_tile")
+    for name in SPARSE_FOLDS:
+        wrap(sp, name)
+
+    def restore():
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+    return counts, restore
+
+
+def tuning_phase(torch, ck, np, workdir, card, hin, ranking):
+    """The autotuner on the card (see TUNE_* above). Returns the launches
+    of the phase's own runs (the tune child's, the tuned rank-all's and
+    the service's) and the tuned-against-default numbers for the kernels
+    line."""
+    from distributed_pathsim_tpu_torch import tuning
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.cli import main as cli_main
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.ops import sparse as sp
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+    from distributed_pathsim_tpu_torch.serving import (
+        PathSimService,
+        ServeConfig,
+    )
+    from distributed_pathsim_tpu_torch.tuning import autotuner as at
+    from distributed_pathsim_tpu_torch.tuning.table import normalize_device
+    from distributed_pathsim_tpu_torch.utils.compile_counter import (
+        CompileCounter,
+    )
+
+    phase("tuning on the card")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(dev)
+    tuning.reset()
+
+    # 1. K1 and K3 against their plain versions at every candidate width
+    cm, dm = multilimb_factor(torch, np, dev, n=TUNE_CHECK_ROWS)
+    lim = ck.split_limbs(cm)
+    n = cm.shape[0]
+    k1_widths = tuning.KNOBS["twopass_stripe_tiles"].candidates({})
+    for w in k1_widths:
+        check_topk(torch, ck, cm, dm, TOP_K, True, "tuning, multi-limb",
+                   stripe_tiles=w, limbs=lim)
+    units = tuning.KNOBS["rect_target_units"].candidates({})
+    k3_widths = {u: ck._stripe_tiles_for_units(n, n, u) for u in units}
+    for w in sorted(set(k3_widths.values())):
+        check_rect(torch, ck, cm, dm, 0, n, TOP_K, "tuning, multi-limb",
+                   stripe_tiles=w)
+    print(f"K1 at every twopass_stripe_tiles candidate {k1_widths} and K3 "
+          f"at every rect_target_units candidate (units: stripe tiles "
+          f"{k3_widths}) on the multi-limb factor {n}x{cm.shape[1]} "
+          f"(k={TOP_K}): equal to the plain versions")
+    del cm, dm, lim
+
+    # 2-3. `dpathsim-torch tune` in a child, its plain versions counted
+    table_path = workdir / "tuning_table.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TUNE_CHILD, "--platform", "cuda",
+         "--out", str(table_path), "--knobs", TUNE_KNOBS,
+         "--shapes", TUNE_SHAPES, "--reps", str(TUNE_REPS)],
+        capture_output=True, text=True, cwd=HERE, timeout=900)
+    tune_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dpathsim-torch tune exited {proc.returncode}:"
+                             f" {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = {kname: child["launches"][kname] for kname in ck.LAUNCHES}
+    if child["plain_on_card"]:
+        raise AssertionError(f"tune ran plain versions on the card: "
+                             f"{child['plain_on_card']}")
+    for kname in ("topk_twopass_candidates", "topk_rect_candidates"):
+        if not launches[kname]:
+            raise AssertionError(f"tune never launched {kname}")
+    doc = json.loads(table_path.read_text())
+    want_dev = normalize_device(name)
+    keyed = {key.split("|")[1] for key in doc["entries"]}
+    if doc["device_kind"] != want_dev or keyed != {want_dev}:
+        raise AssertionError(f"table keyed {keyed} / {doc['device_kind']}, "
+                             f"not {want_dev}")
+    knobs = {key.split("|")[0] for key in doc["entries"]}
+    if knobs != set(TUNE_KNOBS.split(",")):
+        raise AssertionError(f"table knobs {sorted(knobs)}")
+    print(f"dpathsim-torch tune --shapes {TUNE_SHAPES} --reps {TUNE_REPS}: "
+          f"{tune_s:.1f} s, {len(doc['entries'])} entries keyed {want_dev!r}, "
+          f"launches {launches}, plain versions on the card: 0")
+    for key, ent in sorted(doc["entries"].items()):
+        print(f"  {key}: {ent['choice']} (arms ms {ent['arms']})")
+
+    # 3-4. the main path's rank-all under the table; plain versions counted
+    plain, restore = count_plain_on_card(torch, ck)
+    try:
+        gexf = workdir / "bench.gexf"
+        tuned_ranking = workdir / "ranking_tuned.tsv"
+        before = tuning.lookup_stats()
+        ck.reset_launches()
+        rc = cli_main(["--dataset", str(gexf), "--platform", "cuda",
+                       "--backend", "torch", "--quiet", "--top-k",
+                       str(TOP_K), "--ranking-out", str(tuned_ranking),
+                       "--tuning-table", str(table_path)])
+        torch.cuda.synchronize()
+        rank_launches = dict(ck.LAUNCHES)
+        # the rank-all's own lookups (the counters are process-wide)
+        stats = {r: c - before.get(r, 0)
+                 for r, c in tuning.lookup_stats().items()
+                 if c > before.get(r, 0)}
+        if rc != 0:
+            raise AssertionError(f"tuned rank-all exited {rc}")
+        if not filecmp.cmp(ranking, tuned_ranking, shallow=False):
+            raise AssertionError("the tuned rank-all differs from the "
+                                 "main path's")
+        if not rank_launches["topk_twopass_candidates"]:
+            raise AssertionError("the tuned rank-all did not launch K1")
+        key = tuning.make_key("twopass_stripe_tiles", name, n=N_AUTHORS,
+                              v=N_VENUES)
+        tuned_w = doc["entries"][key]["choice"]
+        ran_w = ck.twopass_stripe_tiles(N_AUTHORS, N_VENUES, TOP_K, dev)
+        if ran_w != tuned_w or not stats.get("hit"):
+            raise AssertionError(f"K1 ran at {ran_w} tiles, the table holds "
+                                 f"{tuned_w}; lookups {stats}")
+        print(f"rank-all under the table: cmp-identical to the main path's "
+              f"ranking; K1 at the tuned width {tuned_w} tiles "
+              f"({tuned_w * ck.TILE} columns; default "
+              f"{ck.TWOPASS_STRIPE_TILES}), launches {rank_launches}, "
+              f"lookups {stats}")
+        for kname, cnt in rank_launches.items():
+            launches[kname] += cnt
+
+        # 5. a service under the table: hit lookups, 0 compiles after warmup
+        hin_s = synthetic_hin(TUNE_SERVE_AUTHORS, 2 * TUNE_SERVE_AUTHORS, 24,
+                              seed=SEED)
+        mp = compile_metapath("APVPA", hin_s.schema)
+        hits0 = tuning.lookup_stats().get("hit", 0)
+        ck.reset_launches()
+        svc = PathSimService(create_backend("torch", hin_s, mp, device=dev),
+                             config=ServeConfig(max_batch=32))
+        try:
+            hits = tuning.lookup_stats().get("hit", 0) - hits0
+            rng = np.random.default_rng(SEED)
+            rows = rng.integers(0, TUNE_SERVE_AUTHORS, size=(
+                TUNE_SERVE_CLIENTS, TUNE_SERVE_PER_CLIENT))
+            with CompileCounter() as cc:
+                answers, wall = run_clients(svc, rows, TOP_K)
+            buckets = svc.stats()["obs"]["tuning"]["buckets"]
+        finally:
+            svc.close()
+        oracle, _ = f64_topk(np, hin_s, mp)
+        check_served(np, answers, rows.reshape(-1), oracle, TOP_K,
+                     "service under the table")
+        if hits < 1 or cc.count:
+            raise AssertionError(f"service under the table: {hits} hit "
+                                 f"lookups, {cc.count} compiles")
+        print(f"service under the table ({TUNE_SERVE_AUTHORS} authors): "
+              f"{hits} hit lookups at startup (ladder {buckets}), "
+              f"{rows.size} answers in {wall:.2f} s, 0 compiles after "
+              "warmup")
+        for kname, cnt in ck.LAUNCHES.items():
+            launches[kname] += cnt
+        if plain:
+            raise AssertionError(f"plain versions ran on the card: {plain}")
+    finally:
+        restore()
+        tuning.reset()
+
+    # 6. K1 at the bench shape, K3's sweep over the bench factor in tiles
+    # of 4096 rows and over the sparse point: the tuned setting against
+    # the default, timed in turns (tuned, default, default, tuned; CUDA
+    # events, median of 7 each, the two medians averaged)
+    def abba(fns):
+        ms = {label: [] for label in fns}
+        for label in (*fns, *reversed(fns)):
+            ms[label].append(time_ms(torch, fns[label]))
+        return {label: sum(v) / len(v) for label, v in ms.items()}
+
+    c, d = factor(hin, "APVPA", dev)
+    lim = ck.split_limbs(c)
+    default_w = ck.default_twopass_stripe_tiles(N_AUTHORS)
+    widths = {"tuned": tuned_w, "default": default_w}
+    k1 = {f"{label}_ms": ms for label, ms in abba({
+        label: (lambda w=w: ck.topk_twopass_candidates(
+            c, d, TOP_K, True, limbs=lim, stripe_tiles=w))
+        for label, w in widths.items()}).items()}
+    k1.update({f"{label}_with_pass2_ms": ms for label, ms in abba({
+        label: (lambda w=w: ck.fused_topk_twopass(
+            c, d, TOP_K, limbs=lim, stripe_tiles=w))
+        for label, w in widths.items()}).items()})
+    k1.update(stripe_tiles=tuned_w, default_stripe_tiles=default_w)
+    n_s, v_s, nnz_s = TUNE_SPARSE
+    key = tuning.make_key("rect_target_units", name, n=n_s, v=v_s)
+    tuned_u = doc["entries"][key]["choice"]
+    units = {"tuned": tuned_u, "default": ck.RECT_TARGET_UNITS}
+    k3 = {"units": tuned_u, "default_units": ck.RECT_TARGET_UNITS}
+    ids = torch.arange(N_AUTHORS, dtype=torch.int32, device=dev)
+    t = sp.TiledHalfChain(at._sparse_coo(n_s, v_s, nnz_s), tile_rows=4096,
+                          device=dev)
+    for where, prep, n_rows, n_cols in (
+            ("bench", (*ck.rect_pad_factor(c, d, lim), ids), N_AUTHORS,
+             N_AUTHORS),
+            ("sparse", at._tiled_rect_factor(t, dev), n_s,
+             t.n_tiles * 4096)):
+        w = {label: ck._stripe_tiles_for_units(4096, n_cols, u)
+             for label, u in units.items()}
+        k3.update({f"{where}_{label}_stripe_tiles": w[label]
+                   for label in w})
+        k3.update({f"{where}_{label}_sweep_ms": ms for label, ms in abba({
+            label: (lambda w=w[label], prep=prep, n_rows=n_rows:
+                    at._rect_sweep(prep, n_rows, 4096, TOP_K, w))
+            for label in units}).items()})
+    del c, d, lim, prep, t
+    print(f"K1 at {N_AUTHORS}x{N_VENUES} k={TOP_K} on the bench factor: "
+          f"tuned {tuned_w} tiles {k1['tuned_ms']:.3f} ms (with pass 2 "
+          f"{k1['tuned_with_pass2_ms']:.3f}), default {default_w} tiles "
+          f"{k1['default_ms']:.3f} ms (with pass 2 "
+          f"{k1['default_with_pass2_ms']:.3f}); K3 sweeps in tiles of 4096 "
+          f"rows at {tuned_u} (tuned) and {ck.RECT_TARGET_UNITS} (default) "
+          f"units: the bench factor {k3['bench_tuned_sweep_ms']:.3f} / "
+          f"{k3['bench_default_sweep_ms']:.3f} ms ({N_AUTHORS // 4096} "
+          f"tiles, stripes of {k3['bench_tuned_stripe_tiles']} / "
+          f"{k3['bench_default_stripe_tiles']} tiles), the sparse point "
+          f"{n_s}x{v_s}x{nnz_s} {k3['sparse_tuned_sweep_ms']:.3f} / "
+          f"{k3['sparse_default_sweep_ms']:.3f} ms ({n_s // 4096} tiles, "
+          f"stripes of {k3['sparse_tuned_stripe_tiles']} / "
+          f"{k3['sparse_default_stripe_tiles']}) ({card})")
+    print(f"tuning phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"topk_twopass_candidates": k1,
+                      "topk_rect_candidates": k3}
+
+
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     """Phase 2 at the main path's shapes + phase 6 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
@@ -5197,7 +5517,8 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     spill = {name: {inst: sp for inst, (_, sp) in insts.items()}
              for name, insts in instances.items()}
     print(f"K1 topk_twopass_candidates {n}x{v} k={TOP_K} ({n_st} stripes of "
-          f"{ck.twopass_stripe_tiles(n) * ck.TILE} columns): {k1_ms:.3f} ms on "
+          f"{ck.twopass_stripe_tiles(n, v, TOP_K, dev) * ck.TILE} columns): "
+          f"{k1_ms:.3f} ms on "
           f"the split factor (int8 tensor-core bound {k1_bound:.3f} ms by "
           f"{k1_by} with {k1_cand_bytes / 1e6:.1f} MB of candidates; f32 "
           f"CUDA-core bound {k1_f32:.3f} ms); pass 2 {pass2_ms:.3f} ms; "
@@ -5340,6 +5661,9 @@ def main() -> int:
                                         smi, hin)
         train_launches = learned_training(torch, ck, np, pathlib.Path(tmp),
                                           smi, hin)
+        tune_launches, tuned = tuning_phase(torch, ck, np, pathlib.Path(tmp),
+                                            smi, hin,
+                                            pathlib.Path(tmp) / "ranking.tsv")
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
@@ -5350,6 +5674,9 @@ def main() -> int:
         kern["launches_ann"] = ann_launches[kern["name"]]
         kern["launches_learned"] = learned_launches[kern["name"]]
         kern["launches_train"] = train_launches[kern["name"]]
+        kern["launches_tune"] = tune_launches[kern["name"]]
+        if kern["name"] in tuned:
+            kern["tuned"] = tuned[kern["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "distributed_pathsim_tpu")]
     if leaked:

@@ -354,7 +354,8 @@ class TorchDenseBackend(PathSimBackend):
         limbs = self._limbs(c)
         c, d = ck.kernel_operands(c, d, self.exact_counts)
         n_rows = c.shape[0]
-        if k <= ck.CAND_MAX and ck.twopass_fits(n_rows, k, self.device):
+        if k <= ck.CAND_MAX and ck.twopass_fits(n_rows, k, self.device,
+                                                c.shape[1]):
             vals, idxs = ck.fused_topk_twopass(c, d, k=k, mask_self=mask_self,
                                                limbs=limbs)
         elif (
@@ -383,7 +384,7 @@ class TorchDenseBackend(PathSimBackend):
         n = c.shape[0]
         tile_rows = self._RECT_TILE_ROWS
         while tile_rows > 256 and not ck.rect_fits(n, tile_rows, k,
-                                                   self.device):
+                                                   self.device, c.shape[1]):
             tile_rows //= 2
         cc, dc, limbs = ck.rect_pad_factor(c, d, limbs)
         ids = torch.arange(n, dtype=torch.int32, device=c.device)

@@ -240,10 +240,14 @@ class TorchSparseBackend(PathSimBackend):
         candidate budget (shrink ``tile_rows`` to stay inside it at
         larger N); on the CPU only when ``rect_kernel=True`` (its plain
         version — the tests)."""
+        t = self.tiled
         fits = (
-            chain._is_float32(self.tiled.dtype)
-            and ck.rect_supported(self.tiled.v, k)
-            and ck.rect_fits(self.n, self.tiled.tile_rows, k, self.device)
+            chain._is_float32(t.dtype)
+            and ck.rect_supported(t.v, k)
+            # the columns K3 is launched with: C's rows padded to whole
+            # tiles (_topk_row_tile)
+            and ck.rect_fits(t.n_tiles * t.tile_rows, t.tile_rows, k,
+                             self.device, t.v)
         )
         if self._rect_kernel is not None:
             return self._rect_kernel and fits

@@ -10,8 +10,10 @@ and routes ``dpathsim-torch serve ...`` to the online serving entry
 point (serving/cli.py), ``dpathsim-torch worker / router /
 fleet-stats ...`` to the horizontal tier (router/cli.py), ``batch`` to
 the campaigns (batch/cli.py), ``index build / probe`` to the ANN
-tier's candidate index (index/cli.py) and ``learned train / inspect``
-to the learned tier's tower checkpoints (learned/cli.py).
+tier's candidate index (index/cli.py), ``learned train / inspect``
+to the learned tier's tower checkpoints (learned/cli.py) and ``tune`` to
+the offline autotuner (tuning/autotuner.py), which writes the table
+``--tuning-table`` reads.
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -234,9 +236,10 @@ def parse_args(argv: list[str]):
 # merged-fleet summary; ``batch``: corpus-scale campaigns (top-k for
 # every row, the similarity join) with checkpointed resume; ``index``:
 # build / probe the ANN tier's MIPS candidate index; ``learned``: train
-# or inspect a tower checkpoint.
+# or inspect a tower checkpoint; ``tune``: measure every knob's arms on
+# this device and write the dispatch table.
 SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index",
-               "learned")
+               "learned", "tune")
 
 
 def _subcommand(name: str):
@@ -256,6 +259,10 @@ def _subcommand(name: str):
         from .learned.cli import learned_main
 
         return learned_main
+    if name == "tune":
+        from .tuning.autotuner import tune_main
+
+        return tune_main
     from .router import cli as router_cli
 
     return {

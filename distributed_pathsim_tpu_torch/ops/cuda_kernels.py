@@ -92,18 +92,21 @@ FOLD_SMEM_K_MAX = 137
 # shared memory (K1, K3; csrc/topk_list.cuh CAND_K_MAX). k > CAND_MAX is
 # the single-pass fold kernel's job (K4).
 CAND_MAX = 16
-# Column tiles of K1's widest stripe (16384 columns): each row's top-k
-# per stripe goes to the candidate buffer. A row's list restarts per
-# stripe, and a stripe's first subtile is scored in full while the list
-# fills, so wider stripes cost K1 less selection (on an H100 at the bench
-# shape 32768 x 384, k = 10: 6.5 ms at 1024 columns, 4.2 at 8192, 3.8 at
-# 16384; PERF.md), while the buffer, and pass 2's input, is N · ceil(N /
-# stripe) · k candidates, whose budget (twopass_fits) is where the dense
-# rank-all leaves K1 for K3 (about 1.47M authors at k = 10). Narrower
-# stripes serve small N (twopass_stripe_tiles).
+# Column tiles of K1's widest stripe (16384 columns), the untuned
+# default of the ``twopass_stripe_tiles`` knob: each row's top-k per
+# stripe goes to the candidate buffer. A row's list restarts per stripe,
+# and a stripe's first subtile is scored in full while the list fills, so
+# wider stripes cost K1 less selection, while the buffer, and pass 2's
+# input, is N · ceil(N / stripe) · k candidates, whose budget
+# (twopass_fits) is where the dense rank-all leaves K1 for K3 (about
+# 1.47M authors at k = 10). Narrower stripes serve small N
+# (twopass_stripe_tiles). The measured widths are in the card's tuning
+# table (artifacts/tuning_table_h100.json, written by `dpathsim-torch
+# tune`) and PERF.md's kernel table.
 TWOPASS_STRIPE_TILES = 128
 # (row block, stripe) units K3's grid aims for when it sets its stripe
-# width (rect_stripe_tiles): about two per block slot of an H100 (132
+# width (rect_stripe_tiles), the untuned default of the
+# ``rect_target_units`` knob: about two per block slot of an H100 (132
 # SMs, two blocks each), which the card's in-order block dispatch still
 # balances, with stripes as wide as that allows (a row's list restarts
 # per stripe).
@@ -537,8 +540,9 @@ def topk_twopass_candidates_plain(c: torch.Tensor, d: torch.Tensor, k: int,
     s = _scores_plain(c, d)
     if mask_self:
         s.fill_diagonal_(float("-inf"))
-    n = c.shape[0]
-    return _stripe_topk(s, k, stripe_tiles or twopass_stripe_tiles(n))
+    n, v = c.shape
+    return _stripe_topk(s, k, stripe_tiles
+                        or twopass_stripe_tiles(n, v, k, c.device))
 
 
 def _sorted_topk(s: torch.Tensor, k: int):
@@ -609,10 +613,10 @@ def topk_rect_candidates_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
     :func:`rect_stripe_tiles`; columns past N at -inf; ties to the lowest
     column), values f32 and global columns int32, [T, n_stripes, k]."""
     _check_rect(c_rows, c_cols, d_rows, d_cols, row_ids)
-    t, n = c_rows.shape[0], c_cols.shape[0]
+    (t, v), n = c_rows.shape, c_cols.shape[0]
     n_true = n if n_true_cols is None else int(n_true_cols)
     if stripe_tiles is None:
-        stripe_tiles = rect_stripe_tiles(t, n)
+        stripe_tiles = rect_stripe_tiles(t, n, v, k, c_rows.device)
     s = _rect_scores_masked(c_rows, c_cols, d_rows, d_cols, row_ids, n_true)
     return _stripe_topk(s, k, stripe_tiles)
 
@@ -669,7 +673,7 @@ def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
         raise ValueError(f"topk_twopass_candidates needs 1 <= k <= {CAND_MAX}")
     n = c.shape[0]
     if stripe_tiles is None:
-        stripe_tiles = twopass_stripe_tiles(n)
+        stripe_tiles = twopass_stripe_tiles(n, c.shape[1], k, c.device)
     if stripe_tiles < 1:
         raise ValueError("stripe_tiles must be >= 1")
     n_st = _rect_n_stripes(n, stripe_tiles)
@@ -688,19 +692,22 @@ def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
 
 
 def fused_topk_twopass(c: torch.Tensor, d: torch.Tensor, k: int = 10,
-                       mask_self: bool = True, limbs: Limbs | None = None):
+                       mask_self: bool = True, limbs: Limbs | None = None,
+                       stripe_tiles: int | None = None):
     """Exact per-row top-k of the score matrix, never materialized on
     the card: K1 writes stripe candidates, pass 2 (stable sorts) reduces
     them. Returns (values f32 [N, k], columns int64 [N, k]).
-    ``limbs``: as for :func:`topk_twopass_candidates` (unused on the
-    CPU)."""
+    ``limbs`` and ``stripe_tiles``: as for
+    :func:`topk_twopass_candidates` (unused on the CPU; the autotuner
+    races ``stripe_tiles``)."""
     _check_factor(c, d)
     if k > CAND_MAX:
         raise ValueError(f"fused_topk_twopass supports k <= {CAND_MAX}")
     if _device_kind(c) == "cpu":
         return fused_topk_twopass_plain(c, d, k=k, mask_self=mask_self)
     c, d = kernel_operands(c, d)
-    vals, cols = topk_twopass_candidates(c, d, k, mask_self, limbs=limbs)
+    vals, cols = topk_twopass_candidates(c, d, k, mask_self, limbs=limbs,
+                                         stripe_tiles=stripe_tiles)
     n = c.shape[0]
     fv, fc = sparse.chunked_row_topk(vals.view(n, -1), cols.view(n, -1), k)
     return fv, fc.long()
@@ -724,7 +731,8 @@ def fused_scores(c: torch.Tensor, d: torch.Tensor,
         _launch("fused_scores", c.device, lim.planes.data_ptr(),
                 lim.planes.shape[0], lim.planes.stride(0),
                 lim.planes.shape[2], d.data_ptr(), n,
-                rect_stripe_tiles(n, n), lim.blocks.data_ptr(),
+                _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS),
+                lim.blocks.data_ptr(),
                 lim.order.data_ptr(),
                 lim.sub.data_ptr(), wide, out.data_ptr())
     return out
@@ -753,7 +761,7 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
     t, v = c_rows.shape
     n = c_cols.shape[0]
     if stripe_tiles is None:
-        stripe_tiles = rect_stripe_tiles(t, n)
+        stripe_tiles = rect_stripe_tiles(t, n, v, k, c_rows.device)
     if stripe_tiles < 1:
         raise ValueError("stripe_tiles must be >= 1")
     n_true = n if n_true_cols is None else int(n_true_cols)
@@ -785,13 +793,15 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
 
 def fused_topk_twopass_rect(c_rows, c_cols, d_rows, d_cols, row_ids,
                             k: int = 10, n_true_cols: int | None = None,
-                            limbs: tuple[Limbs, Limbs] | None = None):
+                            limbs: tuple[Limbs, Limbs] | None = None,
+                            stripe_tiles: int | None = None):
     """Exact per-row top-k of the [T, N] score block of a row tile
     against every column, self pairs and columns >= ``n_true_cols``
     excluded, never materialized on the card: K3 writes stripe
     candidates, pass 2 (stable sorts) reduces them. Returns (values f32
-    [T, k], columns int64 [T, k]). ``limbs``: as for
-    :func:`topk_rect_candidates` (unused on the CPU)."""
+    [T, k], columns int64 [T, k]). ``limbs`` and ``stripe_tiles``: as
+    for :func:`topk_rect_candidates` (unused on the CPU; the autotuner
+    races ``stripe_tiles``)."""
     _check_rect(c_rows, c_cols, d_rows, d_cols, row_ids)
     if not rect_supported(c_rows.shape[1], k):
         raise ValueError(f"fused_topk_twopass_rect requires k<{CAND_MAX}")
@@ -803,7 +813,8 @@ def fused_topk_twopass_rect(c_rows, c_cols, d_rows, d_cols, row_ids,
     c_rows, d_rows = kernel_operands(c_rows, d_rows)
     c_cols, d_cols = kernel_operands(c_cols, d_cols)
     vals, cols = topk_rect_candidates(c_rows, c_cols, d_rows, d_cols,
-                                      row_ids, k, n_true_cols, limbs=limbs)
+                                      row_ids, k, n_true_cols,
+                                      stripe_tiles=stripe_tiles, limbs=limbs)
     t = c_rows.shape[0]
     fv, fc = sparse.chunked_row_topk(vals.view(t, -1), cols.view(t, -1), k)
     return fv, fc.long()
@@ -847,18 +858,56 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
 # -- budgets ----------------------------------------------------------------
 
 
-def twopass_stripe_tiles(n: int) -> int:
-    """Column tiles per K1 stripe for an N-row factor:
-    :data:`TWOPASS_STRIPE_TILES`, or fewer where that would leave fewer
-    than about :data:`RECT_TARGET_UNITS` (row block, stripe) units to
-    fill the card (below ~64k rows: :func:`rect_stripe_tiles`)."""
-    return min(TWOPASS_STRIPE_TILES, rect_stripe_tiles(n, n))
+def _usable_tuned(value, most: int | None, buffer_bytes, device) -> bool:
+    """Whether a tuned stripe width or unit target can run: an int of at
+    least 1 (and at most ``most``: the factor's column tiles, for a
+    width) whose candidate buffer (``buffer_bytes(value)``) fits the
+    budget when ``device`` is a card (on the CPU no kernel and no buffer
+    runs)."""
+    if isinstance(value, bool) or not isinstance(value, int):
+        return False
+    if value < 1 or (most is not None and value > most):
+        return False
+    if torch.device(device).type != "cuda":
+        return True
+    return buffer_bytes(value) <= candidate_budget_bytes(device)
 
 
-def candidate_bytes(n: int, k: int) -> int:
+def default_twopass_stripe_tiles(n: int) -> int:
+    """The untuned K1 stripe width for N rows: :data:`TWOPASS_STRIPE_TILES`,
+    or fewer where that would leave fewer than about
+    :data:`RECT_TARGET_UNITS` (row block, stripe) units to fill the card
+    (below ~64k rows)."""
+    return min(TWOPASS_STRIPE_TILES,
+               _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS))
+
+
+def twopass_stripe_tiles(n: int, v: int, k: int, device) -> int:
+    """Column tiles per K1 stripe for an [N, V] factor at top-``k`` on
+    ``device``: the ``twopass_stripe_tiles`` knob of the tuning table,
+    keyed on (N, V), else :func:`default_twopass_stripe_tiles`. A tuned
+    width below 1, wider than the factor or, on a card, whose candidate
+    buffer passes the budget, is a ``fallback`` lookup and the heuristic
+    runs. The one decision point:
+    :func:`candidate_bytes`, :func:`twopass_fits` and K1's launch all
+    take their width here, so a gate never sees another width than the
+    kernel runs."""
+    from .. import tuning
+
+    n_ct = max(1, -(-n // TILE))
+    return tuning.choose(
+        "twopass_stripe_tiles", n=n, v=v,
+        default=default_twopass_stripe_tiles(n),
+        valid=lambda w: _usable_tuned(
+            w, n_ct, lambda w: n * _rect_n_stripes(n, w) * k * 8, device),
+    )
+
+
+def candidate_bytes(n: int, k: int, v: int, device) -> int:
     """K1's candidate buffer: N · n_stripes · k · (4 + 4) bytes, stripes
     of :func:`twopass_stripe_tiles` column tiles."""
-    return n * _rect_n_stripes(n, twopass_stripe_tiles(n)) * k * 8
+    return n * _rect_n_stripes(n, twopass_stripe_tiles(n, v, k, device)) \
+        * k * 8
 
 
 def candidate_budget_bytes(device) -> int:
@@ -867,14 +916,15 @@ def candidate_budget_bytes(device) -> int:
     return torch.cuda.get_device_properties(device).total_memory // 8
 
 
-def twopass_fits(n: int, k: int, device) -> bool:
+def twopass_fits(n: int, k: int, device, v: int) -> bool:
     """Whether K1's candidate buffer fits the budget on ``device`` (the
-    port's counterpart of the TPU gate of the same name). Only the
-    kernel has a candidate buffer: on the CPU the plain version runs,
-    so every shape passes there."""
+    port's counterpart of the TPU gate of the same name), at the width
+    K1 would run an [N, V] factor with. Only the kernel has a candidate
+    buffer: on the CPU the plain version runs, so every shape passes
+    there."""
     if torch.device(device).type != "cuda":
         return True
-    return candidate_bytes(n, k) <= candidate_budget_bytes(device)
+    return candidate_bytes(n, k, v, device) <= candidate_budget_bytes(device)
 
 
 # -- K3's gates (the port's counterparts of the TPU gates of the same names)
@@ -887,36 +937,62 @@ def rect_supported(v: int, k: int) -> bool:
     return 1 <= k < CAND_MAX
 
 
-def rect_stripe_tiles(t: int, n: int) -> int:
-    """Column tiles per K3 stripe for a [t, n] block: one K3 block owns
-    one (128-row block, stripe) unit, and stripes are made as narrow as
-    gives about :data:`RECT_TARGET_UNITS` units. Many units let the card
-    balance them (the multi-limb row blocks are launched first); a row's
-    list restarts per stripe, at a cost growing only with the log of the
-    stripe's width, and pass 2 reduces one set of k candidates per
-    stripe. At t = 8192, n = 1M: 8 stripes of 1024 tiles (131072
-    columns)."""
+def _stripe_tiles_for_units(t: int, n: int, units: int) -> int:
+    """Column tiles per stripe of a [t, n] block that give about
+    ``units`` (128-row block, stripe) units."""
     n_ct = max(1, -(-n // TILE))
     row_blocks = max(1, -(-t // TILE))
-    n_stripes = min(n_ct, -(-RECT_TARGET_UNITS // row_blocks))
+    n_stripes = min(n_ct, -(-units // row_blocks))
     return -(-n_ct // n_stripes)
 
 
-def rect_candidate_bytes(n_cols: int, tile_rows: int, k: int) -> int:
+def rect_stripe_tiles(t: int, n: int, v: int, k: int, device) -> int:
+    """Column tiles per K3 stripe for a [t, n] block of width V at
+    top-``k`` on ``device``: one K3
+    block owns one (128-row block, stripe) unit, and stripes are made as
+    narrow as gives about ``rect_target_units`` units — the tuning
+    table's knob, keyed on (N, V), else :data:`RECT_TARGET_UNITS`. Many
+    units let the card balance them (the multi-limb row blocks are
+    launched first); a row's list restarts per stripe, at a cost growing
+    only with the log of the stripe's width, and pass 2 reduces one set
+    of k candidates per stripe. At t = 8192, n = 1M: 8 stripes of 1024
+    tiles (131072 columns). A tuned target below 1 or, on a card, whose
+    candidate buffer passes the budget, is a ``fallback`` lookup and the
+    default runs. The one decision point, as
+    :func:`twopass_stripe_tiles` is K1's: :func:`rect_candidate_bytes`,
+    :func:`rect_fits` and K3's launch all take their width here."""
+    from .. import tuning
+
+    units = tuning.choose(
+        "rect_target_units", n=n, v=v, default=RECT_TARGET_UNITS,
+        valid=lambda u: _usable_tuned(
+            u, None,
+            lambda u: t * _rect_n_stripes(
+                n, _stripe_tiles_for_units(t, n, u)) * k * 8,
+            device),
+    )
+    return _stripe_tiles_for_units(t, n, units)
+
+
+def rect_candidate_bytes(n_cols: int, tile_rows: int, k: int, v: int,
+                         device) -> int:
     """K3's candidate buffer for one row tile: T · n_stripes · k ·
     (4 + 4) bytes. 5.2 MB at T = 8192, N = 1M, k = 10."""
-    n_st = _rect_n_stripes(n_cols, rect_stripe_tiles(tile_rows, n_cols))
+    n_st = _rect_n_stripes(
+        n_cols, rect_stripe_tiles(tile_rows, n_cols, v, k, device))
     return tile_rows * n_st * k * 8
 
 
-def rect_fits(n_cols: int, tile_rows: int, k: int, device) -> bool:
+def rect_fits(n_cols: int, tile_rows: int, k: int, device,
+              v: int) -> bool:
     """Whether one row tile's K3 candidate buffer fits the same budget
     as K1's (an eighth of the card: pass 2's sorts need about twice the
-    buffer again). Only the kernel has a candidate buffer: on the CPU
-    every shape passes."""
+    buffer again), at the width K3 would run a [tile_rows, V] tile
+    against ``n_cols`` columns with. Only the kernel has a candidate
+    buffer: on the CPU every shape passes."""
     if torch.device(device).type != "cuda":
         return True
-    return (rect_candidate_bytes(n_cols, tile_rows, k)
+    return (rect_candidate_bytes(n_cols, tile_rows, k, v, device)
             <= candidate_budget_bytes(device))
 
 

@@ -10,10 +10,18 @@
   unusable table → the built-in heuristics with one
   ``tuning_fallback`` event.
 
+- :mod:`.autotuner` — the offline measurement (``dpathsim-torch
+  tune``): interleaved arms, median-of-best (utils/benchrunner.py), one
+  racer per knob family, the kernel knobs' arms on the card only;
+- :mod:`.sweep` — the bigger offline sweep, the tuned-serving smoke and
+  the tuned-vs-default K1 comparison (``python -m
+  distributed_pathsim_tpu_torch.tuning.sweep``).
+
+Neither is imported here: the CLI imports the autotuner when ``tune``
+runs.
+
 Tuning is bit-invisible: every choice routes between implementations
 that share the exact integer-count + f64-normalize scoring primitives.
-The port has no autotuner yet; a table is written with
-:class:`TuningTable` (``put`` + ``save``).
 """
 
 from .dispatch import (  # noqa: F401

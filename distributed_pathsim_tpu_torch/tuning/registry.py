@@ -32,11 +32,22 @@ registered here only where the port has its decision point today:
   the trainer's towers (``dpathsim-torch learned train`` and the
   service's in-process distillation).
 
-The JAX package's other Pallas tile and variant knobs
-(``scores_variant``, ``scores_tile``, ``topk_rowtile``, ``k_tile``)
-have no port arm: an "xla" arm would put a kernel's plain version on the
-card's path, and the CUDA kernels' own configuration knobs come with the
-autotuner.
+- ``twopass_stripe_tiles``: column tiles per K1 stripe
+  (ops/cuda_kernels.twopass_stripe_tiles, the ``stripe_tiles=`` of
+  ``topk_twopass_candidates``); ``rect_target_units``: the (row block,
+  stripe) units K3's grid aims for (ops/cuda_kernels.rect_stripe_tiles,
+  the ``stripe_tiles=`` of ``topk_rect_candidates``). They are the
+  port's counterparts of the JAX package's Pallas tile knobs: runtime
+  parameters of the hand-written kernels, keyed on (N, V), whose
+  defaults are the untuned heuristics. A tuned value the shape cannot
+  take (below 1, wider than the factor, or a candidate buffer over the
+  budget) counts as a ``fallback`` lookup and the heuristic runs.
+
+The JAX package's Pallas tile and variant knobs (``scores_variant``,
+``scores_tile``, ``topk_rowtile``, ``k_tile``) have no port arm and are
+not registered: K2's and K4's tiles are compile-time wgmma shapes
+(csrc/u8_tile.cuh, BM 128 / BN 64), and an "xla" arm would put a
+kernel's plain version on the card's path.
 
 Every knob is **bit-invisible by construction**: choices only move work
 between tilings that share the exact integer-count + f64-normalize
@@ -58,6 +69,27 @@ class Knob:
     name: str
     doc: str
     candidates: Callable[[dict], list[Any]]
+
+
+def _twopass_stripe_candidates(ctx: dict) -> list[int]:
+    """K1's stripe widths in column tiles, less those wider than the
+    factor's column tiles and, when the context names ``k`` and
+    ``budget_bytes``, those whose candidate buffer would pass the budget
+    (ops/cuda_kernels.candidate_budget_bytes)."""
+    widths = [8, 16, 32, 64, 128, 256]
+    if ctx.get("n") is None:
+        return widths
+    from ..ops import cuda_kernels as ck
+
+    n = int(ctx["n"])
+    n_ct = -(-n // ck.TILE)
+    k, budget = ctx.get("k"), ctx.get("budget_bytes")
+    return [
+        w for w in widths
+        if w <= n_ct and (
+            k is None or budget is None
+            or n * ck._rect_n_stripes(n, w) * int(k) * 8 <= budget)
+    ]
 
 
 KNOBS: dict[str, Knob] = {
@@ -158,6 +190,24 @@ KNOBS: dict[str, Knob] = {
             "it (k >= 16) and on the host, whatever a table says "
             "(parallel/ring.ring_topk_step).",
             candidates=lambda ctx: ["rect-cuda"],
+        ),
+        Knob(
+            name="twopass_stripe_tiles",
+            doc="column tiles (of 128) per K1 stripe: each row's top-k "
+            "restarts per stripe, so wider stripes cost K1 less "
+            "selection, while the candidate buffer (and pass 2's input) "
+            "is N·ceil(N / stripe)·k entries. Bit-invisible: pass 2 "
+            "reduces any stripe layout to the same top-k.",
+            candidates=_twopass_stripe_candidates,
+        ),
+        Knob(
+            name="rect_target_units",
+            doc="(128-row block, column stripe) units K3's grid aims for "
+            "when it sets its stripe width: more units balance the card "
+            "better, wider stripes restart each row's list less often "
+            "and leave pass 2 fewer candidates. Bit-invisible, as for "
+            "twopass_stripe_tiles.",
+            candidates=lambda ctx: [256, 512, 1024, 2048],
         ),
         Knob(
             name="ann_centroids",

@@ -67,7 +67,7 @@ def test_topk_past_the_ported_kernels_raises(graphs, monkeypatch):
     want = jx.topk(k=10)
     # past the card's candidate budget (the gate itself is tested in
     # test_torch_kernels_scores.py::test_candidate_budget)
-    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device: False)
+    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device, v=None: False)
     for got, w in zip(tt.topk(k=10), want):
         np.testing.assert_array_equal(got, np.asarray(w))
 

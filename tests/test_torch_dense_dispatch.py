@@ -51,7 +51,7 @@ def test_dense_topk_routes_rect_beyond_twopass_budget(monkeypatch):
     monkeypatch.setattr(jax_dense.JaxDenseBackend, "_RECT_TILE_ROWS", 256)
     jv, ji = jcreate("jax", graphs[0], jmp, use_pallas=True).topk(k=5)
 
-    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device: False)
+    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device, v=None: False)
     monkeypatch.setattr(torch_dense.TorchDenseBackend, "_RECT_TILE_ROWS", 256)
     calls = {}
     _counting(monkeypatch, "fused_topk_twopass_rect", calls)
@@ -68,7 +68,7 @@ def test_dense_rect_gate_respects_mask_self(monkeypatch):
     package's dense top-k."""
     graphs = _graphs(300, 3)
     jmp, tmp = metapaths(graphs)
-    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device: False)
+    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device, v=None: False)
     calls = {}
     _counting(monkeypatch, "fused_topk_twopass_rect", calls)
     _counting(monkeypatch, "fused_topk", calls)
@@ -126,7 +126,7 @@ def test_dense_backend_splits_once_and_hands_limbs_to_kernels(monkeypatch):
     tv, ti = backend.topk(k=5)
     backend.topk(k=20)
     backend.all_pairs_scores()
-    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device: False)
+    monkeypatch.setattr(ck, "twopass_fits", lambda n, k, device, v=None: False)
     monkeypatch.setattr(torch_dense.TorchDenseBackend, "_RECT_TILE_ROWS", 128)
     rv, ri = backend.topk(k=5)
     assert splits == [(300, 24)]  # C: 300 authors x 24 venues
@@ -150,11 +150,15 @@ def test_rect_gates():
     # stripes as wide as still gives 512 (row block, stripe) units: at
     # the config-5 tile (8192 x 1M) 8 stripes of 1024 tiles, 8 sets of k
     # candidates a row
-    assert ck.rect_stripe_tiles(8192, 1 << 20) == 1024
-    assert ck.rect_candidate_bytes(1 << 20, 8192, 10) == 8192 * 8 * 10 * 8
-    assert ck.rect_stripe_tiles(4096, 32768) == 16  # 16 stripes x 32 rows
-    assert ck.rect_stripe_tiles(256, 1000) == 1  # small: a stripe a tile
-    assert ck.rect_fits(1 << 24, 1 << 20, 15, "cpu")  # no buffer on the CPU
+    assert ck.rect_stripe_tiles(8192, 1 << 20, 64, 10, "cpu") == 1024
+    assert ck.rect_candidate_bytes(1 << 20, 8192, 10, 64, "cpu") \
+        == 8192 * 8 * 10 * 8
+    # 16 stripes x 32 rows
+    assert ck.rect_stripe_tiles(4096, 32768, 384, 10, "cpu") == 16
+    # small: a stripe a tile
+    assert ck.rect_stripe_tiles(256, 1000, 12, 10, "cpu") == 1
+    # no buffer on the CPU
+    assert ck.rect_fits(1 << 24, 1 << 20, 15, "cpu", 64)
     c = torch.ones((5, 3), dtype=torch.float64)
     cc, dc, limbs = ck.rect_pad_factor(c, c.sum(1))
     assert cc.dtype == dc.dtype == torch.float32 and cc.shape == (5, 3)

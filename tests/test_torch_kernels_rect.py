@@ -108,7 +108,7 @@ def test_rect_candidates_reduce_to_the_top_k(stripe_tiles):
     ids = torch.arange(200, 457, dtype=torch.int32)
     args = (c[200:457], c, d[200:457], d, ids, 9)
     cv, cc = ck.topk_rect_candidates_plain(*args, 990, stripe_tiles)
-    st = stripe_tiles or ck.rect_stripe_tiles(257, 1000)
+    st = stripe_tiles or ck.rect_stripe_tiles(257, 1000, 12, 9, "cpu")
     n_st = -(-8 // st)  # 1000 columns = 8 tiles of 128
     assert cv.shape == cc.shape == (257, n_st, 9)
     fv, fc = tsp.chunked_row_topk(cv.view(257, -1), cc.view(257, -1), 9)

@@ -122,11 +122,12 @@ def test_candidate_budget(monkeypatch):
     version has no candidate buffer, so every shape fits there."""
     # one list of k per row and stripe: 2 stripes of 128 column tiles at
     # the bench shape; narrower stripes below ~64k rows keep the card busy
-    assert ck.twopass_stripe_tiles(32768) == ck.TWOPASS_STRIPE_TILES == 128
-    assert ck.candidate_bytes(32768, 10) == 32768 * 2 * 10 * 8
-    assert ck.twopass_stripe_tiles(8192) == 8
-    assert ck.candidate_bytes(8192, 16) == 8192 * 8 * 16 * 8
-    assert ck.twopass_fits(1_500_000, 16, "cpu")
+    assert ck.twopass_stripe_tiles(32768, 384, 10, "cpu") \
+        == ck.TWOPASS_STRIPE_TILES == 128
+    assert ck.candidate_bytes(32768, 10, 384, "cpu") == 32768 * 2 * 10 * 8
+    assert ck.twopass_stripe_tiles(8192, 384, 16, "cpu") == 8
+    assert ck.candidate_bytes(8192, 16, 384, "cpu") == 8192 * 8 * 16 * 8
+    assert ck.twopass_fits(1_500_000, 16, "cpu", 384)
 
     class Card:
         total_memory = 80 * 10**9
@@ -134,6 +135,6 @@ def test_candidate_budget(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: Card)
     assert ck.candidate_budget_bytes("cuda") == 10**10
-    assert ck.twopass_fits(32768, 10, "cuda")
-    assert ck.twopass_fits(1_400_000, 10, "cuda")
-    assert not ck.twopass_fits(1_500_000, 16, "cuda")
+    assert ck.twopass_fits(32768, 10, "cuda", 384)
+    assert ck.twopass_fits(1_400_000, 10, "cuda", 384)
+    assert not ck.twopass_fits(1_500_000, 16, "cuda", 384)

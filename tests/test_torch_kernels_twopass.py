@@ -47,7 +47,8 @@ def test_stripe_candidates_reduce_to_pallas(case, k):
         for stripe_tiles in (1, 3, 64, None):
             cv, cc = ck.topk_twopass_candidates_plain(
                 tc, td, k, mask_self, stripe_tiles=stripe_tiles)
-            width = (stripe_tiles or ck.twopass_stripe_tiles(n)) * ck.TILE
+            width = (stripe_tiles or ck.twopass_stripe_tiles(
+                n, tc.shape[1], k, "cpu")) * ck.TILE
             _check_layout(cv, cc, n, k, width)
             fv, fc = tsp.chunked_row_topk(cv.view(n, -1), cc.view(n, -1), k)
             np.testing.assert_array_equal(np.asarray(jv), fv.numpy())
