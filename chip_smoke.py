@@ -8,6 +8,14 @@ Run from the repository root on a machine with one CUDA card::
 Phases (each prints its lines; any failure raises, so the exit code is
 nonzero and no result line is printed):
 
+0. lint on the card, first, before anything touches the card: the
+   port's static analyzer (``python3 -m distributed_pathsim_tpu_torch.cli
+   lint --json``) in a child with its parse cache removed (cold) and
+   again on the cache it wrote (warm), each with its files, findings
+   (must be 0), baselined findings and wall seconds; then ``lint_main``
+   in this process, whose JSON must equal the children's byte for byte,
+   which must launch no kernel (``launches_lint`` in the kernels line)
+   and after which ``torch.cuda.is_initialized()`` must still be False;
 1. device and build: the card's name and power limit, the nvcc build of
    every kernel in ``distributed_pathsim_tpu_torch/csrc`` (all sources
    compiled in parallel, the native host libraries' g++ builds beside
@@ -505,6 +513,65 @@ def gpu_state() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def lint_phase(torch, ck):
+    """Phase 0: the static analyzer over the checkout, cold and warm in
+    children, then in this process with the kernels' counters zeroed.
+    Returns the launches of the in-process run."""
+    import contextlib
+    import io
+
+    from distributed_pathsim_tpu_torch.analysis.cache import CACHE_REL
+    from distributed_pathsim_tpu_torch.analysis.cli import lint_main
+
+    phase("lint on the card (before anything touches the card)")
+    if torch.cuda.is_initialized():
+        raise AssertionError("CUDA is initialized before the lint phase")
+    (HERE / CACHE_REL).unlink(missing_ok=True)
+    outputs = []
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli",
+             "lint", "--json"],
+            cwd=str(HERE), capture_output=True, text=True, timeout=300,
+        )
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"lint ({label}) exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout)
+        print(f"lint {label}: files {doc['files']}, findings "
+              f"{len(doc['findings'])}, suppressed {len(doc['suppressed'])}, "
+              f"{dt:.3f} s (the child's wall time, interpreter start and "
+              "imports included)")
+        if doc["findings"]:
+            raise AssertionError(f"lint ({label}) findings: "
+                                 f"{doc['findings'][:3]}")
+        outputs.append(proc.stdout)
+    if outputs[0] != outputs[1]:
+        raise AssertionError("the warm lint's JSON differs from the cold one")
+    ck.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(["--json"])
+    dt = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    same = buf.getvalue() == outputs[0]
+    if rc != 0 or not same:
+        raise AssertionError(f"in-process lint: rc {rc}, JSON "
+                             f"{'equal to' if same else 'unlike'} the "
+                             "children's")
+    if torch.cuda.is_initialized():
+        raise AssertionError("lint_main created a CUDA context")
+    if any(launches.values()):
+        raise AssertionError(f"lint launched kernels: {launches}")
+    print(f"lint in-process (warm cache): rc 0, {dt:.3f} s, JSON "
+          "byte-identical to the children's, torch.cuda.is_initialized() "
+          f"False, launches {launches}")
+    return launches
 
 
 def device_and_build(torch, ck):
@@ -1298,15 +1365,20 @@ def batch_cli_rest(torch, ck, np, workdir, card, hin):
             env={**os.environ,
                  "PATHSIM_FAULT_PLAN": "tile_execute:delay:1000:0.2"})
         manifest = ck_dir / "manifest.json"
-        deadline = time.time() + 240
-        while time.time() < deadline and proc.poll() is None:
-            if manifest.exists() and sum(
-                    k.startswith("topk10_rowtile_")
-                    for k in json.loads(manifest.read_text())) >= 2:
-                break
-            time.sleep(0.05)
-        proc.send_signal(signal.SIGTERM)
-        _, err = proc.communicate(timeout=120)
+        try:
+            deadline = time.time() + 240
+            while time.time() < deadline and proc.poll() is None:
+                if manifest.exists() and sum(
+                        k.startswith("topk10_rowtile_")
+                        for k in json.loads(manifest.read_text())) >= 2:
+                    break
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            _, err = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
         done = sum(k.startswith("topk10_rowtile_")
                    for k in json.loads(manifest.read_text()))
         if proc.returncode != 75 or not 2 <= done < N_AUTHORS // 1024:
@@ -5638,6 +5710,7 @@ def main() -> int:
     ck.true_f32()
 
     t_start = time.perf_counter()
+    lint_launches = lint_phase(torch, ck)
     name, smi, instances = device_and_build(torch, ck)
     kernel_checks(torch, ck, np, synthetic_hin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5675,6 +5748,7 @@ def main() -> int:
         kern["launches_learned"] = learned_launches[kern["name"]]
         kern["launches_train"] = train_launches[kern["name"]]
         kern["launches_tune"] = tune_launches[kern["name"]]
+        kern["launches_lint"] = lint_launches[kern["name"]]
         if kern["name"] in tuned:
             kern["tuned"] = tuned[kern["name"]]
     leaked = [m for m in sys.modules
@@ -5682,7 +5756,7 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked[:5]}")
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
-          f"kernel build to the last phase on {smi}")
+          f"lint phase to the last phase on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

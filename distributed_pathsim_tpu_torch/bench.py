@@ -27,7 +27,6 @@ import argparse
 import json
 import statistics
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -136,8 +135,10 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--reps", type=int, default=REPS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        print("error: no CUDA device available; the benchmark measures "
-              "the card only", file=sys.stderr)
+        from .utils.logging import runtime_event
+
+        runtime_event("bench_refused", reason="no CUDA device available; "
+                      "the benchmark measures the card only")
         return 2
     record = run_bench(args.authors, "cuda", args.reps)
     record["card"] = card_state()

@@ -11,9 +11,10 @@ point (serving/cli.py), ``dpathsim-torch worker / router /
 fleet-stats ...`` to the horizontal tier (router/cli.py), ``batch`` to
 the campaigns (batch/cli.py), ``index build / probe`` to the ANN
 tier's candidate index (index/cli.py), ``learned train / inspect``
-to the learned tier's tower checkpoints (learned/cli.py) and ``tune`` to
+to the learned tier's tower checkpoints (learned/cli.py), ``tune`` to
 the offline autotuner (tuning/autotuner.py), which writes the table
-``--tuning-table`` reads.
+``--tuning-table`` reads, and ``lint`` to the static analyzer
+(analysis/cli.py), which never touches the card.
 
 Runs on the CUDA card by default; ``--platform cpu`` runs the same path
 on the host through the kernels' plain versions. Without a card and
@@ -237,9 +238,10 @@ def parse_args(argv: list[str]):
 # every row, the similarity join) with checkpointed resume; ``index``:
 # build / probe the ANN tier's MIPS candidate index; ``learned``: train
 # or inspect a tower checkpoint; ``tune``: measure every knob's arms on
-# this device and write the dispatch table.
+# this device and write the dispatch table; ``lint``: the static
+# analyzer over the port's sources.
 SUBCOMMANDS = ("serve", "worker", "router", "fleet-stats", "batch", "index",
-               "learned", "tune")
+               "learned", "tune", "lint")
 
 
 def _subcommand(name: str):
@@ -263,6 +265,12 @@ def _subcommand(name: str):
         from .tuning.autotuner import tune_main
 
         return tune_main
+    if name == "lint":
+        # the static analyzer (analysis/): pure AST work over the port's
+        # sources, so it builds no backend and never touches the card
+        from .analysis.cli import lint_main
+
+        return lint_main
     from .router import cli as router_cli
 
     return {

@@ -331,3 +331,72 @@ def resolve_ladder(geometry: str, max_batch: int) -> tuple[int, ...]:
     while ladder[-1] < max_batch:
         ladder.append(ladder[-1] * step)
     return tuple(ladder)
+
+
+# ---------------------------------------------------------------------------
+# Knob defaults and sanctioned tile/bucket constants (analysis TN001)
+# ---------------------------------------------------------------------------
+#
+# Hardcoded tile/bucket constants outside this registry are exactly how
+# untuned heuristics fossilize, so the lint (``dpathsim-torch lint``,
+# rule TN001) rejects NEW ones: any module-level or class-level
+# integer/tuple constant whose name looks like a tile or bucket knob must
+# either be a registered knob's untuned default (KNOB_DEFAULTS, which
+# names the knob: the lint lets it stand only while KNOBS registers that
+# knob) or appear in SANCTIONED_CONSTANTS with its justification. Each
+# sanctioned entry is one of: (a) a kernel-internal layout invariant
+# that is NOT a performance choice (tile shapes the CUDA sources are
+# compiled for, packing factors), or (b) the fallback floor a heuristic
+# returns when tuning is absent — the registry's own documented default.
+
+KNOB_DEFAULTS: dict[str, dict[str, str]] = {
+    "ops/cuda_kernels.py": {
+        "TWOPASS_STRIPE_TILES": "twopass_stripe_tiles",  # K1's stripe
+        "RECT_TARGET_UNITS": "rect_target_units",        # K3's grid aim
+    },
+}
+
+SANCTIONED_CONSTANTS: dict[str, frozenset[str]] = {
+    "ops/cuda_kernels.py": frozenset({
+        "TILE",       # kernel layout: the row block every kernel is
+        # compiled for (csrc/u8_tile.cuh BM) and the unit of K1's and
+        # K3's column stripes — a wgmma tile shape, not a tuned choice
+        "SUBTILE",    # kernel layout: the subtile width (csrc/u8_tile.cuh
+        # BN, wgmma's N) — compiled into the sources
+    }),
+    "backends/torch_dense.py": frozenset({
+        "_RECT_TILE_ROWS",  # rect streaming row tile (HBM-budget halver)
+    }),
+    "serving/buckets.py": frozenset({
+        "DEFAULT_BUCKETS",  # serve_buckets 'pow2' default, documented
+    }),
+    "ops/planner.py": frozenset({
+        "_DEG_BUCKETS",   # degree-histogram resolution (24 log2 buckets
+        # cover any int32 index space) — an audit-layout invariant of
+        # FactorStats, not a measured performance choice; the planner's
+        # real knobs (plan_density_cutover, plan_dp_max_len,
+        # plan_memo_budget_mb) are registry knobs above
+    }),
+    "ops/packed.py": frozenset({
+        "_PACK_CHUNK_ROWS",    # delta re-encode / tile-alignment chunk
+        # granularity — consumers pass their own tile width; this is
+        # the standalone default, a layout invariant
+        "_BLOCK_NNZ",          # bit-packing width-adaptation block size
+        # (each block stores its own bit width) — layout invariant of
+        # the bitpacked stream, not a measured perf choice
+        "_PACK_BUCKET_FLOOR",  # pow-2 chunk-buffer capacity floor: the
+        # realloc-stability contract (delta-drifted nnz stays inside
+        # one bucket), analogous to sparse_nnz_floor's role but for
+        # host buffers; the measured knob is factor_format above
+    }),
+    "obs/metrics.py": frozenset({
+        "DEFAULT_BUCKETS_PER_DECADE",  # histogram resolution (quantile
+        # rel-err bound is derived from it in tests) — an accuracy
+        # layout invariant, not a measured performance choice
+    }),
+    "serving/service.py": frozenset({
+        "tile_cache_bytes",  # ServeConfig capacity defaults: operator-
+        "tile_rows",         # facing CLI config (cache budget/eviction
+                             # granularity), not measured kernel knobs
+    }),
+}

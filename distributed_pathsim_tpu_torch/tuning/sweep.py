@@ -308,7 +308,9 @@ def main(argv: list[str] | None = None) -> int:
                 extra.append("--quick")
             return tune_main(extra)
     except (DeviceUnavailable, ValueError) as exc:
-        print(f"error: {exc}", file=sys.stderr)
+        from ..utils.logging import runtime_event
+
+        runtime_event("tune_sweep_error", error=exc)
         return 1
     json.dump(result, sys.stdout, indent=2)
     print()

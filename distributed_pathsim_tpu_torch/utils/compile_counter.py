@@ -3,11 +3,15 @@ of everything the port compiles at run time.
 
 The port has no jit: its own run-time compiles are the kernel builds
 of ``ops/cuda_kernels.py`` (one ``nvcc`` per kernel source, then the
-``ctypes`` load of the built library). A CUDA-graph capture would count
-here too; the port captures none yet. Each such event goes through
-:func:`record`, which tells every registered listener — the
-process-lifetime registry counter that :func:`install_compile_metrics`
-installs, and any :class:`CompileCounter` in scope. A warm service must
+``ctypes`` load of the built library) and its CUDA-graph captures: the
+learned tier's train step is captured once per batch shape and replayed
+after that (``models/neural._GraphedStep``, kind ``"cuda_graph"``). A
+knob resolved inside a capture would be frozen into it; the analyzer's
+RS001 (``analysis/recompile.py``) keeps knobs out of every capture.
+Each such event goes through :func:`record`, which tells every
+registered listener — the process-lifetime registry counter that
+:func:`install_compile_metrics` installs, and any
+:class:`CompileCounter` in scope. A warm service must
 read 0 new compiles across queries and updates: every bucket's shapes
 were driven once by :func:`warm_compile_cache` and every kernel library
 is built and loaded once per process.

@@ -1,0 +1,17 @@
+"""The port's analyzer, exception safety (EX001–EX003) and telemetry
+(TL001, TL002).
+
+On every EX and TL corpus of ``tests/fixtures/analysis/`` the port's
+analyzer gives the JAX analyzer's findings
+(tests/torch_analysis_util.py)."""
+
+from __future__ import annotations
+
+import pytest
+
+from torch_analysis_util import assert_parity, corpora
+
+
+@pytest.mark.parametrize("case", corpora("ex", "tl"), ids=lambda p: p.name)
+def test_corpus_gives_the_jax_findings(case, tmp_path):
+    assert_parity(case, tmp_path)
