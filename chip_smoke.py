@@ -130,9 +130,9 @@ nonzero and no result line is printed):
    (k+1)-th scores are further apart), seconds and ms per tile pair, a
    child process running it SIGTERMed mid-sweep (exit 75) and the resume
    from its ``sym_partials`` snapshot returning the same arrays;
-   ``dpathsim-torch batch topk-all`` on the bench graph against the main
-   path's K1 rank-all for every row, the device share of its wall time
-   (CUDA events over the block GEMMs); on the 8192-author graph
+   ``dpathsim-torch batch topk-all`` on the 8192-author graph
+   bit-identical to the host f64 oracle for every row, the device share
+   of its wall time (CUDA events over the block GEMMs); on the same graph
    ``--factor-format bitpacked`` and ``--workers 2`` with the bytes of
    the coo run, a SIGTERM mid-campaign (exit 75) and ``resume`` with
    sha256-identical ``--out`` and ``--emit-pairs``, ``simjoin`` at tau
@@ -165,9 +165,9 @@ nonzero and no result line is printed):
    QPS, p50/p95/p99 and update ms, worker compiles unchanged; its
    launches are ``launches_sharded_partition`` in the kernels line;
 6d. the ANN tier at the bench shape (headroom 0.25): the centroid index
-   built in-process and by ``dpathsim-torch index build`` as a
-   subprocess (arrays and fingerprint equal; build seconds, K, cap, dim,
-   packed bytes), ``dpathsim-torch index probe --platform cuda``, the
+   built in-process (build seconds, K, cap, dim, packed bytes), saved
+   and loaded (arrays and fingerprint equal),
+   ``dpathsim-torch index probe --platform cuda``, the
    recall gate (mean score recall@10 >= 0.99 over 512 rows, the route on
    the card) on the struct map unprojected; for each probe variant
    (``rerank-all``, ``shortlist``) a ``topk_mode="ann"`` service at the
@@ -262,6 +262,21 @@ nonzero and no result line is printed):
    point) at the tuned setting against the default, in turns; its
    launches are ``launches_tune`` and its times ``tuned`` in the kernels
    line;
+6h. the bench twins on the card: the port's ``bench_serving`` smokes of
+   the load, update, obs, router, fleet-obs and partition regimes (every
+   service, worker and in-process fleet ``--backend torch --platform
+   cuda``), each with every check true, the three the clock decides
+   included (warm p50 under cold p50, update at least 10x faster than
+   reload, full tracing under 1 ms a request); ``run_bench`` at its
+   defaults (2048 x 4096 x 48, 32 clients x 64 queries, max_batch 32):
+   serial, cold, warm and mixed QPS and p50/p95/p99, nothing shed; the
+   update smoke's run is ``run_update_bench`` at its defaults (edge_frac
+   0.01, 5 reps), update against reload ms; ``bench_backends``' tiers
+   ``torch``, ``torch-sparse`` and ``torch-sharded`` (D = 2 on the one
+   card) at the bench shape, k = 10, each JSON line with pairs/s > 0 and
+   a ranking equal to K1's, the sharded line with the ring step's K3 ms;
+   the launches of this process in the phase are ``launches_bench`` in
+   the kernels line (the workers' launches are in their own processes);
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -3043,12 +3058,12 @@ def sha256_file(path) -> str:
     return hashlib.sha256(pathlib.Path(path).read_bytes()).hexdigest()
 
 
-def packed_sym_batch(torch, ck, np, workdir, card, hin, dense_backend, c5):
+def packed_sym_batch(torch, ck, np, workdir, card, hin, hin_ap, c5):
     """Phase 6b: the packed arms of torch-sparse at config 5 against its
     COO run, a bitpacked service and router under the serving phase's
     update, the symmetric half-sweep against the full sweep (K3) with a
-    SIGTERM and a resume, and the batch tier's campaigns on the bench
-    graph. Returns the phase's launches per kernel."""
+    SIGTERM and a resume, and the batch tier's campaigns on the
+    8192-author graph. Returns the phase's launches per kernel."""
     from distributed_pathsim_tpu_torch.utils.compile_counter import (
         CompileCounter,
     )
@@ -3060,7 +3075,7 @@ def packed_sym_batch(torch, ck, np, workdir, card, hin, dense_backend, c5):
         packed_config5(torch, ck, np, launches, card, c5)
         packed_serving(torch, ck, np, launches, workdir, card, hin)
         symmetric_sweep(torch, ck, np, launches, workdir, card)
-        batch_tier(torch, ck, np, workdir, card, hin, dense_backend)
+        batch_tier(torch, ck, np, workdir, card, hin_ap)
     if compiles.count:
         raise AssertionError(
             f"{compiles.count} compiles in the phase: {compiles.by_kind}")
@@ -3362,21 +3377,26 @@ def batch_argv(gexf, *extra):
     return ["batch", *extra, "--dataset", str(gexf), "--platform", "cuda"]
 
 
-def batch_tier(torch, ck, np, workdir, card, hin, dense_backend):
-    """``dpathsim-torch batch`` on the bench graph: topk-all equal to the
-    main path's K1 rank-all for every row; a SIGTERM mid-campaign (exit
-    75) and ``resume`` giving sha256-identical --out and --emit-pairs.
-    Cut to the 8192-author all-pairs graph (the campaign is host-bound):
-    bitpacked and --workers 2 the same bytes
-    as coo; simjoin with degree and natural grouping the same pair set.
-    Every GEMM on the card."""
+def batch_tier(torch, ck, np, workdir, card, hin_small):
+    """``dpathsim-torch batch`` on the 8192-author all-pairs graph (the
+    campaign is host-bound; its bench-shape run, 49 s at a card share of
+    0.023, made room for phase 6h): topk-all bit-identical to the host
+    f64 oracle for every row (K1's f32 scores are no yardstick here: the
+    head authors' d_i + d_j passes 2^24, so K1's f32 denominator rounds;
+    K1 is held against the oracle on the main path); a SIGTERM
+    mid-campaign (exit 75) and
+    ``resume`` giving sha256-identical --out and --emit-pairs; bitpacked
+    and --workers 2 the same bytes as coo; simjoin with degree and
+    natural grouping the same pair set. Every GEMM on the card."""
     import signal
 
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
     from distributed_pathsim_tpu_torch.cli import main as cli_main
     from distributed_pathsim_tpu_torch.obs.metrics import get_registry
     from distributed_pathsim_tpu_torch.ops import pathsim
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 
-    gexf, small = workdir / "bench.gexf", workdir / "allpairs.gexf"
+    small = workdir / "allpairs.gexf"
     gemm_ms = []
     device_counts = pathsim.device_counts
 
@@ -3408,14 +3428,14 @@ def batch_tier(torch, ck, np, workdir, card, hin, dense_backend):
         return wall
 
     out = {name: workdir / f"batch_{name}" for name in (
-        "a.npz", "a.jsonl", "b.npz", "b.jsonl", "s.npz", "s.jsonl", "p.npz",
+        "b.npz", "b.jsonl", "s.npz", "s.jsonl", "p.npz",
         "p.jsonl", "w.npz", "w.jsonl", "deg.jsonl", "nat.jsonl")}
-    n, n_small = hin.type_size("author"), N_AUTHORS_ALL_PAIRS
+    n_small = N_AUTHORS_ALL_PAIRS
     pathsim.device_counts = timed_counts
     try:
-        wall = run(f"topk-all k={TOP_K}", gexf, n, "topk-all", "--k",
-                   str(TOP_K), "--out", str(out["a.npz"]), "--emit-pairs",
-                   str(out["a.jsonl"]))
+        wall = run(f"topk-all k={TOP_K}", small, n_small, "topk-all", "--k",
+                   str(TOP_K), "--out", str(out["s.npz"]), "--emit-pairs",
+                   str(out["s.jsonl"]))
     finally:
         pathsim.device_counts = device_counts
     share = sum(gemm_ms) / 1e3 / wall
@@ -3423,10 +3443,19 @@ def batch_tier(torch, ck, np, workdir, card, hin, dense_backend):
           f"arm (upload, f64 GEMM, fetch), {sum(gemm_ms):.1f} ms of "
           f"CUDA-event time: a device share of {share:.4f} of the "
           "campaign's wall time")
-    res = np.load(out["a.npz"])
-    batch_vs_k1(np, res["vals"], res["idxs"], dense_backend)
+    res = np.load(out["s.npz"])
+    oracle = create_backend("numpy", hin_small,
+                            compile_metapath("APVPA", hin_small.schema))
+    want_v, want_i = oracle.topk_rows(np.arange(n_small), k=TOP_K)
+    if not (np.array_equal(res["vals"], want_v)
+            and np.array_equal(res["idxs"], want_i)):
+        raise AssertionError("batch topk-all differs from the host f64 "
+                             "oracle")
+    print(f"batch topk-all vs the host f64 oracle: all {n_small} rows' "
+          "values and indices bit-identical")
+    del oracle
 
-    for name, extra in (("s", ()), ("p", ("--factor-format", "bitpacked")),
+    for name, extra in (("p", ("--factor-format", "bitpacked")),
                         ("w", ("--workers", "2"))):
         run(f"topk-all k={TOP_K} {' '.join(extra)}".rstrip(), small, n_small,
             "topk-all", "--k", str(TOP_K), *extra, "--out",
@@ -3494,37 +3523,6 @@ def batch_tier(torch, ck, np, workdir, card, hin, dense_backend):
     if set(arms) != {"cuda"}:
         raise AssertionError(f"batch GEMM arms: {arms}")
     print(f"dpathsim_batch_score_backend_total: {arms} (the card only)")
-
-
-def batch_vs_k1(np, vals, idxs, dense_backend):
-    """The campaign's f64 top-k against the main path's K1 rank-all (f32
-    scores of the same exact counts): every value rounds to K1's, and the
-    indices are K1's wherever f32 rounding does not tie scores that
-    differ in f64."""
-    kv, ki = dense_backend.topk(k=TOP_K)
-    kv, ki = np.asarray(kv), np.asarray(ki)
-    if vals.shape != kv.shape:
-        raise AssertionError(f"batch {vals.shape} vs K1 {kv.shape}")
-    if not np.array_equal(vals.astype(np.float32), kv.astype(np.float32)):
-        raise AssertionError("batch values do not round to K1's")
-    diff = np.flatnonzero((idxs != ki).any(axis=1))
-    for r in diff:
-        f32 = kv[r].astype(np.float32)
-        for p in np.flatnonzero(idxs[r] != ki[r]):
-            # a differing position lies in a run of f32-equal values: at
-            # the k boundary (K1 may keep other columns of the f32 tie),
-            # or inside the list with the same columns as a set and f64
-            # values that differ (f64 order against K1's column order)
-            grp = f32 == f32[p]
-            if grp[-1]:
-                continue
-            if (np.unique(vals[r][grp]).shape[0] < 2
-                    or sorted(idxs[r][grp]) != sorted(ki[r][grp])):
-                raise AssertionError(f"batch row {r} differs from K1")
-    print(f"batch topk-all vs the main path's K1 rank-all: all {vals.shape[0]}"
-          f" rows' values round to K1's f32; indices equal in "
-          f"{vals.shape[0] - diff.shape[0]} rows, the other {diff.shape[0]} "
-          "differ only inside f32 ties of distinct f64 scores")
 
 
 # -- multi-device and partition mode -------------------------------------------
@@ -4096,27 +4094,19 @@ def ann_tier(torch, ck, np, workdir, card, hin):
           f"{index.n_centroids}, cap {index.cluster_cap}, dim {index.dim} "
           f"(struct map 12 x {c.shape[1]} wide), packed "
           f"{index.packed.nbytes} bytes f32")
+    # The artifact the services, the probe CLI and the router load: the
+    # in-process build saved (the CLI's own build, a copy of this one at
+    # 18.7-22 s, is not run here since phase 6h took its time).
     art = workdir / "ann_index.npz"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli", "index",
-         "build", "--dataset", str(workdir / "bench.gexf"), "--out",
-         str(art), "--platform", "cuda"],
-        capture_output=True, text=True, timeout=600, cwd=HERE)
-    if proc.returncode != 0:
-        raise AssertionError(f"index build exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    built = json.loads(proc.stdout)
+    index.save(str(art))
     cli = CentroidIndex.load(str(art), device="cuda")
     for name in ("centroids", "members", "packed", "cluster_of", "slot_of",
                  "stale"):
         if not np.array_equal(getattr(cli, name), getattr(index, name)):
-            raise AssertionError(f"the CLI's index differs in {name}")
+            raise AssertionError(f"the saved index differs in {name}")
     if tuple(cli.token) != tuple(index.token):
-        raise AssertionError("the CLI's index has another fingerprint")
-    print(f"dpathsim-torch index build (subprocess): "
-          f"{time.perf_counter() - t0:.1f} s wall, build_s "
-          f"{built['build_s']}; arrays and fingerprint equal to the "
+        raise AssertionError("the saved index has another fingerprint")
+    print("index saved and loaded: arrays and fingerprint equal to the "
           "in-process build")
     del cli, index
     probe_row = N_AUTHORS // 2 + 57
@@ -5499,6 +5489,132 @@ def tuning_phase(torch, ck, np, workdir, card, hin, ranking):
                       "topk_rect_candidates": k3}
 
 
+# -- the bench twins ------------------------------------------------------------
+
+# Phase 6h: the port's load generators (bench_serving's six regimes, the
+# per-tier bench_backends) on the card, at their own defaults: the smokes'
+# fixed runs, run_bench at 2048 x 4096 x 48 (32 clients x 64 queries,
+# max_batch 32), the update smoke at edge_frac 0.01 and 5 reps, and the
+# tiers at the bench shape with torch-sharded at D = 2 on the one card.
+TWIN_TIERS, TWIN_SHARDS, TWIN_REPS = (
+    ("torch", "torch-sparse", "torch-sharded"), 2, 5)
+
+
+def fmt_lat(res):
+    return (f"{res['qps']} QPS, p50/p95/p99 {res['p50_ms']}/"
+            f"{res['p95_ms']}/{res['p99_ms']} ms")
+
+
+def bench_twins(torch, ck, np, card, hin, dense):
+    """Phase 6h: the six ``run_*_smoke``s of the port's
+    ``bench_serving`` on the card, every check true (the clock's three
+    included: each smoke raises if one fails), ``run_bench`` at its
+    defaults, and ``bench_backends``' three tiers at the bench shape
+    with rankings equal to K1's. Returns the launches of the phase per
+    kernel (this process's: the workers' own launches are theirs)."""
+    from distributed_pathsim_tpu_torch import bench_backends as tbb
+    from distributed_pathsim_tpu_torch import bench_serving as bs
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    phase("the bench twins on the card: bench_serving's load, update, obs, "
+          "router, fleet-obs and partition smokes, run_bench, "
+          "bench_backends")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+    walls = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    smokes = {
+        "load": bs.run_smoke, "update": bs.run_update_smoke,
+        "obs": bs.run_obs_smoke, "router": bs.run_router_smoke,
+        "fleet-obs": bs.run_fleet_obs_smoke,
+        "partition": bs.run_partition_smoke,
+    }
+    res = {}
+    for regime, smoke in smokes.items():
+        res[regime] = timed(regime, lambda s=smoke: s(platform="cuda"))
+        checks = res[regime]["smoke_checks"]
+        if not checks or not all(checks.values()):
+            raise AssertionError(f"{regime} smoke: {checks}")
+        print(f"{regime} smoke: {walls[regime]:.1f} s, all "
+              f"{len(checks)} checks true ({', '.join(checks)})")
+    r = res["load"]["regimes"]
+    print("load smoke (384 x 640 x 12, 8 clients x 24): "
+          + "; ".join(f"{name} {fmt_lat(r[name])}" for name in r)
+          + f" ({card})")
+    u = res["update"]
+    print(f"update (2048 x 4096 x 48, edge_frac 0.01, 5 reps): update "
+          f"{u['update_ms']} ms against reload {u['reload_ms']} ms, speedup "
+          f"{u['speedup_vs_reload']}; compiles {u['steady_state_compiles']}; "
+          f"retention {u['cache_retention']} ({card})")
+    arms = res["obs"]["arms"]
+    print("obs smoke: " + "; ".join(
+        f"{name} {arm['qps_median']} QPS median, best {arm['qps_best']}"
+        + (f", added {arm['added_us_per_request_best']} us/request (best "
+           f"window), {arm['added_us_per_request']} (medians)"
+           if name != "off" else "") for name, arm in arms.items())
+        + f" ({card})")
+    ro = res["router"]
+    print("router smoke: " + "; ".join(
+        f"{n} replicas {fmt_lat(x)}" for n, x in ro["replicas"].items())
+        + f"; kill: {fmt_lat(ro['failover'])}, detect "
+        f"{ro['failover'].get('detect_ms')} ms, failovers "
+        f"{ro['failover']['failover_affected']}, recovery "
+        f"{ro['failover'].get('failover_recovery')} ({card})")
+    fo = res["fleet-obs"]
+    print(f"fleet-obs smoke: kill load {fmt_lat(fo['load'])}, lost "
+          f"{fo['load']['lost']}; merged requests "
+          f"{fo['merged_request_count']} = "
+          f"{fo['per_worker_request_counts']}; stitched traces "
+          f"{fo['trace_audit']['stitched_cross_process']} ({card})")
+    pa = res["partition"]
+    for p, x in pa["partitions"].items():
+        print(f"partition smoke P={p}: {fmt_lat(x)}; factor bytes "
+              f"{x['resident']['factor_bytes']}, worker VmRSS (host) "
+              f"{x['resident']['worker_vm_rss_kb']} kB, max_n at 8 GiB "
+              f"{x['max_n_at_budget']}"
+              + (f"; routed deltas p50 "
+                 f"{x['routed_deltas']['update_visible']['p50_ms']} ms"
+                 if "routed_deltas" in x else "") + f" ({card})")
+    print(f"partition smoke: replica baseline "
+          f"{fmt_lat(pa['replica_baseline'])}; tile exchange overhead p50 "
+          f"{pa.get('tile_exchange_overhead_p50')}; kill: "
+          f"{fmt_lat(pa['failover'])}, lost {pa['failover']['lost']}")
+
+    full = timed("run_bench", lambda: bs.run_bench(platform="cuda"))
+    if any(x["shed"] for x in full["regimes"].values()):
+        raise AssertionError(f"run_bench shed: {full['regimes']}")
+    print("run_bench (2048 x 4096 x 48, 32 clients x 64, max_batch 32): "
+          + "; ".join(f"{name} {fmt_lat(x)}"
+                      for name, x in full["regimes"].items())
+          + f"; speedups {full['speedups']} ({card})")
+
+    mp = compile_metapath("APVPA", hin.schema)
+    want = dense.topk(k=TOP_K)
+    tiers = timed("bench_backends", lambda: tbb.measure_tiers(
+        hin, mp, TWIN_TIERS, TOP_K, TWIN_REPS, TWIN_SHARDS, "cuda"))
+    for record, ranking in tiers:
+        if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(ranking, want)):
+            raise AssertionError(f"{record['metric']}: ranking differs "
+                                 "from K1's")
+        if not record["value"] > 0:
+            raise AssertionError(f"{record['metric']}: {record['value']}")
+        print(json.dumps(record))
+    print(f"bench_backends at {N_AUTHORS}x{N_PAPERS}x{N_VENUES} k={TOP_K}: "
+          f"three tiers, rankings equal to K1's ({card})")
+    launches = dict(ck.LAUNCHES)
+    print(f"bench twins: launches in this process {launches}; walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    print(f"bench twins phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     """Phase 2 at the main path's shapes + phase 6 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
@@ -5725,7 +5841,7 @@ def main() -> int:
         sr_launches = serving_rest(torch, ck, np, smi)
         k3, c5 = config5(torch, ck, np, launches, pathlib.Path(tmp), smi)
         pk_launches = packed_sym_batch(torch, ck, np, pathlib.Path(tmp), smi,
-                                       hin, backend, c5)
+                                       hin, hin_ap, c5)
         del c5
         sp_launches = sharded_partition(torch, ck, np, pathlib.Path(tmp),
                                         smi, hin, hin_ap, backend)
@@ -5737,6 +5853,7 @@ def main() -> int:
         tune_launches, tuned = tuning_phase(torch, ck, np, pathlib.Path(tmp),
                                             smi, hin,
                                             pathlib.Path(tmp) / "ranking.tsv")
+        bench_launches = bench_twins(torch, ck, np, smi, hin, backend)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
@@ -5749,6 +5866,7 @@ def main() -> int:
         kern["launches_train"] = train_launches[kern["name"]]
         kern["launches_tune"] = tune_launches[kern["name"]]
         kern["launches_lint"] = lint_launches[kern["name"]]
+        kern["launches_bench"] = bench_launches[kern["name"]]
         if kern["name"] in tuned:
             kern["tuned"] = tuned[kern["name"]]
     leaked = [m for m in sys.modules

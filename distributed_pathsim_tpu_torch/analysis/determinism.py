@@ -9,8 +9,11 @@
   set order varies with PYTHONHASHSEED and insertion history, so the
   same graph could hash or serialize differently across processes.
 - **DT002 selection-outside-primitives**: score selection/tie-break
-  (``np.argsort``/``lexsort``/``argpartition``/``partition``) in
-  ``serving/``/``router/`` code instead of the shared
+  (``np.argsort``/``lexsort``/``argpartition``/``partition``, and the
+  port's own ``torch.topk``/``sort``/``argsort``/``kthvalue`` — called
+  from ``torch`` or as a method of a provable tensor: the result of a
+  ``torch.*`` call, or a local assigned from one or annotated
+  ``torch.Tensor``) in ``serving/``/``router/`` code instead of the shared
   ``ops/pathsim`` primitives — the one place the (descending score,
   ascending column) oracle order is implemented; a local reimplementation
   is how tie order silently forks. Also flags float32 casts inside
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import ast
 
-from .astutil import call_name, own_nodes, walk_functions
+from .astutil import call_name, dotted, own_nodes, walk_functions
 from .core import Finding, Module, qualname_index, symbol_at
 
 RULE_DOCS = {
@@ -66,7 +69,15 @@ _SELECTION_CALLS = frozenset({
     "np.argsort", "np.lexsort", "np.argpartition", "np.partition",
     "numpy.argsort", "numpy.lexsort", "numpy.argpartition",
     "numpy.partition", "jnp.argsort", "jnp.lexsort",
+    "torch.topk", "torch.sort", "torch.argsort", "torch.kthvalue",
+    "torch.Tensor.topk", "torch.Tensor.sort", "torch.Tensor.argsort",
+    "torch.Tensor.kthvalue",
 })
+# The same selections as methods of a tensor (``scores.topk(k)``).
+_TENSOR_SELECTION_METHODS = frozenset({"topk", "sort", "argsort", "kthvalue"})
+# Tensor methods whose result is not a tensor.
+_TENSOR_EXITS = frozenset({"tolist", "item", "numpy", "size", "dim",
+                           "numel", "data_ptr"})
 _LEGACY_NP_RANDOM = frozenset({
     "seed", "rand", "randn", "randint", "random", "choice", "shuffle",
     "permutation", "standard_normal", "uniform", "normal",
@@ -103,6 +114,58 @@ def _set_locals(fn: ast.AST) -> set[str]:
                 if isinstance(t, ast.Name) and _is_set_expr(node.value, out):
                     out.add(t.id)
     return out
+
+
+def _is_tensor_annotation(node: ast.AST | None) -> bool:
+    return node is not None and dotted(node) in ("torch.Tensor", "Tensor")
+
+
+def _is_tensor_expr(node: ast.AST, tensor_locals: set[str]) -> bool:
+    """The AST can tell ``node`` is a tensor: a ``torch.*`` call, a
+    method call or subscript on a tensor, or a tensor local."""
+    if isinstance(node, ast.Call):
+        if (call_name(node) or "").startswith("torch."):
+            return True
+        return (isinstance(node.func, ast.Attribute)
+                and node.func.attr not in _TENSOR_EXITS
+                and _is_tensor_expr(node.func.value, tensor_locals))
+    if isinstance(node, ast.Subscript):
+        return _is_tensor_expr(node.value, tensor_locals)
+    return isinstance(node, ast.Name) and node.id in tensor_locals
+
+
+def _tensor_locals(fn: ast.AST) -> set[str]:
+    """Names this function binds to a provable tensor: parameters and
+    locals annotated ``torch.Tensor``, and locals assigned from a
+    tensor expression."""
+    out: set[str] = set()
+    args = getattr(fn, "args", None)
+    if args is not None:
+        for a in args.posonlyargs + args.args + args.kwonlyargs:
+            if _is_tensor_annotation(a.annotation):
+                out.add(a.arg)
+    for _ in range(2):  # one extra sweep: tensor-from-tensor assignments
+        for node in own_nodes(fn):
+            if isinstance(node, ast.AnnAssign) and isinstance(
+                    node.target, ast.Name) and (
+                    _is_tensor_annotation(node.annotation)
+                    or (node.value is not None
+                        and _is_tensor_expr(node.value, out))):
+                out.add(node.target.id)
+            elif isinstance(node, ast.Assign) and len(node.targets) == 1:
+                t = node.targets[0]
+                if isinstance(t, ast.Name) and _is_tensor_expr(node.value,
+                                                               out):
+                    out.add(t.id)
+    return out
+
+
+def _is_tensor_selection(node: ast.Call, tensor_locals: set[str]) -> bool:
+    return (
+        isinstance(node.func, ast.Attribute)
+        and node.func.attr in _TENSOR_SELECTION_METHODS
+        and _is_tensor_expr(node.func.value, tensor_locals)
+    )
 
 
 def _is_context_fn(name: str, fn: ast.AST) -> bool:
@@ -178,11 +241,15 @@ class DeterminismPass:
                 and (call_name(n) or "").startswith("pathsim.score")
                 for n in own_nodes(fn)
             )
+            tensors = _tensor_locals(fn) if in_scope else set()
             for node in own_nodes(fn):
                 if not isinstance(node, ast.Call):
                     continue
                 cn = call_name(node) or ""
-                if in_scope and cn in _SELECTION_CALLS:
+                if in_scope and (cn in _SELECTION_CALLS
+                                 or _is_tensor_selection(node, tensors)):
+                    if cn not in _SELECTION_CALLS:
+                        cn = f"Tensor.{node.func.attr}"
                     findings.append(Finding(
                         path=m.repo_rel, line=node.lineno, rule="DT002",
                         symbol=qual,

@@ -1,10 +1,12 @@
 """Port twins of the JAX package's router smokes, on the CPU.
 
-- ``test_router_smoke``: two real ``dpathsim-torch worker`` subprocesses
-  (``--platform cpu``), closed-loop load, one SIGKILL mid-load — zero
-  lost requests, every answer equal to a single f64 (numpy) service's,
-  a failover counted, zero compiles added on the survivor
-  (tests/test_router.py::test_bench_router_smoke).
+- ``test_router_smoke``: the port harness's router regime
+  (``distributed_pathsim_tpu_torch.bench_serving.run_router_smoke``,
+  the twin of tests/test_router.py::test_bench_router_smoke): real
+  ``dpathsim-torch worker`` subprocesses (``--platform cpu``), one and
+  two replicas, closed-loop load, one SIGKILL mid-load — zero lost
+  requests, every answer equal to a single f64 (numpy) service's, a
+  failover counted, zero compiles added on the survivor.
 - ``test_chaos_router_smoke``: three in-process workers under a fault
   plan (transient dispatch errors, a stall, dropped heartbeats, a missed
   delta broadcast) and a kill — zero lost, every answer oracle-exact
@@ -13,13 +15,9 @@
   test file on the same worker process.
 """
 
-import sys
-import threading
-import time
-
-import numpy as np
 import pytest
 
+from distributed_pathsim_tpu_torch import bench_serving as bs
 from distributed_pathsim_tpu_torch.backends.base import create_backend
 from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 from distributed_pathsim_tpu_torch.resilience import inject
@@ -27,11 +25,9 @@ from distributed_pathsim_tpu_torch.router import (
     InprocTransport,
     Router,
     RouterConfig,
-    SubprocessTransport,
     WorkerRuntime,
 )
 from distributed_pathsim_tpu_torch.router.cli import build_worker_hin
-from distributed_pathsim_tpu_torch.router.loadgen import run_router_clients
 from distributed_pathsim_tpu_torch.serving import PathSimService, ServeConfig
 from distributed_pathsim_tpu_torch.serving.protocol import handle_request
 
@@ -55,55 +51,44 @@ def _assert_oracle(oracle, answers, k=K):
         assert resp["result"]["topk"] == want, row
 
 
-def _worker_argv(wid):
-    return [sys.executable, "-m", "distributed_pathsim_tpu_torch.cli",
-            "worker", "--worker-id", wid, "--dataset", SPEC, "--backend",
-            "torch", "--platform", "cpu", "--max-batch", "8",
-            "--max-wait-ms", "1.0", "--k", str(K)]
+def test_router_smoke(monkeypatch):
+    """The port harness's router regime (``bench_serving.run_router_smoke``)
+    with ``torch`` workers on the CPU. Every load run it makes is watched
+    (its answers, the workers' states and compiles after it), so beyond
+    the smoke's own checks every answer is held against the oracle."""
+    runs = []
+    real = bs.run_router_clients
 
+    def watched(router, schedule, k, **kw):
+        res = real(router, schedule, k, **kw)
+        runs.append({
+            "res": res,
+            "status": {wid: w.status for wid, w in router.workers.items()},
+            "compiles": bs._router_worker_compiles(router),
+        })
+        return res
 
-def _compiles(router):
-    return {wid: int(router.worker_health(wid).get("compiles", 0))
-            for wid, w in router.workers.items() if w.status == "up"}
-
-
-def test_router_smoke():
-    transports = {f"w{i}": SubprocessTransport(f"w{i}", _worker_argv(f"w{i}"))
-                  for i in range(2)}
-    router = Router(transports, RouterConfig(
-        heartbeat_interval_s=0.2, heartbeat_miss_limit=15, hedge_ms=300.0,
-        max_inflight=4096))
+    monkeypatch.setattr(bs, "run_router_clients", watched)
     oracle = _oracle()
-    rng = np.random.default_rng(0)
-    uniform = rng.integers(0, 256, size=(6, 16))
     try:
-        router.start(ready_timeout=120)
-        warm = run_router_clients(router, uniform[:4, :8].tolist(), K)
-        assert warm["lost"] == 0, warm["errors"]
-        h0 = _compiles(router)
-        started = threading.Event()
-
-        def killer():
-            started.wait()
-            time.sleep(0.05)  # mid-load: in-flight work must be orphaned
-            transports["w0"].kill()
-
-        kt = threading.Thread(target=killer, daemon=True)
-        kt.start()
-        started.set()
-        res = run_router_clients(router, np.tile(uniform, (1, 6)).tolist(), K)
-        kt.join(timeout=30)
+        result = bs.run_router_smoke(platform="cpu")
+        assert all(result["smoke_checks"].values()), result["smoke_checks"]
+        # replicas 1 and 2 (warm, then measured), then the kill phase
+        assert len(runs) == 6
+        warm, kill = runs[-2], runs[-1]
+        res = kill["res"]
+        assert warm["res"]["lost"] == 0, warm["res"]["errors"]
         assert res["lost"] == 0, res["errors"]
+        assert result["failover"]["lost"] == 0
         assert res["queries"] == 6 * 16 * 6
-        assert router.workers["w0"].status == "down"
-        assert router.workers["w1"].status == "up"
+        assert kill["status"] == {"w0": "down", "w1": "up"}
         # the kill orphaned in-flight work that completed elsewhere
         assert res["failover_affected"] > 0
-        _assert_oracle(oracle, warm["answers"] + res["answers"])
-        after = _compiles(router)
-        assert after == {"w1": h0["w1"]}
+        assert result["failover"]["failover_affected"] > 0
+        for run in runs:
+            _assert_oracle(oracle, run["res"]["answers"])
+        assert kill["compiles"] == {"w1": warm["compiles"]["w1"]}
     finally:
-        router.close()
         oracle.close()
 
 
