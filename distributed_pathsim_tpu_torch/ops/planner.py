@@ -763,6 +763,13 @@ def execute_dense(plan: EvalPlan, blocks):
     return execute_dense_order(plan.order_tree(), blocks)
 
 
+def naive_dense(blocks):
+    """The left-to-right reference fold — the baseline the ordering
+    bench compares the planner against (delegates to the seeded
+    primitive; this doorway is why callers stay MP001-clean)."""
+    return chain.chain_product(blocks)
+
+
 def rowsums_fold(blocks):
     """Row sums of an arbitrary chain by the right-fold — a vector
     fold is already association-optimal (each step is one GEMV)."""

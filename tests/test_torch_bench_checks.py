@@ -1,14 +1,17 @@
 """The port's serving load generator keeps the repository harness's
 smoke checks, and on the card serves from the card.
 
-- For each of the six regimes the twin ports, the keys of its smoke
-  checks equal the keys of the ``checks`` dict of the repository
-  harness's ``run_*_smoke`` (``bench_serving.py``), both read by AST, so
-  no smoke runs twice.
+- For each of the twelve regimes, the keys of the twin's check builder
+  equal the keys of the repository harness's checks (``bench_serving.py``:
+  the ``checks`` dict of a ``run_*_smoke``, the result's ``"checks"``
+  entry of ``run_metapath_bench``, the ``checks[...]`` assignments of
+  ``run_batch_bench``), both read by AST, so no smoke runs twice.
 - At the default ``platform="cuda"`` every service and in-process fleet
-  the twin builds is a ``torch`` backend on the card, and every worker
-  it spawns is a ``distributed_pathsim_tpu_torch.cli worker`` with
-  ``--backend torch --platform cuda``; numpy serves only as the oracle.
+  the twin builds (the load and update regimes', the fleet-obs fleet, the
+  firehose's coalescing fleet and autoscale fleet, the batch fleet) is a
+  ``torch`` backend on the card, and every worker it spawns is a
+  ``distributed_pathsim_tpu_torch.cli worker`` with ``--backend torch
+  --platform cuda``; numpy serves only as the oracle.
 """
 
 import ast
@@ -30,15 +33,24 @@ REGIMES = {
     "router": ("run_router_smoke", "router_checks"),
     "fleet-obs": ("run_fleet_obs_smoke", "fleet_obs_checks"),
     "partition": ("run_partition_smoke", "partition_checks"),
+    "ann": ("run_ann_smoke", "ann_checks"),
+    "learned": ("run_learned_smoke", "learned_checks"),
+    "firehose": ("run_firehose_smoke", "firehose_checks"),
+    "metapath": ("run_metapath_bench", "metapath_checks"),
+    "compress": ("run_compress_smoke", "compress_checks"),
+    "batch": ("run_batch_bench", "batch_checks"),
 }
 
 
 def _check_keys(path: pathlib.Path, fn_name: str) -> set:
-    """The string keys of the checks dict built in ``fn_name``: the dict
-    assigned to ``checks`` or, in a check builder, the one returned."""
+    """The string keys of the checks built in ``fn_name``: the dict
+    assigned to ``checks``, the dict under a ``"checks"`` key of a dict
+    literal, or, in a check builder, the dict returned; else the keys of
+    its ``checks[...] = ...`` assignments."""
     tree = ast.parse(path.read_text())
     fn = next(n for n in ast.walk(tree)
               if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    subscripts = set()
     for node in ast.walk(fn):
         value = None
         if isinstance(node, ast.Assign) and any(
@@ -47,8 +59,20 @@ def _check_keys(path: pathlib.Path, fn_name: str) -> set:
             value = node.value
         elif isinstance(node, ast.Return):
             value = node.value
+        elif isinstance(node, ast.Dict):
+            value = next((v for k, v in zip(node.keys, node.values)
+                          if isinstance(k, ast.Constant)
+                          and k.value == "checks"), None)
+        if isinstance(node, ast.Assign):
+            subscripts |= {
+                t.slice.value for t in node.targets
+                if isinstance(t, ast.Subscript)
+                and isinstance(t.value, ast.Name) and t.value.id == "checks"
+                and isinstance(t.slice, ast.Constant)}
         if isinstance(value, ast.Dict):
             return {k.value for k in value.keys}
+    if subscripts:
+        return subscripts
     raise AssertionError(f"no checks dict in {fn_name}")
 
 
@@ -59,6 +83,7 @@ def test_smoke_check_keys_match_the_jax_harness(regime):
     got = _check_keys(pathlib.Path(bs.__file__), twin_fn)
     assert got == want
     assert set(bs.CLOCK_CHECKS.get(regime, ())) <= got
+    assert set(bs.CARD_EXEMPT_CHECKS.get(regime, ())) <= got
 
 
 def _flag(argv, name):
@@ -82,16 +107,27 @@ def test_on_the_card_every_service_and_worker_serves_from_torch(
     built = []
     real = bs._create_backend
 
-    def record(name, hin, mp, platform):
+    def record(name, hin, mp, platform, **options):
         built.append((name, platform))
-        return real(name, hin, mp, "cpu")  # this box has no card
+        return real(name, hin, mp, "cpu", **options)  # this box has no card
 
     monkeypatch.setattr(bs, "_create_backend", record)
     tiny = dict(n_authors=128, n_papers=200, n_venues=8)
     bs.run_bench(**tiny, clients=2, queries_per_client=4, max_batch=4)
     bs.run_update_bench(**tiny, reps=1)
     hin = synthetic_hin(64, 96, 4, seed=0)
-    router, transports = bs._inproc_fleet(
-        hin, compile_metapath("APVPA", hin.schema), 2)
+    mp = compile_metapath("APVPA", hin.schema)
+    router, transports = bs._inproc_fleet(hin, mp, 2)
     bs._close_inproc_fleet(router, transports)
-    assert built and set(built) == {("torch", "cuda")}, built
+    fleet = bs._firehose_fleet_phase(64, 96, 4, updates=4, k=3)
+    assert fleet["oracle_checked"]["mismatches"] == 0
+    auto = bs._firehose_autoscale_phase(64, 96, 4, k=3)
+    assert auto["spawn_tick"] is not None  # the spawned worker: torch too
+    services, sched = bs._batch_fleet(hin, mp, workers=2)
+    sched.close()
+    for svc in services:
+        svc.close()
+    served = [b for b in built if b[0] != "numpy"]
+    assert served and set(served) == {("torch", "cuda")}, built
+    # numpy only as the firehose fleet's oracle
+    assert [b[0] for b in built if b[0] == "numpy"] == ["numpy"], built

@@ -6,9 +6,12 @@ the CLI pair on one GEXF)."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import pathlib
 
 import numpy as np
+import pytest
 
 from distributed_pathsim_tpu_torch.data.encode import encoded_hin_from_arrays
 
@@ -360,3 +363,73 @@ def assert_coo_equal(a, b) -> None:
     np.testing.assert_array_equal(a.rows, b.rows)
     np.testing.assert_array_equal(a.cols, b.cols)
     np.testing.assert_array_equal(a.weights, b.weights)
+
+
+# -- the bench twins against the repository harness -------------------------
+
+
+@contextlib.contextmanager
+def untuned_packages():
+    """Both packages untuned, so every knob resolves to its default
+    whatever file ran before in the worker (the checked-in CPU table is
+    fingerprinted for another jax)."""
+    from distributed_pathsim_tpu.tuning import dispatch as jtuning
+    from distributed_pathsim_tpu_torch import tuning
+
+    prev_j, prev_t = jtuning._state.enabled, tuning.dispatch._state.enabled
+    jtuning.set_enabled(False)
+    tuning.set_enabled(False)
+    try:
+        yield
+    finally:
+        jtuning.set_enabled(prev_j)
+        tuning.set_enabled(prev_t)
+
+
+@pytest.fixture(autouse=True)
+def untuned():
+    """:func:`untuned_packages` around each test of a file that imports
+    this fixture."""
+    with untuned_packages():
+        yield
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def jax_harness():
+    """The repository's ``bench_serving.py`` (the JAX package's load
+    generator), imported from the repository root."""
+    import sys
+
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import bench_serving
+
+    return bench_serving
+
+
+def key_tree(d, prefix="", leaves=("buckets",)):
+    """Every key path of a bench result. A key in ``leaves`` is a leaf:
+    its keys are decided by the clock (a ``buckets`` histogram's batch
+    sizes, the ann regime's ``speedups``, which name the sweep points
+    that met the p99 SLO)."""
+    out = set()
+    if isinstance(d, dict):
+        for key, value in d.items():
+            path = f"{prefix}/{key}"
+            out.add(path)
+            if key not in leaves:
+                out |= key_tree(value, path, leaves)
+    return out
+
+
+def assert_deterministic(checks, regime, exempt=()):
+    """Every check of ``regime`` true but the clock's (the twin's
+    ``CLOCK_CHECKS``) and those named in ``exempt``."""
+    from distributed_pathsim_tpu_torch import bench_serving as bs
+
+    clock = bs.CLOCK_CHECKS.get(regime, ())
+    assert set(clock) | set(exempt) <= set(checks)
+    failed = [name for name, ok in checks.items()
+              if name not in clock and name not in exempt and not ok]
+    assert not failed, checks
