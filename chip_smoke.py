@@ -294,6 +294,18 @@ nonzero and no result line is printed):
    ``torch.cuda.memory_allocated`` per layout, rows/s and the share of
    block GEMMs on the card, the prune ratio); the launches of this
    process in the phase are ``launches_bench_tiers`` in the kernels line;
+6j. the tooling twins on the card: ``graft_entry``'s forward step eager
+   and replayed from one CUDA-graph capture, each bit-identical to the
+   CPU's; ``dryrun_multichip(4)`` (and at the card count when the
+   machine has more than one card) with every item checked, item 1c's
+   ring exactly D² K3 launches and no other kernel's, equal to the torch
+   fold on CPU copies, and the resume after a preemption at step 0 in D −
+   1 steps; ``neural_bench`` at its defaults (65536 x 327680 x 64, 300
+   steps of 8192 pairs), every loss finite and the last ten below the
+   first ten, ``struct_dim`` 768, its struct figures equal to the JAX
+   package's at the same defaults within two hits in 500, the learned
+   recall and ``seconds_per_query`` printed with no floor; the launches
+   of the phase are ``launches_tooling`` in the kernels line;
 7. times on the card (CUDA events, median of 7 after 2 warm-ups): each
    kernel, its plain version, a library yardstick that the port never
    calls, the least time the card could take (bound), K1 at several
@@ -5804,6 +5816,93 @@ def bench_tiers(torch, ck, np, card):
     return launches
 
 
+# Phase 6j: the tooling twins. NEURAL_BENCH_JAX_STRUCT: the JAX package's
+# struct figures at neural_bench's defaults, from its NeuralPathSim and the
+# script's evaluation loop on the CPU (`PYTHONPATH=.:tests
+# JAX_PLATFORMS=cpu python tests/test_torch_neural_bench.py`; equal to
+# NEURAL_r04.json's first record, 0.916 / 1.0 / 768 on the same graph).
+# NEURAL_BENCH_STRUCT_TOL: two hits in 500 (50 sources x k = 10), room
+# for another host's BLAS summation order in the f32 struct products.
+NEURAL_BENCH_JAX_STRUCT = {
+    "struct_recall_at_k": 0.9159999999999999,
+    "struct_rerank_recall_at_k_top100_prefilter": 1.0,
+    "struct_dim": 768,
+}
+NEURAL_BENCH_STRUCT_TOL = 0.004
+DRYRUN_SHARDS = 4
+
+
+def tooling_twins(torch, ck, np, card):
+    """Phase 6j: the graft entry's forward step and dry run, and the
+    neural bench at its defaults, on the card. Returns the launches of
+    the phase per kernel."""
+    from distributed_pathsim_tpu_torch import graft_entry, neural_bench
+
+    phase("the tooling twins on the card: graft_entry's forward and "
+          "dryrun_multichip, neural_bench at its defaults")
+    t_phase = time.perf_counter()
+    ck.reset_launches()
+
+    fn, args = graft_entry.entry()
+    want = fn(*(a.cpu() for a in args))
+    eager = fn(*args).cpu()
+    replayed = graft_entry.graph_replay(fn, args).cpu()
+    if not (torch.equal(eager, want) and torch.equal(replayed, want)):
+        raise AssertionError("graft entry: the card's forward differs from "
+                             "the CPU's")
+    print(f"graft entry: forward {tuple(want.shape)} f32 from "
+          f"{tuple(args[0].shape)} x {tuple(args[1].shape)}, eager and "
+          f"CUDA-graph replay bit-identical to the CPU fn ({card})")
+
+    shard_counts = [DRYRUN_SHARDS]
+    if torch.cuda.device_count() > 1:
+        shard_counts.append(torch.cuda.device_count())
+    for n in shard_counts:
+        t0 = time.perf_counter()
+        rep = graft_entry.dryrun_multichip(n)
+        dt = time.perf_counter() - t0
+        k3 = {name: (n * n if name == graft_entry.RING_KERNEL else 0)
+              for name in rep["launches_1c"]}
+        if rep["launches_1c"] != k3 or rep["resume_steps"] != n - 1:
+            raise AssertionError(f"dryrun_multichip({n}): {rep}")
+        print(f"dryrun_multichip({n}): ok in {dt:.2f} s on "
+              f"{torch.cuda.device_count()} card(s); item 1c {n * n} K3 "
+              f"launches and no other kernel's, values and indices equal to "
+              f"the torch fold on CPU copies; the resume after a preemption "
+              f"at step 0 ran {rep['resume_steps']} steps; launches of the "
+              f"run {rep['launches']} ({card})")
+
+    t0 = time.perf_counter()
+    rec, losses = neural_bench.run(neural_bench.parse_args([]))
+    dt = time.perf_counter() - t0
+    print(json.dumps(rec))
+    if not (np.all(np.isfinite(losses))
+            and rec["loss_last10_mean"] < rec["loss_first10_mean"]):
+        raise AssertionError(f"neural bench: losses {losses[:10]} ... "
+                             f"{losses[-10:]}")
+    if rec["struct_dim"] != NEURAL_BENCH_JAX_STRUCT["struct_dim"]:
+        raise AssertionError(f"neural bench: struct_dim {rec['struct_dim']}")
+    diffs = {key: rec[key] - want for key, want
+             in NEURAL_BENCH_JAX_STRUCT.items() if key != "struct_dim"}
+    print(f"neural bench (65536 x 327680 x 64, 300 steps of 8192 pairs): "
+          f"{dt:.1f} s; train {rec['seconds_train']} s, losses "
+          f"{rec['loss_first10_mean']:.4f} -> {rec['loss_last10_mean']:.4f} "
+          f"(all {len(losses)} finite); learned recall@10 {rec['value']} "
+          f"(rerank {rec['rerank_recall_at_k_top100_prefilter']}; no floor), "
+          f"{rec['seconds_per_query']} s a query; struct recall "
+          f"{rec['struct_recall_at_k']} / rerank "
+          f"{rec['struct_rerank_recall_at_k_top100_prefilter']}, "
+          f"struct_dim {rec['struct_dim']}, against the JAX figures "
+          f"{NEURAL_BENCH_JAX_STRUCT}: differences {diffs} ({card})")
+    if any(abs(x) > NEURAL_BENCH_STRUCT_TOL for x in diffs.values()):
+        raise AssertionError(f"neural bench: struct figures {diffs} past "
+                             f"{NEURAL_BENCH_STRUCT_TOL}")
+    launches = dict(ck.LAUNCHES)
+    print(f"tooling twins: launches in this process {launches}")
+    print(f"tooling twins phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
     """Phase 2 at the main path's shapes + phase 6 (times)."""
     from distributed_pathsim_tpu_torch.ops import planner
@@ -6044,6 +6143,7 @@ def main() -> int:
                                             pathlib.Path(tmp) / "ranking.tsv")
         bench_launches = bench_twins(torch, ck, np, smi, hin, backend)
         tier_launches = bench_tiers(torch, ck, np, smi)
+        tool_launches = tooling_twins(torch, ck, np, smi)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
                       instances)
     for kern in kernels:  # later phases' own runs, counted apart
@@ -6058,6 +6158,7 @@ def main() -> int:
         kern["launches_lint"] = lint_launches[kern["name"]]
         kern["launches_bench"] = bench_launches[kern["name"]]
         kern["launches_bench_tiers"] = tier_launches[kern["name"]]
+        kern["launches_tooling"] = tool_launches[kern["name"]]
         if kern["name"] in tuned:
             kern["tuned"] = tuned[kern["name"]]
     leaked = [m for m in sys.modules

@@ -187,7 +187,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "backends.partition_factors", "serving.partition",
                 "router.partition", "learned.encoder", "learned.checkpoint",
                 "learned.serving", "learned.cli", "learned.trainer",
-                "models.flax_msgpack", "neural_cli"):
+                "models.flax_msgpack", "neural_cli", "graft_entry",
+                "neural_bench", "chaos_suite"):
         assert f"distributed_pathsim_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, json, sys\n"

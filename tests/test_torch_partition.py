@@ -226,6 +226,7 @@ def test_routed_answers_equal_the_jax_router_through_deltas():
             oracle.close()
 
 
+@pytest.mark.chaos
 def test_worker_killed_mid_batch_loses_nothing(graphs):
     """Replication 2: a worker SIGKILLed with 40 queries in flight; every
     answer arrives, equal to the JAX router's (no kill there)."""
@@ -254,6 +255,7 @@ def test_worker_killed_mid_batch_loses_nothing(graphs):
         fleets.close()
 
 
+@pytest.mark.chaos
 def test_missed_broadcast_is_fenced_then_replayed(graphs):
     """The first part_update send is dropped: w0 lags, is fenced (answers
     stay exact through the mirrors) and is caught up by ordered replay;

@@ -69,6 +69,8 @@ def test_persistent_failure_walks_the_platform_chain(monkeypatch, device,
     order and the last error raises. With ``device="cuda"`` the walk
     stops at ``torch``: numpy is never built. (``create_backend`` is
     replaced, so no card is needed.)"""
+    # counts every attempt: no ambient PATHSIM_FAULT_PLAN may add one
+    inject.install_plan("")
     tried = []
 
     def failing(name, hin, metapath, **opts):
@@ -114,6 +116,7 @@ def _rank(gexf, tmp_path, name, extra=(), backend="torch-sparse"):
     return rc, tsv, metrics
 
 
+@pytest.mark.chaos
 def test_backend_init_fault_degrades_with_the_same_answer(
         gexf, tmp_path, monkeypatch, capsys):
     rc, want, _ = _rank(gexf, tmp_path, "clean")
@@ -135,6 +138,7 @@ def test_backend_init_fault_degrades_with_the_same_answer(
         _rank(gexf, tmp_path, "nodegrade", ["--no-degrade"])
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("plan,seam", [
     ("tile_execute:error:2", "tile_execute"),
     ("checkpoint_write:partial:1", "checkpoint_write"),
@@ -155,6 +159,7 @@ def test_tile_and_checkpoint_faults_are_retried(gexf, tmp_path, monkeypatch,
     assert not any(e.get("event") == "degrade" for e in events)
 
 
+@pytest.mark.chaos
 def test_preempted_sweep_exits_75_and_resumes_identically(
         gexf, tmp_path, monkeypatch, capsys):
     """A preemption request after the 3rd row tile: the finished tiles

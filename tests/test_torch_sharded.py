@@ -69,6 +69,7 @@ def test_backend_matches_jax_sharded(graphs, n_dev):
                                   ring_j.commuting_matrix())
 
 
+@pytest.mark.chaos
 def test_mid_ring_resume_after_a_kill_at_any_step(graphs, tmp_path):
     """A kill at ring step s (a non-retryable crash at the step's seam)
     leaves the snapshot of step s − 1; the resume runs steps s.. and
