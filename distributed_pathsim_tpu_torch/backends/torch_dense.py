@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.trace import get_tracer
 from ..ops import chain
 from ..ops import cuda_kernels as ck
 from ..ops import planner
@@ -113,13 +114,18 @@ class TorchDenseBackend(PathSimBackend):
             coo = planner.fold_half(hin, metapath, memo=self._subchain_memo,
                                     plan=self.plan)
             self._c_shape = coo.shape
-            self._coo = (
-                torch.as_tensor(coo.rows, dtype=torch.int64,
-                                device=self.device),
-                torch.as_tensor(coo.cols, dtype=torch.int64,
-                                device=self.device),
-                torch.as_tensor(coo.weights, dtype=dtype, device=self.device),
-            )
+            with get_tracer().span("backend.factor",
+                                   device=self.device) as span:
+                self._coo = (
+                    torch.as_tensor(coo.rows, dtype=torch.int64,
+                                    device=self.device),
+                    torch.as_tensor(coo.cols, dtype=torch.int64,
+                                    device=self.device),
+                    torch.as_tensor(coo.weights, dtype=dtype,
+                                    device=self.device),
+                )
+                if span is not None:
+                    span.args["bytes"] = sum(t.nbytes for t in self._coo)
             self._blocks = None
         else:
             host_blocks = chain.oriented_dense_blocks(
@@ -143,12 +149,17 @@ class TorchDenseBackend(PathSimBackend):
         the factor is a per-graph constant."""
         if self._half_cache is None:
             rows, cols, weights = self._coo
-            c = torch.zeros(self._c_shape, dtype=self.dtype,
-                            device=self.device)
-            # duplicate coordinates (a raw single-step half) accumulate;
-            # integer adds are exact in any order
-            c.index_put_((rows, cols), weights, accumulate=True)
-            self._half_cache = (c, chain.rowsums_from_half(c))
+            with get_tracer().span("backend.factor",
+                                   device=self.device) as span:
+                c = torch.zeros(self._c_shape, dtype=self.dtype,
+                                device=self.device)
+                # duplicate coordinates (a raw single-step half)
+                # accumulate; integer adds are exact in any order
+                c.index_put_((rows, cols), weights, accumulate=True)
+                self._half_cache = (c, chain.rowsums_from_half(c))
+                if span is not None:
+                    span.args["bytes"] = sum(t.nbytes
+                                             for t in self._half_cache)
             self._limbs_cache = None
         return self._half_cache
 
@@ -369,7 +380,12 @@ class TorchDenseBackend(PathSimBackend):
                                        limbs=limbs)
         self._fetch_rowsums(rowsums)
         n = self.n_sources
-        return vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
+        with get_tracer().span("backend.fetch", device=self.device,
+                               pinned=False) as span:
+            out = vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
+            if span is not None:
+                span.args["bytes"] = out[0].nbytes + out[1].nbytes
+        return out
 
     # Row-tile height of the rect arm (halved until K3's candidate
     # buffer fits its budget).

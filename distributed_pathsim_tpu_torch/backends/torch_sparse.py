@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import resilience
+from ..obs.trace import get_tracer
 from ..ops import chain, planner
 from ..ops import cuda_kernels as ck
 from ..ops import packed as pkd
@@ -256,14 +257,19 @@ class TorchSparseBackend(PathSimBackend):
     # -- primitives ------------------------------------------------------
 
     def global_walks(self) -> np.ndarray:
-        if self._rowsums is None:
+        if self._rowsums is None and self._exact_rescore:
             # rescore mode: the device f32 GEMV rounds past 2^24; the
             # host f64 accumulation (integers < 2^53) is exact and was
             # already computed by the overflow detector.
-            self._rowsums = (
-                self._host_rowsums if self._exact_rescore
-                else self.tiled.rowsums()[: self.n]
-            )
+            self._rowsums = self._host_rowsums
+        elif self._rowsums is None:
+            t = self.tiled
+            with get_tracer().span("backend.factor",
+                                   device=self.device) as span:
+                held = t.device_bytes() if span is not None else 0
+                self._rowsums = t.rowsums()[: self.n]
+                if span is not None:  # the COO's upload, the cached tiles
+                    span.args["bytes"] = t.device_bytes() - held
         return self._rowsums
 
     def commuting_matrix(self) -> np.ndarray:
@@ -425,6 +431,8 @@ class TorchSparseBackend(PathSimBackend):
         denoms = self._denoms_device_padded(variant)
         vals, idxs = self._empty_result(k)
         scanned = t.dense_bytes() <= self._dense_c_budget
+        tracer = get_tracer()
+        arm = self._compute_path(k) if tracer.enabled else None
 
         # Software pipeline over row tiles: the device runs tile i+1
         # while the host waits for tile i's copy into pinned memory, and
@@ -436,10 +444,17 @@ class TorchSparseBackend(PathSimBackend):
 
         def drain_one():
             i_, i0_, rows_, hv, hi, done = pending.pop(0)
-            if done is not None:
-                done.synchronize()
-            vals[i0_:i0_ + rows_] = hv[:rows_].double().numpy()
-            idxs[i0_:i0_ + rows_] = hi[:rows_].long().numpy()
+            with tracer.span("backend.drain", device=self.device,
+                             tile=i_) as span:
+                if done is not None:
+                    done.synchronize()
+                hv64, hi64 = hv[:rows_].double(), hi[:rows_].long()
+                vals[i0_:i0_ + rows_] = hv64.numpy()
+                idxs[i0_:i0_ + rows_] = hi64.numpy()
+                if span is not None:  # the f64 / int64 copies made
+                    span.args["bytes"] = sum(
+                        new.nbytes for new, old in ((hv64, hv), (hi64, hi))
+                        if new.data_ptr() != old.data_ptr())
             if ckpt is not None:
                 ckpt.save_unit(
                     f"topk{k}_rowtile_{i_}",
@@ -466,12 +481,14 @@ class TorchSparseBackend(PathSimBackend):
                     checkpoint_dir=str(ckpt.dir) if ckpt is not None else None
                 )
             try:
-                best_v, best_i = resilience.resilient_call(
-                    "tile_execute",
-                    lambda i=i, i0=i0: self._topk_row_tile(
-                        i, i0, k, variant, denoms, scanned
-                    ),
-                )
+                with tracer.span("backend.tile", device=self.device, tile=i,
+                                 rows=rows_here, arm=arm):
+                    best_v, best_i = resilience.resilient_call(
+                        "tile_execute",
+                        lambda i=i, i0=i0: self._topk_row_tile(
+                            i, i0, k, variant, denoms, scanned
+                        ),
+                    )
             except BaseException:
                 # The tiles in `pending` finished on the device before
                 # this one failed — flush them to the checkpoint (best
@@ -560,10 +577,15 @@ class TorchSparseBackend(PathSimBackend):
         return denoms_device
 
     def _empty_result(self, k: int):
-        return (
-            np.full((self.n, k), -np.inf),
-            np.zeros((self.n, k), dtype=np.int64),
-        )
+        with get_tracer().span("backend.result_alloc",
+                               device=self.device) as span:
+            out = (
+                np.full((self.n, k), -np.inf),
+                np.zeros((self.n, k), dtype=np.int64),
+            )
+            if span is not None:
+                span.args["bytes"] = out[0].nbytes + out[1].nbytes
+        return out
 
     # -- symmetric half-sweep ------------------------------------------------
 
@@ -869,11 +891,15 @@ def _fetch_async(vals: torch.Tensor, idxs: torch.Tensor):
     values, host indices, event or None)."""
     if vals.device.type != "cuda":
         return vals, idxs, None
-    hv = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-    hi = torch.empty(idxs.shape, dtype=idxs.dtype, pin_memory=True)
-    with torch.cuda.device(vals.device):
-        hv.copy_(vals, non_blocking=True)
-        hi.copy_(idxs, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+    with get_tracer().span("backend.fetch", device=vals.device,
+                           pinned=True) as span:
+        hv = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        hi = torch.empty(idxs.shape, dtype=idxs.dtype, pin_memory=True)
+        with torch.cuda.device(vals.device):
+            hv.copy_(vals, non_blocking=True)
+            hi.copy_(idxs, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        if span is not None:
+            span.args["bytes"] = hv.nbytes + hi.nbytes
     return hv, hi, done

@@ -179,7 +179,7 @@ class PathSimDriver:
             vals, idxs = b.topk_scores(
                 k=k, variant=self.variant, checkpoint_dir=checkpoint_dir
             )
-            return np.asarray(vals, dtype=np.float64), np.asarray(idxs)
+            return self._to_f64(vals, idxs)
         if checkpoint_dir is not None:
             raise ValueError(
                 "checkpointed ranking requires a streaming backend "
@@ -190,10 +190,7 @@ class PathSimDriver:
                 "device_execute",
                 lambda: b.topk(k=k, mask_self=True, variant=self.variant),
             )
-            return (
-                np.asarray(vals, dtype=np.float64),
-                np.asarray(idxs, dtype=np.int64),
-            )
+            return self._to_f64(vals, idxs)
         scores = np.array(
             resilience.resilient_call(
                 "device_execute",
@@ -205,6 +202,20 @@ class PathSimDriver:
         idxs = np.argsort(-scores, axis=1, kind="stable")[:, :k]
         vals = np.take_along_axis(scores, idxs, axis=1)
         return vals, idxs.astype(np.int64)
+
+    def _to_f64(self, vals, idxs):
+        """A backend's top-k as rank_all hands it over: values f64,
+        indices int64 (no copy where they already are)."""
+        with get_tracer().span(
+            "driver.to_f64", device=getattr(self.backend, "device", None)
+        ) as span:
+            out = np.asarray(vals, dtype=np.float64), np.asarray(
+                idxs, dtype=np.int64)
+            if span is not None:  # the bytes of the casts made
+                span.args["bytes"] = sum(
+                    new.nbytes for new, old in zip(out, (vals, idxs))
+                    if new is not old)
+        return out
 
     def write_ranking(self, path: str, vals: np.ndarray, idxs: np.ndarray):
         """TSV dump of a rank_all result: source_id, rank, target_id,

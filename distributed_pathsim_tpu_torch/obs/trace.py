@@ -58,7 +58,18 @@ sampled-in traces are complete and connected either way.
 ``device_annotations=True`` additionally opens a
 ``torch.profiler.record_function`` range per span, so spans show up
 inside a ``torch.profiler`` trace of the card, attaching the host-side
-hierarchy to the CUDA kernel timeline.
+hierarchy to the CUDA kernel timeline. A span opened with a CUDA
+``device`` also records a timing event on that device's current stream
+at its opening and at its closing, so it carries the card's seconds
+between the two (:attr:`Span.device_s`): torch returns before the card
+finishes, so host seconds alone mismeasure a span that enqueues card
+work. Nothing synchronizes: ``device_s`` stays None until both events
+have completed, and is read when asked for.
+
+Beside the ring, the tracer keeps per-name totals of every span
+finished (:meth:`Tracer.totals`: count, host seconds, device seconds),
+which neither the ring's bound nor :meth:`Tracer.clear` drops: a
+breakdown of set-up outlives the clear that starts a measured window.
 """
 
 from __future__ import annotations
@@ -75,6 +86,17 @@ import time
 from typing import Any, Iterator
 
 _MONO_NS = time.monotonic_ns
+
+# Span names that the benchmark's readers sum, one tuple each, so that a
+# rename is made here and in the span's own line only. The host fold of
+# the symmetric half (set-up); the factor made ready for the kernels on
+# the card (the scatter-build, the densify, the K3-ready copy, the row
+# sums, the u8 limb split); and rank-all's result path (the host result
+# buffers, the fetch, each row tile's drain, the driver's f64 cast).
+FOLD_SPANS = ("backend.fold",)
+FACTOR_SPANS = ("backend.factor", "backend.limbs")
+RESULT_PATH_SPANS = ("backend.result_alloc", "backend.fetch",
+                     "backend.drain", "driver.to_f64")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +150,7 @@ class Span:
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id",
         "t_start_ns", "t_end_ns", "tid", "thread_name", "args",
+        "_events", "_device_s",
     )
 
     def __init__(
@@ -148,6 +171,24 @@ class Span:
         self.tid = t.ident or 0
         self.thread_name = t.name
         self.args = args
+        # (start, end) CUDA events of a span opened with a device under
+        # device_annotations; end is None while the span is open
+        self._events = None
+        self._device_s: float | None = None
+
+    @property
+    def device_s(self) -> float | None:
+        """The card's seconds from the span's opening to its closing on
+        the stream it was opened on: the work it enqueued there, and the
+        time that stream waited for the host in between. None for a span
+        without events, and until its closing event has completed (an
+        event is queried, never waited for)."""
+        if self._device_s is None and self._events is not None:
+            start, end = self._events
+            if end is not None and end.query():
+                self._device_s = start.elapsed_time(end) / 1e3
+                self._events = None
+        return self._device_s
 
     @property
     def context(self) -> SpanContext:
@@ -159,7 +200,7 @@ class Span:
         return (end - self.t_start_ns) / 1e9
 
     def to_dict(self) -> dict:
-        return {
+        out = {
             "name": self.name,
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -170,6 +211,9 @@ class Span:
             "thread": self.thread_name,
             "args": dict(self.args),
         }
+        if self.device_s is not None:
+            out["device_s"] = self.device_s
+        return out
 
 
 class Tracer:
@@ -187,6 +231,13 @@ class Tracer:
         self.sample_every = int(sample_every)
         self._lock = threading.Lock()
         self._spans: collections.deque[Span] = collections.deque(
+            maxlen=max_spans
+        )
+        # name → [count, host seconds, device seconds or None]; the spans
+        # whose device time is still running wait in _unsettled (oldest
+        # first, as their events complete) and join the totals later
+        self._totals: dict[str, list] = {}
+        self._unsettled: collections.deque[Span] = collections.deque(
             maxlen=max_spans
         )
         # Globally-unique ids: a random 48-bit base per tracer, local
@@ -230,6 +281,9 @@ class Tracer:
             if max_spans is not None and max_spans != self._spans.maxlen:
                 self._spans = collections.deque(
                     self._spans, maxlen=max_spans
+                )
+                self._unsettled = collections.deque(
+                    self._unsettled, maxlen=max_spans
                 )
 
     # -- lifecycle -----------------------------------------------------------
@@ -284,12 +338,44 @@ class Tracer:
         span.t_end_ns = _MONO_NS()
         with self._lock:
             self._spans.append(span)
+            total = self._totals.get(span.name)
+            if total is None:
+                total = self._totals[span.name] = [0, 0.0, None]
+            total[0] += 1
+            total[1] += (span.t_end_ns - span.t_start_ns) / 1e9
+            if span._events is not None:
+                self._unsettled.append(span)
+            self._settle(everything=False)
+
+    def _settle(self, everything: bool) -> None:
+        """Move the device seconds of unsettled spans whose events have
+        completed into the totals: the oldest ones (at each finish, so
+        the queue holds only what is in flight), or every one. Caller
+        holds the lock."""
+        queue = self._unsettled
+        if everything:
+            self._unsettled = collections.deque(maxlen=queue.maxlen)
+            for span in queue:
+                if span.device_s is None:
+                    self._unsettled.append(span)
+                else:
+                    self._add_device_s(span)
+            return
+        while queue and queue[0].device_s is not None:
+            self._add_device_s(queue.popleft())
+
+    def _add_device_s(self, span: Span) -> None:
+        total = self._totals[span.name]
+        total[2] = (total[2] or 0.0) + span.device_s
 
     @contextlib.contextmanager
     def span(self, name: str, parent: SpanContext | None = None,
-             **args: Any) -> Iterator[Span | None]:
+             device: Any = None, **args: Any) -> Iterator[Span | None]:
         """In-thread form: opens, becomes the current span, restores on
-        exit. Exceptions mark the span (``error=repr``) and propagate."""
+        exit. Exceptions mark the span (``error=repr``) and propagate.
+        ``device``: where the span enqueues work; with
+        ``device_annotations`` on and a CUDA device, the span times its
+        stretch of that device's current stream (:attr:`Span.device_s`)."""
         if not self.enabled:
             yield None
             return
@@ -305,7 +391,7 @@ class Tracer:
                 self._current.reset(token)
             return
         token = self._current.set(s.context)
-        annotation = None
+        annotation = stream = None
         if self.device_annotations:
             try:
                 import torch
@@ -314,12 +400,16 @@ class Tracer:
                 annotation.__enter__()
             except Exception:
                 annotation = None
+            stream = (None if device is None
+                      else _open_device_events(s, device))
         try:
             yield s
         except BaseException as exc:
+            _close_device_events(s, stream)
             self.finish(s, error=repr(exc))
             raise
         else:
+            _close_device_events(s, stream)
             self.finish(s)
         finally:
             if annotation is not None:
@@ -361,8 +451,19 @@ class Tracer:
             return list(self._spans)
 
     def clear(self) -> None:
+        """Empty the ring (:meth:`totals` keep counting)."""
         with self._lock:
             self._spans.clear()
+
+    def totals(self) -> dict[str, dict]:
+        """Per span name, over every span finished since the tracer was
+        made: ``count``, ``host_s`` and ``device_s``, the device seconds
+        of those of its spans whose events have completed (None where
+        none has device time)."""
+        with self._lock:
+            self._settle(everything=True)
+            return {name: {"count": c, "host_s": h, "device_s": d}
+                    for name, (c, h, d) in self._totals.items()}
 
     def chrome_trace(self) -> dict:
         """Finished spans as Chrome trace-event JSON (the format
@@ -387,6 +488,8 @@ class Tracer:
                         "span_id": s.span_id,
                         "parent_id": s.parent_id,
                         **s.args,
+                        **({} if s.device_s is None
+                           else {"device_s": s.device_s}),
                     },
                 }
             )
@@ -429,6 +532,32 @@ class Tracer:
             json.dump(doc, f)
         os.replace(tmp, path)
         return sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
+
+
+def _open_device_events(span: Span, device: Any):
+    """Record ``span``'s opening event on ``device``'s current stream and
+    return that stream, or None where ``device`` is no card."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    span._events = (start, None)
+    return stream
+
+
+def _close_device_events(span: Span, stream) -> None:
+    """Record ``span``'s closing event on the stream it opened on."""
+    if stream is None:
+        return
+    import torch
+
+    end = torch.cuda.Event(enable_timing=True)
+    end.record(stream)
+    span._events = (span._events[0], end)
 
 
 _TRACER = Tracer(enabled=False)

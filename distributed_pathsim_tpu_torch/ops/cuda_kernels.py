@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from . import sparse
+from ..obs.trace import get_tracer
 from ..utils import compile_counter
 
 # Rows of the kernels' row blocks (csrc/u8_tile.cuh BM), and the unit of
@@ -1001,7 +1002,13 @@ def kernel_limbs(c: torch.Tensor) -> Limbs | None:
     (:func:`split_limbs`) for a CUDA factor, None on the CPU, where the
     plain versions take any f32. A backend keeps them beside its factor
     and hands them to every launch, so no call pays the split."""
-    return split_limbs(c) if c.device.type == "cuda" else None
+    if c.device.type != "cuda":
+        return None
+    with get_tracer().span("backend.limbs", device=c.device) as span:
+        limbs = split_limbs(c)
+        if span is not None:
+            span.args["bytes"] = sum(part.nbytes for part in limbs)
+    return limbs
 
 
 def rect_pad_factor(c: torch.Tensor, d: torch.Tensor,
@@ -1012,7 +1019,12 @@ def rect_pad_factor(c: torch.Tensor, d: torch.Tensor,
     factor already, else :func:`kernel_limbs`; a row tile's are
     ``limbs.rows(i0, i1)``). Unlike the TPU kernel's, K3 masks its
     ragged edges itself, so nothing is padded."""
-    cc = c.to(torch.float32).contiguous()
+    with get_tracer().span("backend.factor", device=c.device) as span:
+        cc = c.to(torch.float32).contiguous()
+        dc = d.to(torch.float32).contiguous()
+        if span is not None:  # the bytes of the copies made (none of f32)
+            span.args["bytes"] = sum(new.nbytes for new, old in
+                                     ((cc, c), (dc, d)) if new is not old)
     if limbs is None:
         limbs = kernel_limbs(cc)
-    return cc, d.to(torch.float32).contiguous(), limbs
+    return cc, dc, limbs

@@ -38,6 +38,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..obs.trace import get_tracer
+
 from . import chain
 from . import sparse as sp
 from .metapath import MetaPath, Step
@@ -682,7 +684,11 @@ def fold_half(
             f"metapath {metapath.name} is not symmetric; "
             "fold_half requires the half-chain factorization"
         )
-    return _eval_coo_node(plan.root, plan.steps(), hin, memo)
+    with get_tracer().span("backend.fold") as span:
+        coo = _eval_coo_node(plan.root, plan.steps(), hin, memo)
+        if span is not None:
+            span.args["nnz"] = int(coo.rows.shape[0])
+    return coo
 
 
 def fold_general(

@@ -32,6 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs.trace import get_tracer
+
 
 @dataclasses.dataclass(frozen=True)
 class COOMatrix:
@@ -590,23 +592,37 @@ class TiledHalfChain:
         transiently). Outside the tile LRU's budget: callers gate on
         :meth:`dense_bytes` (268 MB at 1M authors, V = 64, f32)."""
         if self._dense_c is None:
-            if self._packed is None:
-                rows, cols, w = self._device_coo()
-            else:
-                from . import packed as pkd
+            with get_tracer().span("backend.factor",
+                                   device=self.device) as span:
+                held = self.device_bytes() if span is not None else 0
+                if self._packed is None:
+                    rows, cols, w = self._device_coo()
+                else:
+                    from . import packed as pkd
 
-                span = pkd.as_coo(self._packed)
-                rows = torch.as_tensor(span.rows, dtype=torch.int64,
-                                       device=self.device)
-                cols = torch.as_tensor(span.cols, dtype=torch.int64,
-                                       device=self.device)
-                w = torch.as_tensor(span.weights, device=self.device).to(
-                    self.dtype)
-            self._dense_c = densify_tile(
-                rows, cols, w,
-                n_rows=self.n_tiles * self.tile_rows, n_cols=self.v,
-            )
+                    coo = pkd.as_coo(self._packed)
+                    rows = torch.as_tensor(coo.rows, dtype=torch.int64,
+                                           device=self.device)
+                    cols = torch.as_tensor(coo.cols, dtype=torch.int64,
+                                           device=self.device)
+                    w = torch.as_tensor(coo.weights, device=self.device).to(
+                        self.dtype)
+                self._dense_c = densify_tile(
+                    rows, cols, w,
+                    n_rows=self.n_tiles * self.tile_rows, n_cols=self.v,
+                )
+                if span is not None:
+                    span.args["bytes"] = self.device_bytes() - held
         return self._dense_c
+
+    def device_bytes(self) -> int:
+        """Device bytes the chain holds: the uploaded COO, the scatter
+        pad's cells, the cached tiles and the dense C."""
+        held = [*(self._coo_dev or ()), *(self._pad_dev or ()),
+                *self._cache.values()]
+        if self._dense_c is not None:
+            held.append(self._dense_c)
+        return sum(t.nbytes for t in held)
 
     def drop_dense(self) -> None:
         """Release the cached dense C (a caller that holds its own copy
