@@ -29,7 +29,10 @@
 // k <= 137; two blocks share an SM while k is small), else in its slice
 // of the output in device memory; the merge code is the same for both.
 // Row blocks are launched in the order the wrapper gives, those with the
-// most limbs first, so they do not trail the launch.
+// most limbs first, so they do not trail the launch. Each row block takes
+// its own instance: the few whose row sums leave M unbounded below 2^31
+// (the Zipf head) the one with the f64 fold, on a side stream beside the
+// launch of the rest.
 //
 // Bound on an H100: operations. S is symmetric, so the function needs the
 // n (n + 1) / 2 upper-triangle dot products: n (n + 1) v u8 operations
@@ -51,10 +54,10 @@ namespace pathsim {
 constexpr int SMEM_K_MAX = (227 * 1024 - u8::PIPE_SMEM) / (u8::BM * 8);
 
 // SMEM_LISTS: the lists in shared memory (k <= SMEM_K_MAX), else in the
-// output. WIDE: the instance with the f64 fold, for a factor whose row
-// sums do not bound every M below 2^31 (u8_tile.cuh). Two blocks share
-// an SM in the common instance (lists in shared memory, no f64 fold);
-// the others take the registers of one block an SM.
+// output. WIDE: the instance with the f64 fold, for the row blocks whose
+// row sums do not bound every M of theirs below 2^31 (u8_tile.cuh). Two
+// blocks share an SM in the common instance (lists in shared memory, no
+// f64 fold); the others take the registers of one block an SM.
 template <bool SMEM_LISTS, bool WIDE>
 __global__ void __launch_bounds__(u8::THREADS, SMEM_LISTS && !WIDE ? 2 : 1)
 topk_fold_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -108,25 +111,30 @@ topk_fold_kernel(const __grid_constant__ CUtensorMap map_a,
 
 }  // namespace pathsim
 
-// Launch on `stream`; returns 0, a CUDA error, or a tensor-map error
+// Launch the wide row blocks on `wide_stream`, then the narrow ones on
+// `stream` (the caller forks and joins the two streams, or passes the
+// same one twice); returns 0, a CUDA error, or a tensor-map error
 // (u8_tile.cuh). The caller guarantees n >= 1, k >= 1, limb planes
 // [n_planes, n, v_pad] u8 (v_pad a multiple of 32; rows v_pad bytes
 // apart, planes plane_stride apart), rb_max (each block's largest
-// entry) and order over the ceil(n / 128) row blocks, sub_max (each
-// subtile's largest entry) over the ceil(n / 64) subtiles,
-// d_min over every subtile the kernel walks (ceil(max(n, k) / 128) * 2:
-// each subtile's least denominator, 0 past n), and buffers of n * k
-// elements for vals and idxs, idxs starting n * k slots after vals (one
-// buffer: the lists in the output reach their columns by that offset;
-// n * k < 2^31). wide: 0 only when every M of the factor is known below
-// 2^31 (cuda_kernels: largest row sum times largest entry).
+// entry) over the ceil(n / 128) row blocks, which wide_order (n_wide of
+// them) and narrow_order (n_narrow) split between them, each in launch
+// order: a block is narrow only when every M of its rows is known below
+// 2^31 (cuda_kernels: the block's largest row sum times the factor's
+// largest entry, or the other way round), sub_max (each subtile's
+// largest entry) over the ceil(n / 64) subtiles, d_min over every
+// subtile the kernel walks (ceil(max(n, k) / 128) * 2: each subtile's
+// least denominator, 0 past n), and buffers of n * k elements for vals
+// and idxs, idxs starting n * k slots after vals (one buffer: the lists
+// in the output reach their columns by that offset; n * k < 2^31).
 extern "C" int pathsim_topk_fold(const void* planes, int n_planes,
                                  long long plane_stride, int v_pad,
                                  const float* d, int n, int k, int mask_self,
-                                 const int* rb_max, const int* order,
-                                 const int* sub_max, const float* d_min,
-                                 int wide, float* vals, int* idxs,
-                                 void* stream) {
+                                 const int* rb_max, const int* wide_order,
+                                 int n_wide, const int* narrow_order,
+                                 int n_narrow, const int* sub_max,
+                                 const float* d_min, float* vals, int* idxs,
+                                 void* wide_stream, void* stream) {
     using namespace pathsim;
     CUtensorMap map_a, map_b;
     int rc = pathsim_limb_map(&map_a, planes, n_planes, n, v_pad,
@@ -139,18 +147,25 @@ extern "C" int pathsim_topk_fold(const void* planes, int n_planes,
     const int n_sub = (width + 127) / 128 * (128 / u8::BN);
     const bool smem_lists = k <= SMEM_K_MAX;
     const int smem = u8::PIPE_SMEM + (smem_lists ? u8::BM * k * 8 : 0);
-    const auto kernel =
-        smem_lists ? (wide ? topk_fold_kernel<true, true>
-                           : topk_fold_kernel<true, false>)
-                   : (wide ? topk_fold_kernel<false, true>
-                           : topk_fold_kernel<false, false>);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
     const int n_sub_max = (n + u8::BN - 1) / u8::BN;
-    kernel<<<(n + u8::BM - 1) / u8::BM, u8::THREADS, smem,
-             (cudaStream_t)stream>>>(
-        map_a, map_b, d, n, v_pad, k, mask_self, n_sub, rb_max, order,
-        sub_max, n_sub_max, d_min, vals, idxs);
-    return (int)cudaGetLastError();
+    for (int wide = 1; wide >= 0; --wide) {
+        const int blocks = wide ? n_wide : n_narrow;
+        if (blocks == 0) continue;
+        const auto kernel =
+            smem_lists ? (wide ? topk_fold_kernel<true, true>
+                               : topk_fold_kernel<true, false>)
+                       : (wide ? topk_fold_kernel<false, true>
+                               : topk_fold_kernel<false, false>);
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)blocks, u8::THREADS, smem,
+                 (cudaStream_t)(wide ? wide_stream : stream)>>>(
+            map_a, map_b, d, n, v_pad, k, mask_self, n_sub, rb_max,
+            wide ? wide_order : narrow_order, sub_max, n_sub_max, d_min,
+            vals, idxs);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }

@@ -440,12 +440,13 @@ constexpr int STRIPE_SMEM = u8::PIPE_SMEM + u8::BM * CAND_K_MAX * 8;
 
 }  // namespace pathsim
 
-// Host: the StripeGrid of a two-pass launch over t rows and n columns
-// with stripes of stripe_tiles 128-column tiles (the last may be
-// shorter): ceil(n / 128) * 2 subtiles walked, so every stripe holds at
-// least 128 >= k columns, those past n -inf padding with their own ids.
-// Sets *units to the grid's size.
-static pathsim::StripeGrid pathsim_stripe_grid(int t, int n,
+// Host: the StripeGrid of a two-pass launch over the row_blocks row
+// blocks that order lists (all of a launch's rows, or a slice of them)
+// and n columns, with stripes of stripe_tiles 128-column tiles (the last
+// may be shorter): ceil(n / 128) * 2 subtiles walked, so every stripe
+// holds at least 128 >= k columns, those past n -inf padding with their
+// own ids. Sets *units to the grid's size, row_blocks * n_stripes.
+static pathsim::StripeGrid pathsim_stripe_grid(int row_blocks, int n,
                                                int stripe_tiles,
                                                const int* rb_max,
                                                const int* order,
@@ -455,8 +456,7 @@ static pathsim::StripeGrid pathsim_stripe_grid(int t, int n,
     const int per_tile = 128 / pathsim::u8::BN;
     const int n_ct = (n + 127) / 128;
     const int n_stripes = (n_ct + stripe_tiles - 1) / stripe_tiles;
-    *units = (long long)((t + pathsim::u8::BM - 1) / pathsim::u8::BM) *
-             n_stripes;
+    *units = (long long)row_blocks * n_stripes;
     return pathsim::StripeGrid{stripe_tiles * per_tile, n_stripes,
                                n_ct * per_tile,
                                (n + pathsim::u8::BN - 1) / pathsim::u8::BN,

@@ -110,8 +110,9 @@ extern "C" int pathsim_topk_rect(const void* row_planes, int n_row_planes,
                               col_stride, u8::BN);
     if (rc != 0) return rc;
     long long units;
-    const StripeGrid g = pathsim_stripe_grid(t, n, stripe_tiles, rb_max,
-                                             order, sub_max, d_min, &units);
+    const StripeGrid g =
+        pathsim_stripe_grid((t + u8::BM - 1) / u8::BM, n, stripe_tiles,
+                            rb_max, order, sub_max, d_min, &units);
     const auto kernel = wide ? topk_rect_kernel<true> : topk_rect_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STRIPE_SMEM);

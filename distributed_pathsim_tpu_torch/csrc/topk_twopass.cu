@@ -29,7 +29,10 @@
 // division-free test, one warp vote) while the other warpgroup's product
 // and the TMA loads run. A row's list (k <= 16 slots) lives in shared
 // memory for the whole stripe and is written to the candidate buffer
-// once. Row blocks with the most limbs launch first. The stripe width is
+// once. Row blocks with the most limbs launch first. Each row block takes
+// its own instance: the few whose row sums leave M unbounded below 2^31
+// (the Zipf head) the one with the f64 fold, on a side stream beside the
+// launch of the rest, which runs two blocks an SM. The stripe width is
 // the wrapper's (cuda_kernels.TWOPASS_STRIPE_TILES): a row's list
 // restarts per stripe, and the first subtile of each stripe is scored
 // in full while the list fills, so wide stripes cost less selection;
@@ -51,9 +54,9 @@
 
 namespace pathsim {
 
-// WIDE: the instance with the f64 fold, for a factor whose row sums do
-// not bound every M below 2^31 (u8_tile.cuh); it takes the registers of
-// one block an SM, the common instance leaves room for two.
+// WIDE: the instance with the f64 fold, for the row blocks whose row sums
+// do not bound every M of theirs below 2^31 (u8_tile.cuh); it takes the
+// registers of one block an SM, the common instance leaves room for two.
 template <bool WIDE>
 __global__ void __launch_bounds__(u8::THREADS, WIDE ? 1 : 2)
 topk_twopass_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -68,25 +71,30 @@ topk_twopass_kernel(const __grid_constant__ CUtensorMap map_a,
 
 }  // namespace pathsim
 
-// Launch on `stream`; returns 0, a CUDA error, or a tensor-map error
+// Launch the wide row blocks on `wide_stream`, then the narrow ones on
+// `stream` (the caller forks and joins the two streams, or passes the
+// same one twice); returns 0, a CUDA error, or a tensor-map error
 // (u8_tile.cuh). The caller guarantees n >= 1, 1 <= k <= 16,
 // stripe_tiles >= 1, limb planes [n_planes, n, v_pad] u8 (v_pad a
 // multiple of 32; rows v_pad bytes apart, planes plane_stride apart),
-// rb_max (each block's largest entry) and order over the ceil(n / 128)
-// row blocks, sub_max (each subtile's largest entry) over the
-// ceil(n / 64) subtiles, d_min over the ceil(n / 128) * 2 subtiles the
-// kernel walks (each one's least denominator, 0 past n), wide (0 only
-// when every M of the factor is known below 2^31: cuda_kernels' largest
-// row sum times largest entry), and buffers of n * n_stripes * k
-// elements for vals and cols, n_stripes = ceil(ceil(n / 128) /
-// stripe_tiles).
+// rb_max (each block's largest entry) over the ceil(n / 128) row blocks,
+// which wide_order (n_wide of them) and narrow_order (n_narrow) split
+// between them, each in launch order: a block is narrow only when every M
+// of its rows is known below 2^31 (cuda_kernels: the block's largest row
+// sum times the factor's largest entry, or the other way round), sub_max
+// (each subtile's largest entry) over the ceil(n / 64) subtiles, d_min
+// over the ceil(n / 128) * 2 subtiles the kernel walks (each one's least
+// denominator, 0 past n), and buffers of n * n_stripes * k elements for
+// vals and cols, n_stripes = ceil(ceil(n / 128) / stripe_tiles).
 extern "C" int pathsim_topk_twopass(const void* planes, int n_planes,
                                     long long plane_stride, int v_pad,
                                     const float* d, int n, int k,
                                     int mask_self, int stripe_tiles,
-                                    const int* rb_max, const int* order,
-                                    const int* sub_max, const float* d_min,
-                                    int wide, float* vals, int* cols,
+                                    const int* rb_max, const int* wide_order,
+                                    int n_wide, const int* narrow_order,
+                                    int n_narrow, const int* sub_max,
+                                    const float* d_min, float* vals,
+                                    int* cols, void* wide_stream,
                                     void* stream) {
     using namespace pathsim;
     CUtensorMap map_a, map_b;
@@ -96,16 +104,23 @@ extern "C" int pathsim_topk_twopass(const void* planes, int n_planes,
         rc = pathsim_limb_map(&map_b, planes, n_planes, n, v_pad,
                               plane_stride, u8::BN);
     if (rc != 0) return rc;
-    long long units;
-    const StripeGrid g = pathsim_stripe_grid(n, n, stripe_tiles, rb_max,
-                                             order, sub_max, d_min, &units);
-    const auto kernel =
-        wide ? topk_twopass_kernel<true> : topk_twopass_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STRIPE_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)units, u8::THREADS, STRIPE_SMEM,
-             (cudaStream_t)stream>>>(map_a, map_b, d, n, v_pad, k,
-                                     mask_self, g, vals, cols);
-    return (int)cudaGetLastError();
+    for (int wide = 1; wide >= 0; --wide) {
+        const int blocks = wide ? n_wide : n_narrow;
+        if (blocks == 0) continue;
+        long long units;
+        const StripeGrid g = pathsim_stripe_grid(
+            blocks, n, stripe_tiles, rb_max, wide ? wide_order : narrow_order,
+            sub_max, d_min, &units);
+        const auto kernel =
+            wide ? topk_twopass_kernel<true> : topk_twopass_kernel<false>;
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STRIPE_SMEM);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)units, u8::THREADS, STRIPE_SMEM,
+                 (cudaStream_t)(wide ? wide_stream : stream)>>>(
+            map_a, map_b, d, n, v_pad, k, mask_self, g, vals, cols);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }

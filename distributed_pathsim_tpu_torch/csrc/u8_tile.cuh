@@ -15,11 +15,13 @@
 //    Each u8 x u8 product and each s32 sum of the tensor cores is integer
 //    arithmetic, exact while it stays below 2^31.
 // 3. A "narrow" tile pair has every M below 2^31, so every partial sum on
-//    the way to it too (all terms are nonnegative): a pair in a launch
-//    the wrapper has cleared (M_ij <= (row sum of row i) * (largest entry
-//    of row j), and the other way round; cuda_kernels checks the largest
-//    of these on the host, once a launch), or one with v_pad * (largest
-//    row entry) * (largest column entry) < 2^31. Its limb products go
+//    the way to it too (all terms are nonnegative): a pair whose rows the
+//    wrapper has cleared (M_ij <= (row sum of row i) * (largest entry of
+//    row j), and the other way round; cuda_kernels checks the largest of
+//    these on the host: for each 128-row block against every column in
+//    K1 and K4, which launch the cleared blocks on the instance without
+//    the f64 fold, once a launch in K2 and K3), or one with v_pad *
+//    (largest row entry) * (largest column entry) < 2^31. Its limb products go
 //    into one s32 accumulator, Horner fashion: for the shift s = p + q
 //    from the highest down, acc = 256 acc + (the products of shift s).
 //    With one limb each that is the plain product.
@@ -212,10 +214,10 @@ __device__ __forceinline__ int sub_max_at(const int* __restrict__ sub_max,
 }
 
 // A tile pair is "narrow" when every M of it is known to stay below 2^31:
-// in a launch the wrapper has cleared (Unit::wide false: the row sums
-// bound every M of the launch, see the top of this file), or when v_pad
-// * (largest row entry) * (largest column entry) < 2^31. Then every
-// partial sum on the way to M is below 2^31 too, and one s32
+// in a row block the wrapper has cleared (Unit::wide false: the row
+// sums bound every M of the block's rows, see the top of this file), or
+// when v_pad * (largest row entry) * (largest column entry) < 2^31. Then
+// every partial sum on the way to M is below 2^31 too, and one s32
 // accumulator takes all the limb products, Horner fashion: for s from
 // the highest shift down, acc = 256 acc + (the products of shift s). The
 // few other pairs fold each shift's s32 sums into f64 (see the top of
@@ -245,7 +247,7 @@ struct Feed {
 struct Unit {
     const int* sub_max;
     int n_sub_max, amax, sub0, sub1, v_pad;
-    bool wide;  // some pair of the launch may pass the s32 bound
+    bool wide;  // some pair of the row block may pass the s32 bound
 
     __device__ bool narrow(int bmax) const {
         return !wide || narrow_pair(amax, bmax, v_pad);
@@ -482,7 +484,7 @@ __device__ __forceinline__ bool product_subtile(const Unit& u, Pipe& pipe,
         }
         return false;
     }
-    if (!WIDE) return false;  // not reached: the wrapper cleared the launch
+    if (!WIDE) return false;  // not reached: the wrapper cleared the block
 #pragma unroll
     for (int part = 0; part < QUARTERS; ++part) {
         constexpr int N = ACC / QUARTERS;

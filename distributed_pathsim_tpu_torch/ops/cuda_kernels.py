@@ -131,7 +131,8 @@ _L = ctypes.c_longlong
 KERNELS = {
     "topk_twopass_candidates": (
         "topk_twopass.cu", "pathsim_topk_twopass",
-        [_P, _I, _L, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        [_P, _I, _L, _I, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+         _P, _P, _P, _P],
     ),
     "fused_scores": (
         "fused_scores.cu", "pathsim_fused_scores",
@@ -144,7 +145,8 @@ KERNELS = {
     ),
     "topk_fold": (
         "topk_fold.cu", "pathsim_topk_fold",
-        [_P, _I, _L, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        [_P, _I, _L, _I, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+         _P, _P, _P],
     ),
 }
 
@@ -152,14 +154,22 @@ KERNELS = {
 # and nowhere else, so a run can show that its main path went through
 # the kernels. Read and reset by the caller.
 LAUNCHES = {name: 0 for name in KERNELS}
+# Row blocks each wrapper launched on its kernel's instance with the f64
+# fold (csrc/u8_tile.cuh), summed over launches: how often the slow
+# instance still engages. Reset with LAUNCHES.
+WIDE_ROW_BLOCKS = {name: 0 for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
+# Per card: the stream K1 and K4 run their wide row blocks on beside the
+# narrow launch (_launch_square).
+_SIDE_STREAMS: dict[int, torch.cuda.Stream] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        WIDE_ROW_BLOCKS[name] = 0
 
 
 def true_f32() -> None:
@@ -274,6 +284,45 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The card's stream for a square kernel's wide row blocks, made once.
+    Its priority is above the default, so the card starts the wide
+    blocks' units ahead of the narrow launch's pending ones."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _LIBS_LOCK:
+        side = _SIDE_STREAMS.get(index)
+        if side is None:
+            side = _SIDE_STREAMS[index] = torch.cuda.Stream(index, priority=-1)
+    return side
+
+
+def _launch_square(name: str, device: torch.device, lim: "Limbs", head,
+                   tail) -> None:
+    """One launch of a square kernel (K1, K4) whose C entry takes ``head``,
+    then the factor's wide and narrow row blocks (:class:`Limbs`), then
+    ``tail``: the instance with the f64 fold over the wide blocks, the
+    other over the rest. With both kinds present, the wide blocks run on
+    :func:`_side_stream`, forked from the current stream and joined back
+    to it, beside the narrow launch and not after it: every buffer
+    either touches is ordered before the current stream goes on."""
+    n_wide, n_narrow = lim.wide_order.shape[0], lim.narrow_order.shape[0]
+    both = bool(n_wide and n_narrow)
+    cur = torch.cuda.current_stream(device)
+    side = _side_stream(device) if both else cur
+    if both:
+        side.wait_stream(cur)
+    try:
+        _launch(name, device, *head, lim.wide_order.data_ptr(), n_wide,
+                lim.narrow_order.data_ptr(), n_narrow, *tail,
+                side.cuda_stream)
+    finally:
+        if both:
+            cur.wait_stream(side)
+    WIDE_ROW_BLOCKS[name] += n_wide
+
+
 # -- input checks ----------------------------------------------------------
 
 
@@ -351,8 +400,13 @@ class Limbs(NamedTuple):
     limbs first: :func:`_row_blocks`), and on the host ``host_rsum`` /
     ``host_rmax`` (each row's sum and largest entry, int64 numpy) to pick
     a launch's kernel instance without waiting for the card
-    (:func:`_needs_wide`). Everything a launch reads besides the planes
-    is made here, once, so a call on a split factor launches at once."""
+    (:func:`_needs_wide`). For the square kernels (K1, K4), which pick it
+    per row block: ``host_wide`` (bool numpy [ceil(n / TILE)], each
+    block's rows against the whole factor's columns, the test K3 makes
+    per tile), and ``order`` split into ``wide_order`` and
+    ``narrow_order`` (int32, each in launch order). Everything a launch
+    reads besides the planes is made here, once, so a call on a split
+    factor launches at once."""
 
     planes: torch.Tensor
     counts: torch.Tensor
@@ -360,13 +414,19 @@ class Limbs(NamedTuple):
     sub: torch.Tensor
     blocks: torch.Tensor
     order: torch.Tensor
+    wide_order: torch.Tensor
+    narrow_order: torch.Tensor
+    host_wide: np.ndarray
     host_rsum: np.ndarray
     host_rmax: np.ndarray
 
     @classmethod
     def of(cls, planes, counts, rmax, host_rsum, host_rmax) -> "Limbs":
-        return cls(planes, counts, rmax, _tile_max(rmax, SUBTILE),
-                   *_row_blocks(rmax), host_rsum, host_rmax)
+        blocks, order, wide_order, narrow_order, host_wide = _row_blocks(
+            host_rsum, host_rmax, rmax.device)
+        return cls(planes, counts, rmax, _tile_max(rmax, SUBTILE), blocks,
+                   order, wide_order, narrow_order, host_wide, host_rsum,
+                   host_rmax)
 
     def rows(self, r0: int, r1: int) -> "Limbs":
         """The limbs of rows r0 .. r1-1, sharing the planes' memory."""
@@ -448,14 +508,35 @@ def _needs_wide(rows: Limbs, cols: Limbs) -> bool:
     return min(a, b) >= 2**31
 
 
-def _row_blocks(rmax: torch.Tensor):
-    """Per TILE-row block of rows whose largest entries are ``rmax``: its
-    largest entry (int32), and the launch order of the blocks, those with
-    the most limbs first (stable)."""
-    rb = _tile_max(rmax, TILE)
-    n_limbs = 1 + (rb >= 256).int() + (rb >= 65536).int()
-    order = torch.sort(-n_limbs, stable=True).indices.to(torch.int32)
-    return rb, order.contiguous()
+def _row_blocks(host_rsum: np.ndarray, host_rmax: np.ndarray, device):
+    """Per TILE-row block of a factor whose rows' sums and largest entries
+    are ``host_rsum`` / ``host_rmax``: its largest entry, the blocks'
+    launch order (those with the most limbs first, stable), that order
+    split into the wide blocks and the rest, each in launch order, and
+    each block's wide flag (host bool). A block is wide when
+    :func:`_needs_wide` holds for its rows against every row of the
+    factor. Host arithmetic, then one upload to ``device`` that does not
+    wait for the card."""
+    n = len(host_rmax)
+    nb = -(-n // TILE)
+    pad = (0, nb * TILE - n)
+    bmax = np.pad(host_rmax, pad).reshape(nb, TILE).max(1, initial=0)
+    bsum = np.pad(host_rsum, pad).reshape(nb, TILE).max(1, initial=0)
+    order = np.argsort(-((bmax >= 256).astype(np.int64) + (bmax >= 65536)),
+                       kind="stable")
+    # _needs_wide's two bounds in f64: a product below 2^53 is exact, and
+    # one past it lies far past 2^31, so the test is exact
+    host_wide = np.minimum(bsum * float(bmax.max(initial=0)),
+                           float(bsum.max(initial=0)) * bmax) >= 2.0**31
+    n_wide = int(host_wide.sum())
+    buf = torch.from_numpy(np.concatenate(
+        [bmax, order, order[host_wide[order]], order[~host_wide[order]]]
+    ).astype(np.int32))
+    if torch.device(device).type == "cuda":
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    blocks, order, wide_order, narrow_order = buf.split(
+        [nb, nb, n_wide, nb - n_wide])
+    return blocks, order, wide_order, narrow_order, host_wide
 
 
 def _subtile_min(d: torch.Tensor, n_sub: int) -> torch.Tensor:
@@ -478,7 +559,10 @@ def _check_limbs(limbs: Limbs, n: int, v: int, device) -> None:
             or limbs.sub.shape != (-(-n // SUBTILE),)
             or limbs.sub.dtype != torch.int32
             or limbs.blocks.shape != (-(-n // TILE),)
-            or limbs.order.shape != (-(-n // TILE),)):
+            or limbs.order.shape != (-(-n // TILE),)
+            or limbs.host_wide.shape != (-(-n // TILE),)
+            or limbs.wide_order.shape != (int(limbs.host_wide.sum()),)
+            or limbs.narrow_order.shape != (int((~limbs.host_wide).sum()),)):
         raise ValueError(
             f"limbs {tuple(planes.shape)} do not match a {n}x{v} factor"
         )
@@ -649,14 +733,15 @@ def fused_topk_twopass_rect_plain(c_rows, c_cols, d_rows, d_cols, row_ids,
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _square_limbs(c: torch.Tensor, limbs: Limbs | None):
+def _square_limbs(c: torch.Tensor, limbs: Limbs | None) -> Limbs:
     """What a square kernel (K1, K2, K4) launches with: the factor's limbs
     (``limbs``, else split here, raising ValueError for entries that are
-    not integers in [0, 2²⁴)), and whether the launch takes the instance
-    with the f64 fold (:func:`_needs_wide`)."""
+    not integers in [0, 2²⁴)). K1 and K4 pick the instance with the f64
+    fold per row block (``Limbs.wide_order``, :func:`_launch_square`), K2
+    for the whole factor (:func:`_needs_wide`)."""
     lim = split_limbs(c) if limbs is None else limbs
     _check_limbs(lim, c.shape[0], c.shape[1], c.device)
-    return lim, int(_needs_wide(lim, lim))
+    return lim
 
 
 def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
@@ -681,14 +766,15 @@ def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
     vals = torch.empty((n, n_st, k), dtype=torch.float32, device=c.device)
     cols = torch.empty((n, n_st, k), dtype=torch.int32, device=c.device)
     if n:
-        lim, wide = _square_limbs(c, limbs)
+        lim = _square_limbs(c, limbs)
         d_min = _subtile_min(d, 2 * -(-n // TILE))
-        _launch("topk_twopass_candidates", c.device, lim.planes.data_ptr(),
-                lim.planes.shape[0], lim.planes.stride(0),
-                lim.planes.shape[2], d.data_ptr(), n, k, int(mask_self),
-                stripe_tiles, lim.blocks.data_ptr(), lim.order.data_ptr(),
-                lim.sub.data_ptr(), d_min.data_ptr(), wide,
-                vals.data_ptr(), cols.data_ptr())
+        _launch_square(
+            "topk_twopass_candidates", c.device, lim,
+            (lim.planes.data_ptr(), lim.planes.shape[0],
+             lim.planes.stride(0), lim.planes.shape[2], d.data_ptr(), n, k,
+             int(mask_self), stripe_tiles, lim.blocks.data_ptr()),
+            (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
+             cols.data_ptr()))
     return vals, cols
 
 
@@ -728,14 +814,16 @@ def fused_scores(c: torch.Tensor, d: torch.Tensor,
     n = c.shape[0]
     out = torch.empty((n, n), dtype=torch.float32, device=c.device)
     if n:
-        lim, wide = _square_limbs(c, limbs)
+        lim = _square_limbs(c, limbs)
+        wide = _needs_wide(lim, lim)
         _launch("fused_scores", c.device, lim.planes.data_ptr(),
                 lim.planes.shape[0], lim.planes.stride(0),
                 lim.planes.shape[2], d.data_ptr(), n,
                 _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS),
                 lim.blocks.data_ptr(),
                 lim.order.data_ptr(),
-                lim.sub.data_ptr(), wide, out.data_ptr())
+                lim.sub.data_ptr(), int(wide), out.data_ptr())
+        WIDE_ROW_BLOCKS["fused_scores"] += wide * lim.order.shape[0]
     return out
 
 
@@ -779,6 +867,7 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
         if lr.planes.shape[2] != lc.planes.shape[2]:
             raise ValueError("row and column limbs differ in width")
         d_min = _subtile_min(d_cols, 2 * -(-n // TILE))
+        wide = _needs_wide(lr, lc)
         _launch(
             "topk_rect_candidates", c_rows.device,
             lr.planes.data_ptr(), lr.planes.shape[0], lr.planes.stride(0),
@@ -786,9 +875,10 @@ def topk_rect_candidates(c_rows, c_cols, d_rows, d_cols, row_ids, k: int,
             lc.planes.data_ptr(), lc.planes.shape[0], lc.planes.stride(0),
             d_cols.data_ptr(), n, n_true, lr.planes.shape[2], k,
             stripe_tiles, lr.blocks.data_ptr(), lr.order.data_ptr(),
-            lc.sub.data_ptr(), d_min.data_ptr(), int(_needs_wide(lr, lc)),
+            lc.sub.data_ptr(), d_min.data_ptr(), int(wide),
             vals.data_ptr(), cols.data_ptr(),
         )
+        WIDE_ROW_BLOCKS["topk_rect_candidates"] += wide * lr.order.shape[0]
     return vals, cols
 
 
@@ -845,14 +935,15 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
     vals = buf[:n * k].view(torch.float32).view(n, k)
     idxs = buf[n * k:].view(n, k)
     if n:
-        lim, wide = _square_limbs(c, limbs)
+        lim = _square_limbs(c, limbs)
         d_min = _subtile_min(d, 2 * -(-max(n, k) // TILE))
-        _launch("topk_fold", c.device, lim.planes.data_ptr(),
-                lim.planes.shape[0], lim.planes.stride(0),
-                lim.planes.shape[2], d.data_ptr(), n, k, int(mask_self),
-                lim.blocks.data_ptr(), lim.order.data_ptr(),
-                lim.sub.data_ptr(), d_min.data_ptr(), wide, vals.data_ptr(),
-                idxs.data_ptr())
+        _launch_square(
+            "topk_fold", c.device, lim,
+            (lim.planes.data_ptr(), lim.planes.shape[0],
+             lim.planes.stride(0), lim.planes.shape[2], d.data_ptr(), n, k,
+             int(mask_self), lim.blocks.data_ptr()),
+            (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
+             idxs.data_ptr()))
     return vals, idxs.long()
 
 

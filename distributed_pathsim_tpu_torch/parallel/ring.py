@@ -67,7 +67,8 @@ def _limbs_to(limbs, device):
         return None
     return limbs._replace(**{
         f: getattr(limbs, f).to(device, non_blocking=True)
-        for f in ("planes", "counts", "rmax", "sub", "blocks", "order")
+        for f in ("planes", "counts", "rmax", "sub", "blocks", "order",
+                  "wide_order", "narrow_order")
     })
 
 

@@ -1,7 +1,8 @@
 """The kernels on the int8 tensor cores, on the card, against their plain
 versions with zero tolerance: factors with 1-, 2- and 3-limb rows
 (narrow tile pairs summed in one s32 accumulator, and pairs folded
-through f64 in each kernel's wide instance) for all four kernels, K4
+through f64 in each kernel's wide instance) for all four kernels, K1
+and K4 on a factor whose one wide row block sits among narrow ones, K4
 past the k its lists keep in shared memory, limbs split on the card
 once and handed over, and a CUDA factor that is not integer path counts
 raising.
@@ -101,6 +102,46 @@ def test_twopass_and_scores_multilimb_equal_plain(card, instance):
     assert torch.equal(got, torch.where(den > 0, (2.0 * m.float()) / den, 0.0))
     exact = m < 2**24
     assert torch.equal(got[exact], ck.fused_scores_plain(c, d)[exact])
+
+
+def _one_wide_block(device):
+    """``_multilimb``'s 1000 rows reordered so that its three 3-limb rows
+    are rows 300-302: row block 2 of 8 is the one whose row sums leave M
+    unbounded below 2^31, as the Zipf head's block is in a rank-all."""
+    c, d = _multilimb("cpu", n=1000)
+    three = c.amax(1) >= 65536
+    rest = (~three).nonzero().flatten()
+    perm = torch.cat([rest[:300], three.nonzero().flatten(), rest[300:]])
+    return c[perm].to(device), d[perm].to(device)
+
+
+def test_one_wide_row_block_among_narrow_equals_plain(card):
+    """K1 and K4 launch the wide block on the instance with the f64 fold
+    beside the narrow launch of the other seven: values and columns equal
+    the plain versions bit for bit (ties included), WIDE_ROW_BLOCKS
+    counts the one wide block a call and LAUNCHES one launch a call."""
+    c, d = _one_wide_block(card)
+    lim = ck.split_limbs(c)
+    assert lim.host_wide.tolist() == [b == 2 for b in range(8)]
+    assert ck._needs_wide(lim, lim)  # the whole factor's test: wide
+    ck.reset_launches()
+    for k in (1, 10, 16):
+        fv, fc = ck.fused_topk_twopass(c, d, k=k, limbs=lim)
+        gv, gc = ck.fused_topk_twopass_plain(c, d, k=k)
+        assert torch.equal(fv, gv) and torch.equal(fc, gc)
+    cv, cc = ck.topk_twopass_candidates(c, d, 10, True, limbs=lim,
+                                        stripe_tiles=1)
+    pv, pc = ck.topk_twopass_candidates_plain(c, d, 10, True, stripe_tiles=1)
+    assert torch.equal(cv, pv) and torch.equal(cc, pc)
+    for k in (20, ck.FOLD_SMEM_K_MAX + 1):
+        fv, fc = ck.fused_topk(c, d, k=k, limbs=lim)
+        gv, gc = ck.fused_topk_plain(c, d, k=k)
+        assert torch.equal(fv, gv) and torch.equal(fc, gc)
+    assert ck.LAUNCHES == {"topk_twopass_candidates": 4, "fused_scores": 0,
+                           "topk_rect_candidates": 0, "topk_fold": 2}
+    assert ck.WIDE_ROW_BLOCKS == {"topk_twopass_candidates": 4,
+                                  "fused_scores": 0,
+                                  "topk_rect_candidates": 0, "topk_fold": 2}
 
 
 @pytest.mark.parametrize("k", [20, ck.FOLD_SMEM_K_MAX + 1])

@@ -110,3 +110,53 @@ def test_emulated_selection_matches_pallas():
         interpret=True)
     np.testing.assert_array_equal(np.asarray(jv), rv.numpy())
     np.testing.assert_array_equal(np.asarray(ji), ri.numpy())
+
+
+def _zipf_like(case):
+    """A factor of 805 rows (seven 128-row blocks, the last ragged) of
+    small counts, with big rows placed per ``case``: a head row in block
+    0 or a middle row in block 3 (entries 2^23: their blocks' M may pass
+    2^31), one in every block, or none of those but a row of large sum
+    and one of large entry in different blocks (the whole factor's bound
+    passes 2^31, no block's does)."""
+    rng = np.random.default_rng(5)
+    c = rng.integers(0, 4, (805, 64)).astype(np.float64)
+    big = {"head": [0], "middle": [3 * 128 + 5],
+           "every": [b * 128 + 7 for b in range(7)], "none": []}[case]
+    c[big, :8] = 2**23
+    if case == "none":
+        c[130] = 1000  # row sum 64000, largest entry 1000
+        c[600, 9] = 40000  # row sum and largest entry about 40000
+    return c, sorted({r // ck.TILE for r in big})
+
+
+@pytest.mark.parametrize("case", ["head", "middle", "none", "every"])
+def test_row_block_wide_flags_and_launch_lists(case):
+    """K1's and K4's instance per 128-row block: each block's flag is
+    _needs_wide of its rows against the whole factor, and the wide and
+    narrow launch lists split the launch order (most limbs first) in two,
+    each keeping that order."""
+    c, want_wide = _zipf_like(case)
+    lim = ck.split_limbs(torch.tensor(c, dtype=torch.float32))
+    n, nb = c.shape[0], -(-c.shape[0] // ck.TILE)
+    flags = [ck._needs_wide(lim.rows(b * ck.TILE, min(n, (b + 1) * ck.TILE)),
+                            lim) for b in range(nb)]
+    assert lim.host_wide.tolist() == flags
+    assert np.flatnonzero(lim.host_wide).tolist() == want_wide
+    if case == "none":
+        assert ck._needs_wide(lim, lim)  # cleared per block, not as a whole
+    block_max = [int(c[b * ck.TILE:(b + 1) * ck.TILE].max())
+                 for b in range(nb)]
+    assert lim.blocks.tolist() == block_max
+    n_limbs = torch.tensor([1 + (m >= 256) + (m >= 65536) for m in block_max])
+    order = lim.order.tolist()
+    assert order == torch.sort(-n_limbs, stable=True).indices.tolist()
+    wide, narrow = lim.wide_order.tolist(), lim.narrow_order.tolist()
+    assert sorted(wide + narrow) == list(range(nb))
+    assert wide == [b for b in order if flags[b]]
+    assert narrow == [b for b in order if not flags[b]]
+    for part in (wide, narrow):
+        assert n_limbs[part].tolist() == sorted(n_limbs[part].tolist(),
+                                                reverse=True)
+    if not want_wide:
+        assert wide == []
