@@ -37,12 +37,18 @@ nonzero and no result line is printed):
    (K3) byte-identical to the ``torch`` one, single source with its log's
    line count, all-pairs at 8192 authors; then the dense backend's rect
    arm (K3) at the smallest author count past K1's candidate budget;
+   then rank-all past 2^24 through ``create_backend`` and
+   ``PathSimDriver.rank_all`` (32768 authors x 163840 papers x 64
+   venues, seed 42, exact counts): k = 10 on the exact instance of K1 +
+   pass 2 and k = 20 on K4's, each launched once with the counters
+   zeroed before it (``topk_twopass_exact``, ``topk_fold_exact``) and bit
+   for bit the plain versions in float64 on the same factor;
 3b. the rest of the batch CLI on the bench graph: ``--loader native``
    timed against ``python`` (identical encoded graphs) and the native
    fold against the numpy join (identical COO); ``--dtype float64``
    single source and rank-all byte-identical to the f32 runs (K1 on the
-   cast factor), and past 2^24 rank-all raising OverflowError on the
-   card while rows stay exact f64; the ensemble ``--metapath APVPA,APA
+   cast factor), and past 2^24 all-pairs raising OverflowError on the
+   card while rank-all (the exact instances) and rows stay exact f64; the ensemble ``--metapath APVPA,APA
    --weights 0.7,0.3 --top-k 10 --all-pairs`` at full width, spot rows
    of the combined scores equal to a host oracle; ``--metrics``,
    ``--trace-out``, ``--metrics-file`` and ``--profile-dir`` (the
@@ -342,6 +348,10 @@ N_AUTHORS, N_PAPERS, N_VENUES, TOP_K, SEED = 32768, 45_000, 384, 10, 42
 N_AUTHORS_ALL_PAIRS = 8192
 # k of the CLI run that takes the single-pass kernel K4 (k > 16).
 TOP_K_FOLD = 20
+# The exact main path: the bench's authors over five papers an author
+# and 64 venues (config 5's ratios), whose Zipf head passes 2^24 (17 row
+# sums at seed 42), so rank-all takes the exact instances of K1 and K4.
+N_PAPERS_EXACT, N_VENUES_EXACT = 163_840, 64
 # BASELINE.json config 5 (scripts/scale_config5.py's defaults): APVPA,
 # top-10, approx (its counts pass 2^24 by construction), 8192-row tiles.
 C5_AUTHORS, C5_PAPERS, C5_VENUES, C5_TILE_ROWS = 1_048_576, 5_242_880, 64, 8192
@@ -657,7 +667,10 @@ def device_and_build(torch, ck):
     print(f"native host libraries (g++, beside nvcc): "
           f"{native.pop('seconds'):.1f} s "
           f"({', '.join(p.name for p in native.values())})")
-    instances = {kname: kernel_instances(text)
+    # kernels of one library share its report: each keeps its own
+    # instances (the exact ones name themselves so)
+    instances = {kname: {inst: v for inst, v in kernel_instances(text).items()
+                         if ("exact" in inst) == kname.endswith("_exact")}
                  for kname, text in reports.items()}
     for kname, insts in instances.items():
         for inst, (regs, spill) in insts.items():
@@ -1082,6 +1095,54 @@ def main_path(torch, ck, np, workdir):
 # -- batch CLI, the rest ------------------------------------------------------
 
 
+def exact_main_path(torch, ck, np, launches):
+    """Rank-all past 2^24 through the main path's entry points
+    (``create_backend`` → ``PathSimDriver.rank_all``): the exact
+    instances of K1 + pass 2 (k = TOP_K) and K4 (k = TOP_K_FOLD), each
+    launched once with the counters zeroed before it (added to
+    ``launches``) and bit for bit the plain versions in float64 on the
+    backend's factor and exact row sums. Returns the backend and each
+    kernel's largest |difference| (0.0)."""
+    from distributed_pathsim_tpu_torch.backends.base import create_backend
+    from distributed_pathsim_tpu_torch.data.synthetic import synthetic_hin
+    from distributed_pathsim_tpu_torch.driver import PathSimDriver
+    from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
+
+    phase("main path past 2^24: the exact instances of K1 and K4")
+    hin = synthetic_hin(N_AUTHORS, N_PAPERS_EXACT, N_VENUES_EXACT, seed=SEED)
+    backend = create_backend("torch", hin,
+                             compile_metapath("APVPA", hin.schema),
+                             device="cuda")
+    driver = PathSimDriver(backend)
+    c, d = backend._half()[0], backend._rowsums_exact()
+    n = backend.n_sources
+    past = int((d >= 2**24).sum())
+    if not past:
+        raise AssertionError("the exact main path's graph stays below 2^24")
+    errs = {}
+    for k, kernel, plain in (
+            (TOP_K, "topk_twopass_exact", ck.fused_topk_twopass_plain),
+            (TOP_K_FOLD, "topk_fold_exact", ck.fused_topk_plain)):
+        (vals, idxs), counts, _ = counted(
+            torch, ck, launches, lambda: driver.rank_all(k),
+            f"exact rank-all {N_AUTHORS}x{N_PAPERS_EXACT}x{N_VENUES_EXACT} "
+            f"k={k}")
+        if counts != {name: int(name == kernel) for name in counts}:
+            raise AssertionError(f"exact rank-all k={k} launched {counts}, "
+                                 f"not one {kernel}")
+        gv, gi = (t[:n].cpu() for t in plain(c.double(), d, k=k))
+        if not (vals.dtype == np.float64 and np.array_equal(vals, gv.numpy())
+                and np.array_equal(idxs, gi.numpy())):
+            raise AssertionError(f"exact rank-all k={k} differs from the "
+                                 "plain version in float64")
+        errs[kernel] = max_abs_err(torch, torch.from_numpy(vals), gv)
+    print(f"exact rank-all ({past} row sums past 2^24, largest "
+          f"{float(d.max()):.4g}; C up to {float(c.max()):.0f}): K1 + pass 2 "
+          f"at k={TOP_K} and K4 at k={TOP_K_FOLD} on their exact instances, "
+          "equal to the plain versions in float64")
+    return backend, errs
+
+
 def _same_hin(a, b) -> bool:
     """Two encoded graphs with the same index spaces and COO blocks."""
     if list(a.indices) != list(b.indices) or list(a.blocks) != list(b.blocks):
@@ -1265,15 +1326,14 @@ def batch_cli_rest(torch, ck, np, workdir, card, hin):
         bmp = compile_metapath("APVPA", big.schema)
         b64 = create_backend("torch", big, bmp, dtype=torch.float64,
                              device="cuda")
-        for fn in (lambda: b64.topk(k=TOP_K), b64.all_pairs_scores):
-            try:
-                fn()
-            except OverflowError as exc:
-                if "--approx" not in str(exc):
-                    raise
-            else:
-                raise AssertionError("float64 rank-all past 2^24 did not "
-                                     "raise OverflowError on the card")
+        try:
+            b64.all_pairs_scores()
+        except OverflowError as exc:
+            if "--approx" not in str(exc):
+                raise
+        else:
+            raise AssertionError("float64 all-pairs past 2^24 did not "
+                                 "raise OverflowError on the card")
         c = planner.fold_half(big, bmp).summed()
         c64 = np.zeros(c.shape)
         np.add.at(c64, (c.rows, c.cols), c.weights)
@@ -1281,10 +1341,23 @@ def batch_cli_rest(torch, ck, np, workdir, card, hin):
         if not (np.array_equal(b64.global_walks(), d64)
                 and np.array_equal(b64.pairwise_row(11), c64 @ c64[11])):
             raise AssertionError("float64 rows past 2^24 are not exact")
+        # rank-all past 2^24: the exact instances, the f64 oracle's
+        # values and (-score, column) order bit for bit
+        m64 = c64 @ c64.T
+        den = d64[:, None] + d64[None, :]
+        s64 = np.where(den > 0, 2.0 * m64 / np.where(den > 0, den, 1.0), 0.0)
+        np.fill_diagonal(s64, -np.inf)
+        order = np.lexsort((np.broadcast_to(np.arange(len(d64)), s64.shape),
+                            -s64), axis=-1)[:, :TOP_K]
+        got_v, got_i = b64.topk(k=TOP_K)
+        if not (np.array_equal(got_i, order) and np.array_equal(
+                got_v, np.take_along_axis(s64, order, 1))):
+            raise AssertionError("float64 rank-all past 2^24 differs from "
+                                 "the f64 oracle")
         print(f"float64: log and ranking identical to the f32 run's; past "
-              f"2^24 (max row sum {d64.max():.4g}) rank-all and all-pairs "
-              "raise OverflowError naming --approx, row sums and "
-              "single-source rows exact in f64")
+              f"2^24 (max row sum {d64.max():.4g}) all-pairs raises "
+              "OverflowError naming --approx, rank-all (the exact "
+              "instances), row sums and single-source rows exact in f64")
 
         # -- the multi-metapath ensemble at full width
         specs, weights = ("APVPA", "APA"), (0.7, 0.3)
@@ -5903,8 +5976,10 @@ def tooling_twins(torch, ck, np, card):
     return launches
 
 
-def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
-    """Phase 2 at the main path's shapes + phase 6 (times)."""
+def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances,
+            exact):
+    """Phase 2 at the main path's shapes + phase 6 (times); ``exact``:
+    :func:`exact_main_path`'s backend and differences."""
     from distributed_pathsim_tpu_torch.ops import planner
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 
@@ -6019,6 +6094,53 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
           f"products); plain {k4_plain_ms:.3f} ms; library "
           f"(matmul+normalize+topk) {k4_lib_ms:.3f} ms")
 
+    # the exact instances on the exact main path's factor (past 2^24):
+    # f64 denominators beside their f32 roundings, 12-byte candidates
+    xb, x_err = exact
+    cx, dx = xb._half()[0], xb._rowsums_exact()
+    lx = xb._limbs(cx)
+    nx, vx = cx.shape
+    x1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates_exact(
+        cx, dx, TOP_K, True, limbs=lx))
+    x_stripes = ck.topk_twopass_candidates_exact(
+        cx, dx, TOP_K, True, limbs=lx)[0].shape[1]
+    x1_total_ms = time_ms(torch, lambda: ck.fused_topk_twopass_exact(
+        cx, dx, TOP_K, limbs=lx))
+    x1_plain_ms = time_ms(torch, lambda: ck.fused_topk_twopass_plain(
+        cx.double(), dx, TOP_K), reps=5)
+    x4_ms = time_ms(torch, lambda: ck.fused_topk_exact(
+        cx, dx, TOP_K_FOLD, limbs=lx))
+    x4_plain_ms = time_ms(torch, lambda: ck.fused_topk_plain(
+        cx.double(), dx, TOP_K_FOLD), reps=5)
+
+    def lib_exact(k):
+        c64 = cx.double()
+        m = torch.matmul(c64, c64.T)
+        den = dx[:, None] + dx[None, :]
+        s = torch.where(den > 0, (2.0 * m) / den, 0.0)
+        s.fill_diagonal_(float("-inf"))
+        return torch.topk(s, k, dim=1)
+
+    x1_lib_ms = time_ms(torch, lambda: lib_exact(TOP_K), reps=5)
+    x4_lib_ms = time_ms(torch, lambda: lib_exact(TOP_K_FOLD), reps=5)
+    x1_cand_bytes = 12.0 * nx * x_stripes * TOP_K
+    # beside square_bounds' f32 d: the f64 d the exact instances read
+    (x1_bound, x1_by), (x1_f32, _) = square_bounds(
+        lx, nx, vx, x1_cand_bytes + 8.0 * nx)
+    (x4_bound, x4_by), (x4_f32, _) = square_bounds(
+        lx, nx, vx, 12.0 * nx * TOP_K_FOLD + 8.0 * nx)
+    print(f"K1 exact topk_twopass_exact {nx}x{vx} k={TOP_K} ({x_stripes} "
+          f"stripes): {x1_ms:.3f} ms (int8 tensor-core bound "
+          f"{x1_bound:.3f} ms by {x1_by} with {x1_cand_bytes / 1e6:.1f} MB "
+          f"of f64 candidates); with pass 2 {x1_total_ms:.3f} ms; plain "
+          f"(f64) {x1_plain_ms:.3f} ms; library (f64 "
+          f"matmul+normalize+topk) {x1_lib_ms:.3f} ms; spill bytes "
+          f"{spill.get('topk_twopass_exact')}")
+    print(f"K4 exact topk_fold_exact {nx}x{vx} k={TOP_K_FOLD}: "
+          f"{x4_ms:.3f} ms (int8 tensor-core bound {x4_bound:.3f} ms by "
+          f"{x4_by}); plain (f64) {x4_plain_ms:.3f} ms; library (f64) "
+          f"{x4_lib_ms:.3f} ms; spill bytes {spill.get('topk_fold_exact')}")
+
     # Rank-all end to end on a built backend (bench.py's measurement:
     # backend.topk including the host fetch), plus its layers.
     mp = compile_metapath("APVPA", hin.schema)
@@ -6092,6 +6214,17 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances):
               ["_topk_kernel", "_topk_kernel_kt"],
               k4_ms, k4_plain_ms, k4_bound, k4_by, k4_lib_ms, err_k4,
               k4_f32, k4_bound),
+        # no Pallas twin: the JAX package refuses counts past 2^24
+        {**entry("topk_twopass_exact",
+                 "distributed_pathsim_tpu_torch/csrc/topk_twopass.cu",
+                 None, [], x1_ms, x1_plain_ms, x1_bound, x1_by, x1_lib_ms,
+                 x_err["topk_twopass_exact"], x1_f32, x1_bound),
+         "with_pass2_ms": x1_total_ms, "shape": [nx, vx, TOP_K]},
+        {**entry("topk_fold_exact",
+                 "distributed_pathsim_tpu_torch/csrc/topk_fold.cu",
+                 None, [], x4_ms, x4_plain_ms, x4_bound, x4_by, x4_lib_ms,
+                 x_err["topk_fold_exact"], x4_f32, x4_bound),
+         "shape": [nx, vx, TOP_K_FOLD]},
     ]
 
 
@@ -6121,6 +6254,7 @@ def main() -> int:
         hin, hin_ap, launches, backend = main_path(
             torch, ck, np, pathlib.Path(tmp)
         )
+        exact = exact_main_path(torch, ck, np, launches)
         cli_launches = batch_cli_rest(torch, ck, np, pathlib.Path(tmp), smi,
                                       hin)
         cold_qps = serving(torch, ck, np, launches, pathlib.Path(tmp), smi,
@@ -6145,7 +6279,7 @@ def main() -> int:
         tier_launches = bench_tiers(torch, ck, np, smi)
         tool_launches = tooling_twins(torch, ck, np, smi)
     kernels = timings(torch, ck, hin, hin_ap, launches, backend, smi, k3,
-                      instances)
+                      instances, exact)
     for kern in kernels:  # later phases' own runs, counted apart
         kern["launches_batch_cli"] = cli_launches[kern["name"]]
         kern["launches_serving_rest"] = sr_launches[kern["name"]]

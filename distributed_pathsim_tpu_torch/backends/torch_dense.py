@@ -17,10 +17,19 @@ torch matmul runs in true f32: the backend refuses to start while TF32
 is on (:func:`cuda_kernels.check_true_f32`; the entry points turn it off
 with :func:`cuda_kernels.true_f32`).
 float64 is real float64 for the row sums, single-source rows and
-batched rows, on the host and on the card. Rank-all and all-pairs on the
-card run the f32 kernels: a float64 factor is cast at their entry, behind
-the 2²⁴ guard (:func:`cuda_kernels.kernel_operands`; ``--approx`` waives
-it); on the CPU their plain versions compute in float64.
+batched rows, on the host and on the card. All-pairs on the card runs
+the f32 kernel: a float64 factor is cast at its entry, behind the 2²⁴
+guard (:func:`cuda_kernels.kernel_operands`; ``--approx`` waives it); on
+the CPU its plain version computes in float64.
+
+Exact counts past 2²⁴ (``exact_counts``, the default, on a symmetric
+chain): the row sums are computed in f64 on the device, exact below
+2⁵³, and rank-all ranks by the upstream's score, ``2·M / (d_i + d_j)``
+of the exact counts correctly rounded in f64, ties to the lower column:
+the exact instances of K1 + pass 2 and K4 on the card, their plain
+versions in float64 on the CPU. The guard stays on the paths that carry
+counts in f32 (single-source and batched rows, M, the diagonal,
+all-pairs).
 """
 
 from __future__ import annotations
@@ -139,6 +148,7 @@ class TorchDenseBackend(PathSimBackend):
         self._rowsums = None
         self._half_cache = None
         self._limbs_cache = None
+        self._rowsums64 = None
         # serving streams (card only, made at the first batched issue):
         # the GEMMs of pairwise_rows_device and the host copies of their
         # results, each on its own stream
@@ -161,7 +171,21 @@ class TorchDenseBackend(PathSimBackend):
                     span.args["bytes"] = sum(t.nbytes
                                              for t in self._half_cache)
             self._limbs_cache = None
+            self._rowsums64 = None
         return self._half_cache
+
+    def _rowsums_exact(self) -> torch.Tensor:
+        """The row sums of a symmetric chain exact in f64 on the device
+        (C's integer counts summed in f64: exact below 2⁵³), made once
+        per factor."""
+        if self._rowsums64 is None:
+            c = self._half()[0]
+            with get_tracer().span("backend.factor",
+                                   device=self.device) as span:
+                self._rowsums64 = chain.rowsums_from_half(c.double())
+                if span is not None:
+                    span.args["bytes"] = self._rowsums64.nbytes
+        return self._rowsums64
 
     def _limbs(self, c):
         """C's u8 limbs as the kernels read them (None on the CPU), split
@@ -176,15 +200,41 @@ class TorchDenseBackend(PathSimBackend):
         if self.exact_counts:
             chain.check_exact_counts(rowsums.max(initial=0.0), self.dtype)
 
-    def _fetch_rowsums(self, rowsums: torch.Tensor) -> None:
-        """Host copy of the row sums + the exact-count guard, once per
-        backend (the row sums are as immutable as the graph). The guard
-        runs BEFORE the copy is cached, so a graph past it raises on
-        every call, never only the first."""
-        if self._rowsums is None:
+    def _fetch_rowsums(self, rowsums: torch.Tensor,
+                       guard: bool = True) -> None:
+        """Host copy of the row sums, once per backend (the row sums are
+        as immutable as the graph): ``rowsums``, and under exact counts
+        on a symmetric chain past 2²⁴, where f32 sums round, the exact
+        f64 ones (:meth:`_rowsums_exact`; f32 sums of nonnegative
+        integers reach 2²⁴ exactly when the exact ones do). With
+        ``guard`` (the paths that carry counts in f32) the exact-count
+        guard runs on every call, BEFORE a first copy is cached, so a
+        graph past it raises on every call, never only the first."""
+        host = self._rowsums
+        if host is None:
             host = _host(rowsums)
+            if (self.exact_counts and self._symmetric
+                    and host.max(initial=0.0) >= chain.F32_EXACT_INT_MAX):
+                host = _host(self._rowsums_exact())
+        if guard:
             self._check_exact(host)
-            self._rowsums = host
+        self._rowsums = host
+
+    def _exact_scores(self) -> bool:
+        """Whether rank-all takes the exact instances: exact counts past
+        f32's exact integers (2²⁴) on a symmetric chain. Below 2²⁴ the
+        f32 kernels already count exactly. Raises OverflowError past
+        2⁵², where d_i + d_j would leave f64's exact integers."""
+        if not (self.exact_counts and self._symmetric):
+            return False
+        self._fetch_rowsums(self._half()[1], guard=False)
+        top = float(self._rowsums.max(initial=0.0))
+        if top >= 2.0**52:
+            raise OverflowError(
+                "path counts exceed 2^52: the sums of two row sums would "
+                "leave f64's exact integers; pass --approx "
+                "(exact_counts=False)")
+        return top >= chain.F32_EXACT_INT_MAX
 
     def _compute(self):
         if self._m is None:
@@ -219,12 +269,21 @@ class TorchDenseBackend(PathSimBackend):
         return self._compute()[0][: self.n_sources, : self.n_targets]
 
     def global_walks(self) -> np.ndarray:
-        if self._rowsums is None:
-            if self._symmetric:
-                self._fetch_rowsums(self._half()[1])
-            else:
-                self._fetch_rowsums(planner.rowsums_fold(self._blocks))
+        """The row sums on the host: under exact counts on a symmetric
+        chain exact at any count below 2⁵³ (f64), so unguarded."""
+        if self._symmetric:
+            self._fetch_rowsums(self._half()[1], guard=False)
+        elif self._rowsums is None:
+            self._fetch_rowsums(planner.rowsums_fold(self._blocks))
         return self._rowsums[: self.n_sources]
+
+    def _denominators(self, variant: str) -> np.ndarray:
+        """The denominators of the single-source and serving paths,
+        behind the exact-count guard on every call: their pairwise
+        counts travel in f32."""
+        if self._symmetric:
+            self._fetch_rowsums(self._half()[1])
+        return super()._denominators(variant)
 
     def diagonal(self) -> np.ndarray:
         if not self._symmetric:
@@ -320,6 +379,7 @@ class TorchDenseBackend(PathSimBackend):
         self._m = None
         self._rowsums = None
         self._limbs_cache = None
+        self._rowsums64 = None
 
     # -- on-device scoring ---------------------------------------------------
 
@@ -332,6 +392,15 @@ class TorchDenseBackend(PathSimBackend):
             return rowsums
         if variant == "diagonal":
             return self._diag(c)
+        raise ValueError(f"unknown PathSim variant {variant!r}")
+
+    def _denominator_exact(self, c, variant: str) -> torch.Tensor:
+        """:meth:`_denominator_device` exact in f64 (the exact
+        instances' d)."""
+        if variant == "rowsum":
+            return self._rowsums_exact()
+        if variant == "diagonal":
+            return self._diag(c.double())
         raise ValueError(f"unknown PathSim variant {variant!r}")
 
     def all_pairs_scores(self, variant: str = "rowsum") -> np.ndarray:
@@ -350,17 +419,47 @@ class TorchDenseBackend(PathSimBackend):
 
     def topk(self, k: int = 10, mask_self: bool = True,
              variant: str = "rowsum"):
-        """Per-source top-k (values f32 on the card, the backend's dtype
-        on the CPU; indices int64), ordered
-        (descending score, ascending column), fully on the device. The
-        JAX package's dispatch: K1 + pass 2 while k <= 16 and its
-        candidate buffer fits; past the buffer, with the self mask and
-        f32, row tiles through K3 (:meth:`_topk_rect_stream`); otherwise
-        the single-pass K4. Both score variants ride the same kernels:
-        only the denominator vector differs."""
+        """Per-source top-k (indices int64), ordered (descending score,
+        ascending column), fully on the device. Values: f32 on the card
+        and the backend's dtype on the CPU, the scores of exact counts
+        below 2²⁴ (the JAX package's); under exact counts once the
+        largest row sum reaches 2²⁴ float64 on both, the upstream's score
+        of the exact counts (:meth:`_topk_exact`). The row sums decide
+        at every call, so a delta across 2²⁴ switches the values' dtype
+        and may reorder f32 near ties. The JAX package's
+        dispatch: K1 + pass 2 while k <= 16 and its candidate buffer
+        fits; past the buffer, with the self mask and f32, row tiles
+        through K3 (:meth:`_topk_rect_stream`); otherwise the single-pass
+        K4. Both score variants ride the same kernels: only the
+        denominator vector differs."""
         if not self._symmetric:
             raise ValueError("topk fast path requires a symmetric metapath")
         c, rowsums = self._half()
+        if self._exact_scores():
+            vals, idxs = self._topk_exact(c, k, mask_self, variant)
+        else:
+            vals, idxs = self._topk_f32(c, rowsums, k, mask_self, variant)
+        n = self.n_sources
+        with get_tracer().span("backend.fetch", device=self.device,
+                               pinned=False) as span:
+            out = vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
+            if span is not None:
+                span.args["bytes"] = out[0].nbytes + out[1].nbytes
+        return out
+
+    def _topk_exact(self, c, k: int, mask_self: bool, variant: str):
+        """Rank-all on the exact instances: K1 + pass 2 while k <= 16 and
+        K1's 12-byte candidates fit, else K4; exact f64 denominators."""
+        d = self._denominator_exact(c, variant)
+        limbs = self._limbs(c)
+        if k <= ck.CAND_MAX and ck.twopass_fits(c.shape[0], k, self.device,
+                                                c.shape[1], exact=True):
+            return ck.fused_topk_twopass_exact(c, d, k=k, mask_self=mask_self,
+                                               limbs=limbs)
+        return ck.fused_topk_exact(c, d, k=k, mask_self=mask_self,
+                                   limbs=limbs)
+
+    def _topk_f32(self, c, rowsums, k: int, mask_self: bool, variant: str):
         d = self._denominator_device(c, rowsums, variant)
         limbs = self._limbs(c)
         c, d = ck.kernel_operands(c, d, self.exact_counts)
@@ -379,13 +478,7 @@ class TorchDenseBackend(PathSimBackend):
             vals, idxs = ck.fused_topk(c, d, k=k, mask_self=mask_self,
                                        limbs=limbs)
         self._fetch_rowsums(rowsums)
-        n = self.n_sources
-        with get_tracer().span("backend.fetch", device=self.device,
-                               pinned=False) as span:
-            out = vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
-            if span is not None:
-                span.args["bytes"] = out[0].nbytes + out[1].nbytes
-        return out
+        return vals, idxs
 
     # Row-tile height of the rect arm (halved until K3's candidate
     # buffer fits its budget).

@@ -32,7 +32,9 @@
 // most limbs first, so they do not trail the launch. Each row block takes
 // its own instance: the few whose row sums leave M unbounded below 2^31
 // (the Zipf head) the one with the f64 fold, on a side stream beside the
-// launch of the rest.
+// launch of the rest. Exact counts past f32's exact integers (2^24, up
+// to 2^53) take the exact instances instead: f64 scores of the exact M
+// and row sums, behind an f32 prefilter (topk_list.cuh).
 //
 // Bound on an H100: operations. S is symmetric, so the function needs the
 // n (n + 1) / 2 upper-triangle dot products: n (n + 1) v u8 operations
@@ -109,6 +111,67 @@ topk_fold_kernel(const __grid_constant__ CUtensorMap map_a,
     }
 }
 
+// Lists of the exact instance in shared memory up to this k (12-byte
+// slots).
+constexpr int SMEM_K_MAX64 = (227 * 1024 - u8::PIPE_SMEM) / (u8::BM * 12);
+
+// The exact instance (exact counts below 2^53; topk_list.cuh's exact
+// section): f64 values 2 M / (d_i + d_j) of the exact M and the exact row
+// sums d64 (d32: their f32 roundings, the prefilter's). Without
+// SMEM_LISTS the lists lie in the output: idxs n * k slots of 8 bytes
+// after vals.
+template <bool SMEM_LISTS, bool WIDE>
+__global__ void __launch_bounds__(u8::THREADS, SMEM_LISTS && !WIDE ? 2 : 1)
+topk_fold_exact_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b,
+                       const double* __restrict__ d64,
+                       const float* __restrict__ d32, int n, int v_pad,
+                       int k, int mask_self, int n_sub,
+                       const int* __restrict__ rb_max,
+                       const int* __restrict__ order,
+                       const int* __restrict__ sub_max, int n_sub_max,
+                       const float* __restrict__ d_min,
+                       double* __restrict__ vals, int* __restrict__ idxs) {
+    extern __shared__ __align__(1024) uint8_t smem[];
+    const int rb = order[blockIdx.x];
+    const u8::Unit u{sub_max, n_sub_max, rb_max[rb], 0, n_sub, v_pad, WIDE};
+    const int row0 = rb * u8::BM;
+    u8::Pipe pipe;
+    uint8_t* lists = u8::pipe_init(smem, u, &map_a, &map_b, row0, pipe);
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the producer
+        u8::load_rows(u, pipe);
+        u8::feed_stages(u, pipe, u.stages());
+    }
+
+    Row64 rows[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int lrow = local_row(h);
+        const int gi = row0 + lrow;
+        Row64& r = rows[h];
+        r.valid = gi < n;
+        r.di = r.valid ? d64[gi] : 0.0;
+        r.di32 = r.valid ? d32[gi] : 0.0f;
+        if (SMEM_LISTS)
+            list_at64(r, reinterpret_cast<double*>(lists), u8::BM, lrow, k);
+        else  // the output's rows: vals [n][k], then idxs [n][k]
+            list_at64(r, vals, n, r.valid ? gi : 0, k);
+        list_init64(r, k);
+    }
+    __syncwarp();
+    const Ctx64 ctx{{d32, nullptr, n, n, row0, mask_self != 0}, d64};
+    unsigned scored = 0;  // not reported by K4
+    consume_rows64<WIDE>(u, pipe, ctx, d_min, rows, k, scored);
+    if (SMEM_LISTS) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const long long gi = row0 + local_row(h);
+            list_store64(rows[h], k, vals + gi * k, idxs + gi * k);
+        }
+    }
+}
+
 }  // namespace pathsim
 
 // Launch the wide row blocks on `wide_stream`, then the narrow ones on
@@ -162,6 +225,52 @@ extern "C" int pathsim_topk_fold(const void* planes, int n_planes,
         kernel<<<(unsigned)blocks, u8::THREADS, smem,
                  (cudaStream_t)(wide ? wide_stream : stream)>>>(
             map_a, map_b, d, n, v_pad, k, mask_self, n_sub, rb_max,
+            wide ? wide_order : narrow_order, sub_max, n_sub_max, d_min,
+            vals, idxs);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
+// pathsim_topk_fold for the exact instance: d64 the exact row sums
+// (integers below 2^52), d32 their f32 roundings (d_min is over d32),
+// vals f64 and idxs int32 in one buffer, idxs starting 2 * n * k 4-byte
+// slots after vals (2 * n * k < 2^31).
+extern "C" int pathsim_topk_fold_exact(
+    const void* planes, int n_planes, long long plane_stride, int v_pad,
+    const double* d64, const float* d32, int n, int k, int mask_self,
+    const int* rb_max, const int* wide_order, int n_wide,
+    const int* narrow_order, int n_narrow, const int* sub_max,
+    const float* d_min, double* vals, int* idxs, void* wide_stream,
+    void* stream) {
+    using namespace pathsim;
+    CUtensorMap map_a, map_b;
+    int rc = pathsim_limb_map(&map_a, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BM);
+    if (rc == 0)
+        rc = pathsim_limb_map(&map_b, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BN);
+    if (rc != 0) return rc;
+    const int width = n > k ? n : k;
+    const int n_sub = (width + 127) / 128 * (128 / u8::BN);
+    const bool smem_lists = k <= SMEM_K_MAX64;
+    const int smem = u8::PIPE_SMEM + (smem_lists ? u8::BM * k * 12 : 0);
+    const int n_sub_max = (n + u8::BN - 1) / u8::BN;
+    for (int wide = 1; wide >= 0; --wide) {
+        const int blocks = wide ? n_wide : n_narrow;
+        if (blocks == 0) continue;
+        const auto kernel =
+            smem_lists ? (wide ? topk_fold_exact_kernel<true, true>
+                               : topk_fold_exact_kernel<true, false>)
+                       : (wide ? topk_fold_exact_kernel<false, true>
+                               : topk_fold_exact_kernel<false, false>);
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)blocks, u8::THREADS, smem,
+                 (cudaStream_t)(wide ? wide_stream : stream)>>>(
+            map_a, map_b, d64, d32, n, v_pad, k, mask_self, n_sub, rb_max,
             wide ? wide_order : narrow_order, sub_max, n_sub_max, d_min,
             vals, idxs);
         err = cudaGetLastError();

@@ -32,6 +32,7 @@
 
 #include <climits>
 #include <math.h>
+#include <type_traits>
 
 #include "u8_tile.cuh"
 
@@ -437,6 +438,348 @@ __device__ __forceinline__ void stripe_topk(const CUtensorMap* map_a,
 
 // Dynamic shared memory of a two-pass kernel: the pipeline and the lists.
 constexpr int STRIPE_SMEM = u8::PIPE_SMEM + u8::BM * CAND_K_MAX * 8;
+
+// -- the exact instances (K1 and K4 under exact counts) ----------------------
+//
+// Each value is the correctly rounded f64 quotient 2 M / (d_i + d_j) of
+// the exact integers M and d (0 where d_i + d_j is 0): the upstream's
+// score as a Python float. M is taken as the product leaves it, exact:
+// the s32 accumulator of a narrow pair, or the f64 sum of a wide one
+// (u8_tile.cuh, product_subtile_exact), never rounded to f32. d comes
+// twice: exact (f64: integers below 2^52, so d_i + d_j is exact too) for
+// the score, and rounded to f32 for the prefilter. The lists hold f64
+// values: values [rows][k], then columns [rows][k].
+//
+// The prefilter keeps the f64 division off every element that provably
+// stays out of its row's list. With the list's k-th entry (tv, tc)
+// settled (tv >= 0; the columns come in ascending order, so tc lies left
+// of every element still to come), an element stays out when m < tv den
+// / 2 in exact arithmetic: then 2 m / den < tv, its correctly rounded
+// quotient is at most tv, and a score equal to tv loses the tie to tc.
+// In f32: ths = RD(tv / 2 (1 - 2^-20)), and the element stays out when m
+// == 0 or RN(m) < RN(ths RN(RN(d_i) + RN(d_j))). Each of the five
+// roundings (four RN, and tv / 2 (1 - 2^-20) itself in f64) errs by at
+// most 2^-24 of its value, so RN(m) < that implies m < tv den / 2 (1 -
+// 2^-20) (1 + 2^-24)^5 / (1 - 2^-24) < tv den / 2. The coarse test of a
+// row part takes its largest M and the subtile's least f32 denominator
+// (d_min: RN and the sum are monotone, so it bounds every element's).
+// Only the elements that pass are scored in f64 and counted.
+
+// An exact count rounded to f32 for the prefilter (a narrow pair's s32,
+// a wide pair's f64).
+__device__ __forceinline__ float m_rn32(int m) { return __int2float_rn(m); }
+__device__ __forceinline__ float m_rn32(double m) {
+    return __double2float_rn(m);
+}
+__device__ __forceinline__ int m_max(int a, int b) { return max(a, b); }
+__device__ __forceinline__ double m_max(double a, double b) {
+    return fmax(a, b);
+}
+
+// 2 m / den correctly rounded in f64, 0 where m or den is 0 (a pair
+// with a path has den >= 2 m > 0).
+__device__ __forceinline__ double score64(double m, double den) {
+    return m != 0.0 && den > 0.0 ? __ddiv_rn(2.0 * m, den) : 0.0;
+}
+
+__device__ __forceinline__ bool beats64(double v, int c, double ov, int oc) {
+    return v > ov || (v == ov && c < oc);
+}
+
+// Ctx (its f32 denominators are the prefilter's) and the exact ones.
+struct Ctx64 {
+    Ctx f32;
+    const double* __restrict__ d64;
+
+    __device__ double d(int gj) const {
+        return gj < f32.n ? __ldg(d64 + gj) : 0.0;
+    }
+};
+
+// A row of a block in an exact instance: its list (k f64 values at lv,
+// their k columns lc_off 4-byte slots further on), its exact and its f32
+// denominator, and whether it exists.
+struct Row64 {
+    double* lv;
+    int lc_off;
+    double di;
+    float di32;
+    bool valid;
+
+    __device__ int* lc() const { return reinterpret_cast<int*>(lv) + lc_off; }
+};
+
+__device__ __forceinline__ void list_init64(const Row64& r, int k) {
+    if (r.valid)
+        for (int e = threadIdx.x & 3; e < k; e += 4) {
+            r.lv[e] = -INFINITY;
+            r.lc()[e] = INT_MAX;
+        }
+}
+
+__device__ __forceinline__ void list_store64(const Row64& r, int k,
+                                             double* out_v, int* out_c) {
+    if (r.valid)
+        for (int e = threadIdx.x & 3; e < k; e += 4) {
+            out_v[e] = r.lv[e];
+            out_c[e] = r.lc()[e];
+        }
+}
+
+// Row r of a block whose lists lie in `lists` (rows x k values, then
+// rows x k columns): its list and its offset to the columns.
+__device__ __forceinline__ void list_at64(Row64& r, double* lists, int rows,
+                                          int row, int k) {
+    r.lv = lists + (long long)row * k;
+    r.lc_off = 2 * rows * k - row * k;
+}
+
+// Element j of row H, column gj: its exact score (-inf for columns >=
+// n_true and the self column).
+template <int H, typename T>
+__device__ __forceinline__ double elem_score64(const T (&x)[u8::ACC],
+                                               const Ctx64& ctx, int j,
+                                               int gj, const Row64& r) {
+    if (gj >= ctx.f32.n_true || gj == ctx.f32.self(H)) return -INFINITY;
+    return score64((double)pick<H>(x, j), r.di + ctx.d(gj));
+}
+
+template <int H, typename T>
+__device__ __forceinline__ void insert_row64(const T (&x)[u8::ACC],
+                                             const Ctx64& ctx, int col0,
+                                             unsigned bits, const Row64& r,
+                                             int k) {
+    double* lv = r.lv;
+    int* lc = r.lc();
+    while (bits) {
+        const int j = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int c = col0 + sub_col(j);
+        const double v = elem_score64<H>(x, ctx, j, c, r);
+        if (!beats64(v, c, lv[k - 1], lc[k - 1])) continue;
+        int pos = k - 1;
+        while (pos > 0 && beats64(v, c, lv[pos - 1], lc[pos - 1])) {
+            lv[pos] = lv[pos - 1];
+            lc[pos] = lc[pos - 1];
+            --pos;
+        }
+        lv[pos] = v;
+        lc[pos] = c;
+    }
+}
+
+// A row's k-th entry for one subtile's selection: settled when tv >= 0,
+// then ths is the prefilter's f32 bar.
+struct Bar64 {
+    double tv;
+    int tc;
+    bool settled;
+    bool small;  // every M of the row part is below 2^23 (s32 only)
+    float ths;
+};
+
+// Whether row H's part of the subtile needs the per-element test: not
+// once the list is settled and the part's largest M passes the coarse
+// test (all of it zero, or below the bar at the subtile's least
+// denominator).
+template <int H, typename T>
+__device__ __forceinline__ bool needs_fine64(const T (&x)[u8::ACC],
+                                             float dmin, const Row64& r,
+                                             int k, Bar64& b) {
+    if (!r.valid) return false;
+    b.tv = r.lv[k - 1];
+    b.tc = r.lc()[k - 1];
+    b.settled = b.tv >= 0.0;
+    T mx = x[slot(H, 0)];
+#pragma unroll
+    for (int j = 1; j < 16; ++j) mx = m_max(mx, x[slot(H, j)]);
+    b.small = mx < (1 << 23);
+    if (!b.settled) return true;
+    b.ths = __double2float_rd(b.tv * (0.5 - 0x1p-21));
+    return mx != 0 && !(m_rn32(mx) < b.ths * (r.di32 + dmin));
+}
+
+// The elements of row H that beat its list's k-th entry: the prefilter
+// on each element (no division, no branch), then for the rest (rare once
+// settled; every element while the list fills) the f64 score, counted in
+// `scored`, and the comparison with the k-th entry.
+template <int H, typename T>
+__device__ __forceinline__ unsigned row_candidates64(
+    const T (&x)[u8::ACC], int col0, const float (&dj)[16],
+    const Ctx64& ctx, const Row64& r, const Bar64& b, unsigned& scored) {
+    unsigned keep = 0xffffu;
+    if (b.settled) {
+        keep = 0u;
+        if (std::is_same<T, int>::value && b.small) {
+            // the exact s32 -> f32 in two adds (2^23 + m has m as its
+            // mantissa), as topk_list's row_candidates
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const int m = (int)x[slot(H, j)];
+                const float mf = __int_as_float(0x4B000000 | m) - 0x1p23f;
+                keep |= (unsigned)(m != 0 &&
+                                   !(mf < b.ths * (r.di32 + dj[j]))) << j;
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const T m = x[slot(H, j)];
+                keep |= (unsigned)(m != 0 &&
+                                   !(m_rn32(m) < b.ths * (r.di32 + dj[j])))
+                        << j;
+            }
+        }
+    }
+    unsigned bits = 0u;
+    while (keep) {
+        const int j = __ffs(keep) - 1;
+        keep &= keep - 1;
+        const int gj = col0 + sub_col(j);
+        const double sc = elem_score64<H>(x, ctx, j, gj, r);
+        ++scored;
+        bits |= (unsigned)beats64(sc, gj, b.tv, b.tc) << j;
+    }
+    return bits;
+}
+
+// select_rows for the exact instances: x holds M exact (s32, or f64 on
+// the wide path).
+template <typename T>
+__device__ __forceinline__ void select_rows64(const T (&x)[u8::ACC],
+                                              int col0, float dmin,
+                                              const Ctx64& ctx,
+                                              const Row64 (&rows)[2], int k,
+                                              unsigned& scored) {
+    Bar64 b0, b1;
+    const bool fine0 = needs_fine64<0>(x, dmin, rows[0], k, b0);
+    const bool fine1 = needs_fine64<1>(x, dmin, rows[1], k, b1);
+    unsigned cand0 = 0u, cand1 = 0u;
+    if (fine0 || fine1) {
+        float dj[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) dj[j] = ctx.f32.d(col0 + sub_col(j));
+        if (fine0)
+            cand0 = row_candidates64<0>(x, col0, dj, ctx, rows[0], b0,
+                                        scored);
+        if (fine1)
+            cand1 = row_candidates64<1>(x, col0, dj, ctx, rows[1], b1,
+                                        scored);
+    }
+    if (!__any_sync(0xffffffffu, (cand0 | cand1) != 0u)) return;
+    const int q = threadIdx.x & 3;
+    const unsigned act0 = __ballot_sync(0xffffffffu, cand0 != 0u);
+    const unsigned act1 = __ballot_sync(0xffffffffu, cand1 != 0u);
+    for (int src = 0; src < 4; ++src) {
+        if (!(act0 & (0x11111111u << src))) continue;  // uniform
+        if (q == src && cand0) insert_row64<0>(x, ctx, col0, cand0, rows[0], k);
+        __syncwarp();
+    }
+    for (int src = 0; src < 4; ++src) {
+        if (!(act1 & (0x11111111u << src))) continue;
+        if (q == src && cand1) insert_row64<1>(x, ctx, col0, cand1, rows[1], k);
+        __syncwarp();
+    }
+}
+
+// consume_rows for the exact instances; `scored` counts the elements
+// this thread scored in f64.
+template <bool WIDE>
+__device__ __forceinline__ void consume_rows64(const u8::Unit& u,
+                                               u8::Pipe& pipe,
+                                               const Ctx64& ctx,
+                                               const float* __restrict__ d_min,
+                                               const Row64 (&rows)[2], int k,
+                                               unsigned& scored) {
+    const int wg = threadIdx.x / 128;
+    if (u.resident()) u8::mbar_wait(pipe.rows_full(), 0);
+    for (int sub = u.sub0; sub < u.sub1; ++sub) {
+        const int col0 = sub * u8::BN;
+        const int bmax = u8::sub_max_at(u.sub_max, u.n_sub_max, sub);
+        const float dmin = __ldg(d_min + sub);
+        int x[u8::ACC];
+        if constexpr (WIDE) {
+            double xw[u8::ACC];
+            if (u8::product_subtile_exact(u, pipe, wg, bmax, x, xw)) {
+                select_rows64<double>(xw, col0, dmin, ctx, rows, k, scored);
+                continue;
+            }
+        } else {
+            u8::product_subtile<false>(u, pipe, wg, bmax, x);
+        }
+        select_rows64<int>(x, col0, dmin, ctx, rows, k, scored);
+    }
+}
+
+// Add the block's f64 scorings to *total, once a block (every thread of
+// the block calls this; block_sum is the block's shared counter, zeroed
+// before the block's first __syncthreads). total may be null.
+__device__ __forceinline__ void add_scored(unsigned n,
+                                           unsigned long long* block_sum,
+                                           unsigned long long* total) {
+    n = __reduce_add_sync(0xffffffffu, n);
+    if ((threadIdx.x & 31) == 0 && n) atomicAdd(block_sum, (unsigned long long)n);
+    __syncthreads();
+    if (threadIdx.x == 0 && total != nullptr && *block_sum)
+        atomicAdd(total, *block_sum);
+}
+
+// stripe_topk for the exact instance of K1: vals f64, the lists k slots
+// a row (shared memory stripe_smem64(k)), d_rows / d32_rows the rows'
+// exact and f32 denominators, scored the launch's count of f64 scorings.
+template <bool WIDE>
+__device__ __forceinline__ void stripe_topk64(
+    const CUtensorMap* map_a, const CUtensorMap* map_b,
+    const double* __restrict__ d_rows, const float* __restrict__ d32_rows,
+    int t, Ctx64 ctx, const StripeGrid g, int v_pad, int k,
+    double* __restrict__ vals, int* __restrict__ cols,
+    unsigned long long* scored_total) {
+    extern __shared__ __align__(1024) uint8_t smem[];
+    __shared__ unsigned long long block_scored;
+    const int rb = g.order[blockIdx.x / g.n_stripes];
+    const int stripe = blockIdx.x % g.n_stripes;
+    const int sub0 = stripe * g.stripe_sub;
+    const u8::Unit u{g.sub_max, g.n_sub_max, g.rb_max[rb], sub0,
+                     min(sub0 + g.stripe_sub, g.n_sub), v_pad, WIDE};
+    const int row0 = rb * u8::BM;
+    u8::Pipe pipe;
+    uint8_t* lists = u8::pipe_init(smem, u, map_a, map_b, row0, pipe);
+    if (threadIdx.x == 0) block_scored = 0;
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the producer
+        u8::load_rows(u, pipe);
+        u8::feed_stages(u, pipe, u.stages());
+    }
+
+    Row64 rows[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int lrow = local_row(h);
+        const int gi = row0 + lrow;
+        Row64& r = rows[h];
+        r.valid = gi < t;
+        r.di = r.valid ? d_rows[gi] : 0.0;
+        r.di32 = r.valid ? d32_rows[gi] : 0.0f;
+        list_at64(r, reinterpret_cast<double*>(lists), u8::BM, lrow, k);
+        list_init64(r, k);
+    }
+    __syncwarp();
+    ctx.f32.row0 = row0;
+    unsigned scored = 0;
+    consume_rows64<WIDE>(u, pipe, ctx, g.d_min, rows, k, scored);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const long long gi = row0 + local_row(h);
+        const long long o = (gi * g.n_stripes + stripe) * k;
+        list_store64(rows[h], k, vals + o, cols + o);
+    }
+    add_scored(scored, &block_scored, scored_total);
+}
+
+// Dynamic shared memory of the exact K1 at k: the pipeline and k slots
+// of 12 bytes a row (k <= 15 leaves room for two blocks an SM).
+__host__ __device__ constexpr int stripe_smem64(int k) {
+    return u8::PIPE_SMEM + u8::BM * k * 12;
+}
 
 }  // namespace pathsim
 

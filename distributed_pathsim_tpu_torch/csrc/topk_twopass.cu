@@ -69,6 +69,24 @@ topk_twopass_kernel(const __grid_constant__ CUtensorMap map_a,
     stripe_topk<WIDE>(&map_a, &map_b, d, n, ctx, g, v_pad, k, vals, cols);
 }
 
+// The exact instance (exact counts below 2^53; topk_list.cuh's exact
+// section): f64 values 2 M / (d_i + d_j) of the exact M and the
+// exact row sums d64 (d32: their f32 roundings, the prefilter's), and
+// the count of elements scored in f64 added to *scored (null: none).
+template <bool WIDE>
+__global__ void __launch_bounds__(u8::THREADS, WIDE ? 1 : 2)
+topk_twopass_exact_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b,
+                          const double* __restrict__ d64,
+                          const float* __restrict__ d32, int n, int v_pad,
+                          int k, int mask_self, const StripeGrid g,
+                          double* __restrict__ vals, int* __restrict__ cols,
+                          unsigned long long* scored) {
+    const Ctx64 ctx{{d32, nullptr, n, n, 0, mask_self != 0}, d64};
+    stripe_topk64<WIDE>(&map_a, &map_b, d64, d32, n, ctx, g, v_pad, k, vals,
+                        cols, scored);
+}
+
 }  // namespace pathsim
 
 // Launch the wide row blocks on `wide_stream`, then the narrow ones on
@@ -119,6 +137,48 @@ extern "C" int pathsim_topk_twopass(const void* planes, int n_planes,
         kernel<<<(unsigned)units, u8::THREADS, STRIPE_SMEM,
                  (cudaStream_t)(wide ? wide_stream : stream)>>>(
             map_a, map_b, d, n, v_pad, k, mask_self, g, vals, cols);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
+// pathsim_topk_twopass for the exact instance: d64 the exact row sums
+// (integers below 2^52), d32 their f32 roundings (d_min is over d32), vals
+// f64, and scored a device counter the launch adds its f64 scorings to
+// (or null).
+extern "C" int pathsim_topk_twopass_exact(
+    const void* planes, int n_planes, long long plane_stride, int v_pad,
+    const double* d64, const float* d32, int n, int k, int mask_self,
+    int stripe_tiles, const int* rb_max, const int* wide_order, int n_wide,
+    const int* narrow_order, int n_narrow, const int* sub_max,
+    const float* d_min, double* vals, int* cols, unsigned long long* scored,
+    void* wide_stream, void* stream) {
+    using namespace pathsim;
+    CUtensorMap map_a, map_b;
+    int rc = pathsim_limb_map(&map_a, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BM);
+    if (rc == 0)
+        rc = pathsim_limb_map(&map_b, planes, n_planes, n, v_pad,
+                              plane_stride, u8::BN);
+    if (rc != 0) return rc;
+    const int smem = stripe_smem64(k);
+    for (int wide = 1; wide >= 0; --wide) {
+        const int blocks = wide ? n_wide : n_narrow;
+        if (blocks == 0) continue;
+        long long units;
+        const StripeGrid g = pathsim_stripe_grid(
+            blocks, n, stripe_tiles, rb_max, wide ? wide_order : narrow_order,
+            sub_max, d_min, &units);
+        const auto kernel = wide ? topk_twopass_exact_kernel<true>
+                                 : topk_twopass_exact_kernel<false>;
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        kernel<<<(unsigned)units, u8::THREADS, smem,
+                 (cudaStream_t)(wide ? wide_stream : stream)>>>(
+            map_a, map_b, d64, d32, n, v_pad, k, mask_self, g, vals, cols,
+            scored);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }

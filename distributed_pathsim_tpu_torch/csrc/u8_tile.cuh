@@ -37,9 +37,12 @@
 //    __double2float_rn of the exact f64 value). Below 2^24 it is exact,
 //    so M equals the plain version's f32 C C^T bit for bit (every f32
 //    partial sum of nonnegative integers below 2^24 is exact too). Past
-//    2^24 (--approx) it is the correctly rounded exact value.
+//    2^24 (--approx) it is the correctly rounded exact value. The exact
+//    instances of K1 and K4 skip it: they take M as it is, the s32 or
+//    the f64 sum (product_subtile_exact).
 // 5. One correctly rounded division in normalize() (topk_list.cuh; built
-//    with -prec-div=true and no fast math). No TF32 anywhere.
+//    with -prec-div=true and no fast math), in f64 in the exact
+//    instances (score64). No TF32 anywhere.
 //
 // Machinery. A block of 256 threads has two consumer warpgroups, each
 // owning 64 rows (wgmma's M) of the block's 128, and walks 64-column
@@ -507,6 +510,55 @@ __device__ __forceinline__ bool product_subtile(const Unit& u, Pipe& pipe,
 #pragma unroll
         for (int i = 0; i < N; ++i)
             out[part * N + i] = __float_as_int(__double2float_rn(wide[i]));
+    }
+    return true;
+}
+
+// product_subtile for the exact instances' wide blocks (topk_list.cuh):
+// the same walk, but the wide path keeps M exact, in f64 (wout), where
+// product_subtile rounds it to f32. Returns false when `out` holds M as
+// s32 (a narrow pair), true when `wout` holds it. (A copy of
+// product_subtile's loops, so that the other instances compile as
+// before.)
+__device__ __forceinline__ bool product_subtile_exact(const Unit& u,
+                                                      Pipe& pipe, int wg,
+                                                      int bmax,
+                                                      int (&out)[ACC],
+                                                      double (&wout)[ACC]) {
+    const int lc = limbs_of(bmax);
+    const int top = u.lr() + lc - 2;
+    const int n_chunks = u.n_chunks();
+    if (u.narrow(bmax)) {
+        for (int s = top; s >= 0; --s) {
+            if (s < top) {
+#pragma unroll
+                for (int i = 0; i < ACC; ++i) out[i] <<= 8;
+            }
+            product_group<ACC>(u, pipe, wg, s, lc, 0, n_chunks, 0, s == top,
+                               out);
+        }
+        return false;
+    }
+#pragma unroll
+    for (int part = 0; part < QUARTERS; ++part) {
+        constexpr int N = ACC / QUARTERS;
+        int acc[N];
+        double wide[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) wide[i] = 0.0;
+        for (int s = top; s >= 0; --s) {
+            const double shift = (double)(1ull << (8 * s));
+            for (int g0 = 0; g0 < n_chunks; g0 += FOLD_CHUNKS) {
+                product_group<N>(u, pipe, wg, s, lc, g0,
+                                 min(n_chunks, g0 + FOLD_CHUNKS),
+                                 part * (2048 >> 4), true, acc);
+#pragma unroll
+                for (int i = 0; i < N; ++i)
+                    wide[i] = fma((double)acc[i], shift, wide[i]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) wout[part * N + i] = wide[i];
     }
     return true;
 }

@@ -205,7 +205,9 @@ class PathSimDriver:
 
     def _to_f64(self, vals, idxs):
         """A backend's top-k as rank_all hands it over: values f64,
-        indices int64 (no copy where they already are)."""
+        indices int64 (no copy where they already are: the exact
+        instances' f64 values pass as they are, and the span records 0
+        bytes for them)."""
         with get_tracer().span(
             "driver.to_f64", device=getattr(self.backend, "device", None)
         ) as span:

@@ -97,6 +97,9 @@ FOLD_SPANS = ("backend.fold",)
 FACTOR_SPANS = ("backend.factor", "backend.limbs")
 RESULT_PATH_SPANS = ("backend.result_alloc", "backend.fetch",
                      "backend.drain", "driver.to_f64")
+# Pass 2 of the exact K1 (ops/cuda_kernels.fused_topk_twopass_exact): its
+# args carry ``f64_scores``, the elements K1 scored in f64 (defer_arg).
+PASS2_SPAN = "backend.pass2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +153,7 @@ class Span:
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id",
         "t_start_ns", "t_end_ns", "tid", "thread_name", "args",
-        "_events", "_device_s",
+        "_events", "_device_s", "_deferred",
     )
 
     def __init__(
@@ -175,6 +178,9 @@ class Span:
         # device_annotations; end is None while the span is open
         self._events = None
         self._device_s: float | None = None
+        # args still being computed on the card: name → pinned host copy
+        # (Tracer.defer_arg), set once the closing event has completed
+        self._deferred: dict | None = None
 
     @property
     def device_s(self) -> float | None:
@@ -188,6 +194,9 @@ class Span:
             if end is not None and end.query():
                 self._device_s = start.elapsed_time(end) / 1e3
                 self._events = None
+                for name, host in (self._deferred or {}).items():
+                    self.args[name] = host.item()
+                self._deferred = None
         return self._device_s
 
     @property
@@ -418,6 +427,30 @@ class Tracer:
                 except Exception:
                     pass
             self._current.reset(token)
+
+    def defer_arg(self, span: Span | None, name: str, value) -> None:
+        """Set ``span.args[name]`` to the value of ``value``, a
+        one-element tensor that the card may still be computing, without
+        waiting for it: a copy to pinned host memory is queued on the
+        span's stream, and the arg is set where ``device_s`` is read, once
+        the span's closing event (queued after the copy) has completed.
+        Only a span timed on the card (opened with a CUDA ``device``
+        under ``device_annotations``) carries it; a CPU tensor is read at
+        once."""
+        if span is None:
+            return
+        if value.device.type != "cuda":
+            span.args[name] = value.item()
+            return
+        if span._events is None or span._events[1] is not None:
+            return
+        import torch
+
+        host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+        host.copy_(value, non_blocking=True)
+        if span._deferred is None:
+            span._deferred = {}
+        span._deferred[name] = host
 
     @contextlib.contextmanager
     def child_span(self, name: str, **args: Any) -> Iterator[Span | None]:

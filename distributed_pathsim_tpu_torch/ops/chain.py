@@ -49,9 +49,10 @@ def check_exact_counts(max_count: float, dtype: Any) -> None:
         raise OverflowError(
             "path counts exceed f32 exact-integer range (2^24); "
             "pass --approx (exact_counts=False) to waive the guard, or "
-            "construct with dtype=torch.float64 for exact counts, "
-            "single-source rows and rank-all on the CPU (rank-all and "
-            "all-pairs on the card stay f32 and keep this guard)"
+            "construct with dtype=torch.float64 for exact single-source "
+            "rows (all-pairs on the card stays f32 and keeps this guard; "
+            "the dense backend's rank-all needs neither: past 2^24 it "
+            "ranks by f64 scores of the exact counts)"
         )
 
 

@@ -24,6 +24,14 @@ compute tiles of S in registers so M never reaches device memory:
   / ``_topk_kernel_kt``: the single-pass top-k for any k, each row's
   running best merged tile by tile (:func:`fused_topk`).
 
+K1 and K4 have exact instances too (``topk_twopass_exact`` and
+``topk_fold_exact`` in :data:`KERNELS`, :func:`fused_topk_twopass_exact`,
+:func:`fused_topk_exact`), for exact counts past
+2²⁴: f64 scores ``2·M / (d_i + d_j)`` of the exact M (never rounded to
+f32) and exact f64 denominators, behind an f32 prefilter that keeps the
+f64 division off every element that provably stays out of a row's list
+(``csrc/topk_list.cuh``).
+
 Exactness contract — zero tolerance against the plain versions: path
 counts are integers below 2²⁴, so every f32 sum is exact in any order,
 and the one division is correctly rounded (the kernels are built without
@@ -72,7 +80,7 @@ import numpy as np
 import torch
 
 from . import sparse
-from ..obs.trace import get_tracer
+from ..obs.trace import PASS2_SPAN, get_tracer
 from ..utils import compile_counter
 
 # Rows of the kernels' row blocks (csrc/u8_tile.cuh BM), and the unit of
@@ -124,7 +132,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-prec-div=true", "-Xptxas", "-v",
 )
-# Kernel name → (source, C entry point, ctypes argtypes).
+# Kernel name → (source, C entry point, ctypes argtypes). One library a
+# source: the exact instances of K1 and K4 (exact counts past 2^24) are
+# entry points of their f32 twins' libraries.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -147,6 +157,16 @@ KERNELS = {
         "topk_fold.cu", "pathsim_topk_fold",
         [_P, _I, _L, _I, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P,
          _P, _P, _P],
+    ),
+    "topk_twopass_exact": (
+        "topk_twopass.cu", "pathsim_topk_twopass_exact",
+        [_P, _I, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _P,
+         _P, _P, _P, _P, _P, _P],
+    ),
+    "topk_fold_exact": (
+        "topk_fold.cu", "pathsim_topk_fold_exact",
+        [_P, _I, _L, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P,
+         _P, _P, _P, _P],
     ),
 }
 
@@ -207,46 +227,51 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    """The library's path, keyed by a digest of its source, every header
-    in ``csrc/`` and the flags: an edited source or header never loads a
-    stale build."""
+    """The path of the kernel's library (one a source), keyed by a digest
+    of its source, every header in ``csrc/`` and the flags: an edited
+    source or header never loads a stale build."""
+    src = CSRC / KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))):
+    for f in (src, *sorted(CSRC.glob("*.cuh"))):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, str]:
-    """Compile every named kernel library that is not built yet, all
-    nvcc processes started together. Returns each compiled kernel's
-    compiler report (``-Xptxas -v``: registers, shared memory, spills);
-    raises RuntimeError with the compiler's output if a build fails."""
+    """Compile the library of every named kernel that is not built yet,
+    all nvcc processes started together. Returns each compiled kernel's
+    compiler report (``-Xptxas -v``: registers, shared memory, spills;
+    kernels of one library share it); raises RuntimeError with the
+    compiler's output if a build fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs = {}  # library → (nvcc, its temporary output, its kernels)
     for name in names:
         out = _lib_path(name)
+        if out in procs:
+            procs[out][2].append(name)
+            continue
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / KERNELS[name][0])]
-        procs[name] = (
+        procs[out] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True),
-            tmp, out,
+            tmp, [name],
         )
     reports = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for out, (proc, tmp, built) in procs.items():
         text, _ = proc.communicate()
-        reports[name] = text
+        reports.update(dict.fromkeys(built, text))
         if proc.returncode != 0:
-            failed.append(f"{name} (rc {proc.returncode}):\n{text}")
+            failed.append(f"{out.name} (rc {proc.returncode}):\n{text}")
         else:
             os.replace(tmp, out)
-            compile_counter.record("nvcc", name)
+            compile_counter.record("nvcc", built[0])
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return reports
@@ -255,15 +280,15 @@ def build(names=None) -> dict[str, str]:
 def _entry(name: str):
     """The kernel's C entry point, building and loading its library at
     first use."""
+    source, symbol, argtypes = KERNELS[name]
     with _LIBS_LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(source)
         if lib is None:
             path = _lib_path(name)
             if not path.exists():
                 build([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+            lib = _LIBS[source] = ctypes.CDLL(str(path))
             compile_counter.record("load", name)
-    _, symbol, argtypes = KERNELS[name]
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -359,10 +384,11 @@ def kernel_operands(c: torch.Tensor, d: torch.Tensor,
     if exact_counts and d.numel() and float(d.max()) >= 2.0**24:
         raise OverflowError(
             "path counts exceed the f32 exact-integer range (2^24): on the "
-            "card rank-all and all-pairs run on the f32 kernels even for "
-            "a float64 backend; pass --approx (exact_counts=False) to rank "
-            "with correctly rounded counts, or use --backend torch-sparse, "
-            "whose exact rescore handles any count"
+            "card all-pairs (K2) and K3 run on the f32 kernels even for a "
+            "float64 backend; pass --approx (exact_counts=False) for "
+            "correctly rounded counts. The dense backend's rank-all needs "
+            "neither: past 2^24 it ranks on the exact instances of K1 and "
+            "K4 (f64 scores of the exact counts)"
         )
     return c.to(torch.float32), d.to(torch.float32)
 
@@ -947,6 +973,137 @@ def fused_topk(c: torch.Tensor, d: torch.Tensor, k: int = 10,
     return vals, idxs.long()
 
 
+# -- the exact instances of K1 and K4 ------------------------------------------
+
+
+def _check_exact_factor(c: torch.Tensor, d: torch.Tensor) -> None:
+    if c.dtype not in _FACTOR_DTYPES or d.dtype != torch.float64:
+        raise TypeError(
+            "the exact instances take a float32 or float64 factor and "
+            f"float64 denominators, got {c.dtype} / {d.dtype}"
+        )
+    if c.dim() != 2 or d.shape != (c.shape[0],):
+        raise ValueError(
+            f"factor shapes {tuple(c.shape)} / {tuple(d.shape)} do not match"
+        )
+    if c.device != d.device:
+        raise ValueError(f"factor on {c.device}, denominators on {d.device}")
+
+
+def _exact_operands(c: torch.Tensor, d: torch.Tensor, limbs: Limbs | None,
+                    width: int):
+    """What an exact launch reads besides its outputs: the factor's
+    limbs, d's f32 roundings (the prefilter's) and their least value per
+    subtile, for the subtiles of ``width`` columns padded to whole
+    tiles."""
+    lim = _square_limbs(c, limbs)
+    d32 = d.to(torch.float32)
+    return lim, d32, _subtile_min(d32, 2 * -(-width // TILE))
+
+
+def topk_twopass_candidates_exact(c: torch.Tensor, d: torch.Tensor, k: int,
+                                  mask_self: bool, limbs: Limbs | None = None,
+                                  stripe_tiles: int | None = None,
+                                  scored: torch.Tensor | None = None):
+    """Launch K1's exact instance: each row's top-k per stripe of
+    ``stripe_tiles * TILE`` columns (default :func:`twopass_stripe_tiles`
+    at 12-byte candidates) of the scores ``2·M / (d_i + d_j)`` correctly
+    rounded in f64, M the exact counts of ``c``'s limbs and ``d`` the
+    exact denominators (float64 integers below 2⁵²: the caller's
+    guarantee). Values float64 and global columns int32, each [N,
+    n_stripes, k]. ``scored``: an int64 device tensor the launch adds the
+    count of elements it scored in f64 to (None: not counted)."""
+    _check_exact_factor(c, d)
+    _check_kernel_input(c, d)
+    if not 1 <= k <= CAND_MAX:
+        raise ValueError(f"topk_twopass_candidates needs 1 <= k <= {CAND_MAX}")
+    n = c.shape[0]
+    if stripe_tiles is None:
+        stripe_tiles = twopass_stripe_tiles(n, c.shape[1], k, c.device,
+                                            exact=True)
+    if stripe_tiles < 1:
+        raise ValueError("stripe_tiles must be >= 1")
+    n_st = _rect_n_stripes(n, stripe_tiles)
+    vals = torch.empty((n, n_st, k), dtype=torch.float64, device=c.device)
+    cols = torch.empty((n, n_st, k), dtype=torch.int32, device=c.device)
+    if n:
+        lim, d32, d_min = _exact_operands(c, d, limbs, n)
+        _launch_square(
+            "topk_twopass_exact", c.device, lim,
+            (lim.planes.data_ptr(), lim.planes.shape[0],
+             lim.planes.stride(0), lim.planes.shape[2], d.data_ptr(),
+             d32.data_ptr(), n, k, int(mask_self), stripe_tiles,
+             lim.blocks.data_ptr()),
+            (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
+             cols.data_ptr(), None if scored is None else scored.data_ptr()))
+    return vals, cols
+
+
+def fused_topk_twopass_exact(c: torch.Tensor, d: torch.Tensor, k: int = 10,
+                             mask_self: bool = True,
+                             limbs: Limbs | None = None,
+                             stripe_tiles: int | None = None):
+    """Exact per-row top-k of the scores ``2·M / (d_i + d_j)`` of the
+    exact counts M (``c`` holds integer counts) and exact denominators
+    ``d`` (float64), each correctly rounded in f64 (0 where d_i + d_j is
+    0), ordered (descending score, ascending column): K1's exact instance,
+    then pass 2 on f64 keys in a ``backend.pass2`` span, which carries
+    the count of elements K1 scored in f64 (``f64_scores``). On the CPU
+    the plain version in float64. Returns (values float64 [N, k],
+    columns int64 [N, k])."""
+    _check_exact_factor(c, d)
+    if k > CAND_MAX:
+        raise ValueError(f"fused_topk_twopass_exact supports k <= {CAND_MAX}")
+    if _device_kind(c) == "cpu":
+        return fused_topk_twopass_plain(c.double(), d, k=k,
+                                        mask_self=mask_self)
+    scored = torch.zeros(1, dtype=torch.int64, device=c.device)
+    vals, cols = topk_twopass_candidates_exact(
+        c, d, k, mask_self, limbs=limbs, stripe_tiles=stripe_tiles,
+        scored=scored)
+    n, w = c.shape[0], vals.shape[1] * k
+    tracer = get_tracer()
+    with tracer.span(PASS2_SPAN, device=c.device) as span:
+        tracer.defer_arg(span, "f64_scores", scored)
+        # one stable sort a row: its n_stripes * k candidates are few
+        fv, fc = sparse.chunked_row_topk(vals.view(n, w), cols.view(n, w),
+                                         k, chunk=w)
+    return fv, fc.long()
+
+
+def fused_topk_exact(c: torch.Tensor, d: torch.Tensor, k: int = 10,
+                     mask_self: bool = True, limbs: Limbs | None = None):
+    """:func:`fused_topk_twopass_exact`'s function for any k: K4's exact
+    instance on the card, the plain version in float64 on the CPU.
+    Values float64 [N, k], columns int64 [N, k]; a row with fewer than k
+    finite scores gets distinct ascending -inf columns."""
+    _check_exact_factor(c, d)
+    if k < 1:
+        raise ValueError("fused_topk needs k >= 1")
+    if _device_kind(c) == "cpu":
+        return fused_topk_plain(c.double(), d, k=k, mask_self=mask_self)
+    _check_kernel_input(c, d)
+    n = c.shape[0]
+    if max(n, k) >= 2**31 - TILE or 2 * n * k >= 2**31:
+        raise ValueError(f"fused_topk_exact with n={n}, k={k} exceeds the "
+                         "kernel's int32 column range")
+    # one buffer: K4 finds a row's columns 2 * n * k 4-byte slots after
+    # its values
+    buf = torch.empty(3 * n * k, dtype=torch.int32, device=c.device)
+    vals = buf[:2 * n * k].view(torch.float64).view(n, k)
+    idxs = buf[2 * n * k:].view(n, k)
+    if n:
+        lim, d32, d_min = _exact_operands(c, d, limbs, max(n, k))
+        _launch_square(
+            "topk_fold_exact", c.device, lim,
+            (lim.planes.data_ptr(), lim.planes.shape[0],
+             lim.planes.stride(0), lim.planes.shape[2], d.data_ptr(),
+             d32.data_ptr(), n, k, int(mask_self), lim.blocks.data_ptr()),
+            (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
+             idxs.data_ptr()))
+    return vals, idxs.long()
+
+
 # -- budgets ----------------------------------------------------------------
 
 
@@ -974,13 +1131,20 @@ def default_twopass_stripe_tiles(n: int) -> int:
                _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS))
 
 
-def twopass_stripe_tiles(n: int, v: int, k: int, device) -> int:
+def _slot_bytes(exact: bool) -> int:
+    """Bytes of one K1 candidate: an f32 (f64 for the exact instance)
+    value and an int32 column."""
+    return 12 if exact else 8
+
+
+def twopass_stripe_tiles(n: int, v: int, k: int, device,
+                         exact: bool = False) -> int:
     """Column tiles per K1 stripe for an [N, V] factor at top-``k`` on
-    ``device``: the ``twopass_stripe_tiles`` knob of the tuning table,
-    keyed on (N, V), else :func:`default_twopass_stripe_tiles`. A tuned
-    width below 1, wider than the factor or, on a card, whose candidate
-    buffer passes the budget, is a ``fallback`` lookup and the heuristic
-    runs. The one decision point:
+    ``device`` (``exact``: for the exact instance's 12-byte candidates):
+    the ``twopass_stripe_tiles`` knob of the tuning table, keyed on (N,
+    V), else :func:`default_twopass_stripe_tiles`. A tuned width below 1,
+    wider than the factor or, on a card, whose candidate buffer passes
+    the budget, is a ``fallback`` lookup and the heuristic runs. The one decision point:
     :func:`candidate_bytes`, :func:`twopass_fits` and K1's launch all
     take their width here, so a gate never sees another width than the
     kernel runs."""
@@ -991,15 +1155,20 @@ def twopass_stripe_tiles(n: int, v: int, k: int, device) -> int:
         "twopass_stripe_tiles", n=n, v=v,
         default=default_twopass_stripe_tiles(n),
         valid=lambda w: _usable_tuned(
-            w, n_ct, lambda w: n * _rect_n_stripes(n, w) * k * 8, device),
+            w, n_ct,
+            lambda w: n * _rect_n_stripes(n, w) * k * _slot_bytes(exact),
+            device),
     )
 
 
-def candidate_bytes(n: int, k: int, v: int, device) -> int:
-    """K1's candidate buffer: N · n_stripes · k · (4 + 4) bytes, stripes
-    of :func:`twopass_stripe_tiles` column tiles."""
-    return n * _rect_n_stripes(n, twopass_stripe_tiles(n, v, k, device)) \
-        * k * 8
+def candidate_bytes(n: int, k: int, v: int, device,
+                    exact: bool = False) -> int:
+    """K1's candidate buffer: N · n_stripes · k · (4 + 4) bytes (8 + 4
+    for the exact instance), stripes of :func:`twopass_stripe_tiles`
+    column tiles."""
+    return n * _rect_n_stripes(
+        n, twopass_stripe_tiles(n, v, k, device, exact)) * k \
+        * _slot_bytes(exact)
 
 
 def candidate_budget_bytes(device) -> int:
@@ -1008,15 +1177,16 @@ def candidate_budget_bytes(device) -> int:
     return torch.cuda.get_device_properties(device).total_memory // 8
 
 
-def twopass_fits(n: int, k: int, device, v: int) -> bool:
-    """Whether K1's candidate buffer fits the budget on ``device`` (the
-    port's counterpart of the TPU gate of the same name), at the width
-    K1 would run an [N, V] factor with. Only the kernel has a candidate
-    buffer: on the CPU the plain version runs, so every shape passes
-    there."""
+def twopass_fits(n: int, k: int, device, v: int, exact: bool = False) -> bool:
+    """Whether K1's candidate buffer (its exact instance's with
+    ``exact``) fits the budget on ``device`` (the port's counterpart of
+    the TPU gate of the same name), at the width K1 would run an [N, V]
+    factor with. Only the kernel has a candidate buffer: on the CPU the
+    plain version runs, so every shape passes there."""
     if torch.device(device).type != "cuda":
         return True
-    return candidate_bytes(n, k, v, device) <= candidate_budget_bytes(device)
+    return (candidate_bytes(n, k, v, device, exact)
+            <= candidate_budget_bytes(device))
 
 
 # -- K3's gates (the port's counterparts of the TPU gates of the same names)

@@ -73,9 +73,17 @@ def test_topk_past_the_ported_kernels_raises(graphs, monkeypatch):
 
 
 def test_exact_count_guard(graphs):
+    """A count past the f32 exact range: the row sums come exact in f64
+    (C's integers summed in f64), the paths that carry counts in f32
+    refuse."""
     _, _, tt, _ = backend_set(graphs, "APVPA")
     tt._half()  # build C, then blow a count past the f32 exact range
-    c, rowsums = tt._half_cache
-    rowsums[0] = 2.0**24
+    c, _ = tt._half_cache
+    c[0, 0] = 2.0**24
+    tt._half_cache = (c, c @ c.sum(0))
+    want = c.double() @ c.double().sum(0)
+    assert float(want.max()) >= 2.0**24
+    np.testing.assert_array_equal(tt.global_walks(),
+                                  want.numpy()[:tt.n_sources])
     with pytest.raises(OverflowError, match="2\\^24"):
-        tt.global_walks()
+        tt._denominators("rowsum")

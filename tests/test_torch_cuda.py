@@ -61,7 +61,8 @@ def test_backend_counts_launches_and_matches_oracle(card):
     vals, idxs = b.topk(k=10)
     scores = b.all_pairs_scores()
     assert ck.LAUNCHES == {"topk_twopass_candidates": 1, "fused_scores": 1,
-                           "topk_rect_candidates": 0, "topk_fold": 0}
+                           "topk_rect_candidates": 0, "topk_fold": 0,
+                           "topk_twopass_exact": 0, "topk_fold_exact": 0}
     cpu = create_backend("torch", hin, mp, device="cpu")
     cv, ci = cpu.topk(k=10)
     np.testing.assert_array_equal(vals, cv)

@@ -21,6 +21,7 @@ from distributed_pathsim_tpu_torch.data.synthetic import (
     synthetic_hin,
     write_gexf,
 )
+from distributed_pathsim_tpu_torch.driver import PathSimDriver
 from distributed_pathsim_tpu_torch.models.multipath import MultiMetapathScorer
 from distributed_pathsim_tpu_torch.ops import cuda_kernels as ck
 from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
@@ -64,11 +65,13 @@ def test_float64_ranks_on_the_kernels_and_guards_the_cast(card, gexf,
     b = create_backend("torch", big, compile_metapath("APVPA", big.schema),
                        dtype=torch.float64, device=card)
     with pytest.raises(OverflowError, match="--approx"):
-        b.topk(k=5)
-    with pytest.raises(OverflowError, match="--approx"):
         b.all_pairs_scores()
     host = create_backend("numpy", big, compile_metapath("APVPA", big.schema))
     np.testing.assert_array_equal(b.pairwise_row(3), host.pairwise_row(3))
+    # past 2^24 rank-all takes the exact instances: the f64 oracle's
+    for got, want in zip(PathSimDriver(b).rank_all(5),
+                         PathSimDriver(host).rank_all(5)):
+        np.testing.assert_array_equal(got, want)
     approx = create_backend("torch", big,
                             compile_metapath("APVPA", big.schema),
                             dtype=torch.float64, device=card,

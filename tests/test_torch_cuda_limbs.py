@@ -138,10 +138,13 @@ def test_one_wide_row_block_among_narrow_equals_plain(card):
         gv, gc = ck.fused_topk_plain(c, d, k=k)
         assert torch.equal(fv, gv) and torch.equal(fc, gc)
     assert ck.LAUNCHES == {"topk_twopass_candidates": 4, "fused_scores": 0,
-                           "topk_rect_candidates": 0, "topk_fold": 2}
+                           "topk_rect_candidates": 0, "topk_fold": 2,
+                           "topk_twopass_exact": 0, "topk_fold_exact": 0}
     assert ck.WIDE_ROW_BLOCKS == {"topk_twopass_candidates": 4,
                                   "fused_scores": 0,
-                                  "topk_rect_candidates": 0, "topk_fold": 2}
+                                  "topk_rect_candidates": 0, "topk_fold": 2,
+                                  "topk_twopass_exact": 0,
+                                  "topk_fold_exact": 0}
 
 
 @pytest.mark.parametrize("k", [20, ck.FOLD_SMEM_K_MAX + 1])

@@ -152,6 +152,7 @@ def test_torch_patch_drops_every_cache_derived_from_c():
     plan = tdl.plan_delta(thin, d, mp, max_delta_fraction=0.5)
     b.apply_delta(plan)
     assert b._limbs_cache is None and b._m is None and b._rowsums is None
+    assert b._rowsums64 is None
     nnz = int(plan.delta_c.rows.shape[0])
     r, c, w = _pad_coo_bucket(plan.delta_c.rows, plan.delta_c.cols,
                               plan.delta_c.weights)
@@ -161,4 +162,4 @@ def test_torch_patch_drops_every_cache_derived_from_c():
     b._half_cache[0][0, 0] = float(2**24)  # a count past the f32 guard
     b._half_cache = (b._half_cache[0], b._half_cache[0].sum(1) * 2**24)
     with pytest.raises(OverflowError):
-        b.global_walks()
+        b._denominators("rowsum")

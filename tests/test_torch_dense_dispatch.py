@@ -171,15 +171,22 @@ def test_rect_gates():
 def test_approx_waives_the_dense_guard():
     """``exact_counts=False`` (the CLI's --approx) lets the dense backend
     rank a graph whose counts pass 2^24; scores stay within 1e-5 of f64
-    arithmetic. With the guard on, it refuses."""
+    arithmetic. With exact counts it ranks the same graph by f64 scores
+    of the exact counts, bit for bit the f64 oracle's, while the paths
+    that carry counts in f32 (a single-source row) keep the guard."""
     counts = np.array([[5000, 3], [10, 0], [7, 2]])
     graphs = overflow_hins(counts)
     _, tmp = metapaths(graphs)
     thin = graphs[1]
+    want_v, want_i, _ = f64_oracle_topk(counts, 2)
+    exact = tcreate("torch", thin, tmp, device="cpu")
+    vals, idxs = exact.topk(k=2)
+    assert vals.dtype == np.float64
+    np.testing.assert_array_equal(vals, want_v)
+    np.testing.assert_array_equal(idxs, want_i)
     with pytest.raises(OverflowError):
-        tcreate("torch", thin, tmp, device="cpu").topk(k=1)
+        exact.pairwise_row(0)
     vals, idxs = tcreate("torch", thin, tmp, device="cpu",
                          exact_counts=False).topk(k=2)
-    want_v, want_i, _ = f64_oracle_topk(counts, 2)
     np.testing.assert_allclose(vals, want_v, rtol=1e-5)
     np.testing.assert_array_equal(idxs, want_i)

@@ -79,8 +79,9 @@ def test_float64_plain_versions_keep_the_dtype():
 
 def test_float64_is_exact_past_the_f32_range():
     """Counts past 2^24: the float64 backend on the CPU ranks exactly
-    (the f32 guard does not apply), the f32 backend refuses with a
-    message that names --approx."""
+    (the f32 guard does not apply), and so does the f32 backend's
+    rank-all (f64 scores of the exact counts), while its single-source
+    rows refuse with a message that names --approx."""
     counts = np.array([[3000, 2000, 0], [2500, 1, 7], [0, 4096, 4096],
                        [1, 1, 1]])
     _, thin = overflow_hins(counts)
@@ -96,5 +97,8 @@ def test_float64_is_exact_past_the_f32_range():
     np.testing.assert_array_equal(idxs, want)
     np.testing.assert_array_equal(vals, np.take_along_axis(s, want, 1))
     b32 = tcreate("torch", thin, tmp, device="cpu")
+    v32, i32 = b32.topk(k=2)
+    np.testing.assert_array_equal(i32, want)
+    np.testing.assert_array_equal(v32, np.take_along_axis(s, want, 1))
     with pytest.raises(OverflowError, match="--approx"):
-        b32.topk(k=2)
+        b32.pairwise_row(0)

@@ -55,20 +55,29 @@ def _tripping_records(hin):
 
 
 def test_guard_raises_on_every_call():
+    """The paths that carry counts in f32 raise on every call and cache
+    nothing; the row sums themselves are exact past 2^24 (f64), so
+    ``global_walks`` answers them, and the guarded paths still raise
+    after it."""
     hin = _graph(headroom=0)
     mp = compile_metapath("APVPA", hin.schema)
     backend = create_backend("torch", hin, mp, device="cpu")
     np.testing.assert_array_equal(backend.global_walks(),
                                   [16_500_000, 13_750_000])
     _, over = overflow_hins([[4100], [100]])  # 4100 x 4200 = 17.22M
-    for call in ("global_walks", "commuting_matrix", "diagonal",
-                 "global_walks"):
+    for call, args in (("commuting_matrix", ()), ("diagonal", ()),
+                       ("_denominators", ("rowsum",)),
+                       ("pairwise_row", (0,))):
         b = create_backend("torch", over, compile_metapath(
             "APVPA", over.schema), device="cpu")
         for _ in range(2):  # the second call must raise again
             with pytest.raises(OverflowError, match="2\\^24"):
-                getattr(b, call)()
+                getattr(b, call)(*args)
         assert b._rowsums is None and b._m is None
+        np.testing.assert_array_equal(b.global_walks(),
+                                      [17_220_000, 420_000])
+        with pytest.raises(OverflowError, match="2\\^24"):
+            getattr(b, call)(*args)
 
 
 def _state(svc):

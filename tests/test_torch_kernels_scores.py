@@ -91,8 +91,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing(narrow):
     ck.fused_topk(tc, td, k=20)
     ids = torch.arange(tc.shape[0], dtype=torch.int32)
     ck.fused_topk_twopass_rect(tc, tc, td, td, ids, k=5)
+    ck.fused_topk_twopass_exact(tc, td.double(), k=5)
+    ck.fused_topk_exact(tc, td.double(), k=20)
     assert ck.LAUNCHES == {"topk_twopass_candidates": 0, "fused_scores": 0,
-                           "topk_rect_candidates": 0, "topk_fold": 0}
+                           "topk_rect_candidates": 0, "topk_fold": 0,
+                           "topk_twopass_exact": 0, "topk_fold_exact": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         ck.topk_twopass_candidates(tc, td, 5, True)
 
