@@ -35,8 +35,9 @@ nonzero and no result line is printed):
    (K1) and k = 20 (K4) checked bit for bit against the numpy f64
    oracle's counts, the same ranking through ``--backend torch-sparse``
    (K3) byte-identical to the ``torch`` one, single source with its log's
-   line count, all-pairs at 8192 authors; then the dense backend's rect
-   arm (K3) at the smallest author count past K1's candidate budget;
+   line count, all-pairs at 8192 authors; then the dense backend at 1.5M
+   authors on K1 (one stripe a row block) and on its rect arm (K3, forced
+   by a refused candidate budget);
    then rank-all past 2^24 through ``create_backend`` and
    ``PathSimDriver.rank_all`` (32768 authors x 163840 papers x 64
    venues, seed 42, exact counts): k = 10 on the exact instance of K1 +
@@ -321,7 +322,9 @@ nonzero and no result line is printed):
 The kernels' launch counters are zeroed before each main-path run (the
 serving phase's included) and read after it.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (K1's entries carry
+``twopass_stripes``, ``ck.TWOPASS_STRIPES`` for one launch at their
+shape); the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 
@@ -346,6 +349,9 @@ N_AUTHORS, N_PAPERS, N_VENUES, TOP_K, SEED = 32768, 45_000, 384, 10, 42
 # All-pairs runs at 8192 authors: the host copy of a 32768² f32 score
 # matrix would be 4 GB per copy.
 N_AUTHORS_ALL_PAIRS = 8192
+# Authors of the dense backend's K1 and rect arms (dense_arms), past
+# config 5's million.
+DENSE_ARMS_AUTHORS = 1_500_000
 # k of the CLI run that takes the single-pass kernel K4 (k > 16).
 TOP_K_FOLD = 20
 # The exact main path: the bench's authors over five papers an author
@@ -1088,7 +1094,7 @@ def main_path(torch, ck, np, workdir):
         backend.topk(k=TOP_K)
     print("bootstrap at the rank-all shape (StageTimer, s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in timer.summary().items()))
-    dense_rect_arm(torch, ck, np, launches)
+    dense_arms(torch, ck, np, launches)
     return hin, hin_ap, launches, backend
 
 
@@ -1596,52 +1602,55 @@ def uniform_hin(n_authors, n_papers, n_venues, seed):
     })
 
 
-def smallest_past_twopass(ck, k, device, v) -> int:
-    """The smallest row count whose K1 candidate buffer exceeds its
-    budget on ``device`` for a factor V wide
-    (cuda_kernels.candidate_bytes)."""
-    lo, hi = 1, 1 << 22
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if ck.twopass_fits(mid, k, device, v):
-            lo = mid + 1
-        else:
-            hi = mid
-    return lo
-
-
-def dense_rect_arm(torch, ck, np, launches):
-    """backend.topk on the dense ``torch`` backend just past K1's
-    candidate budget: K3 over row tiles, and K1 not at all."""
+def dense_arms(torch, ck, np, launches):
+    """backend.topk on the dense ``torch`` backend at
+    :data:`DENSE_ARMS_AUTHORS`: K1 + pass 2 alone, at one stripe a row
+    block (a candidate buffer of N · k slots, far inside the budget);
+    then the rect arm, which a candidate buffer over the budget takes,
+    forced by a ``twopass_fits`` that refuses: K3 over row tiles, and K1
+    not at all. Both bit for bit the f32 renormalization of the f64
+    oracle's counts."""
     from distributed_pathsim_tpu_torch.backends.base import create_backend
     from distributed_pathsim_tpu_torch.ops.metapath import compile_metapath
 
-    phase("dense backend past K1's candidate budget (the rect arm)")
+    phase("dense backend at 1.5M authors: K1, then the rect arm")
     dev = torch.device("cuda")
-    n = smallest_past_twopass(ck, TOP_K, dev, 64)
+    n = DENSE_ARMS_AUTHORS
     hin = uniform_hin(n, 2 * n, 64, SEED)
     mp = compile_metapath("APVPA", hin.schema)
     backend = create_backend("torch", hin, mp)
-    (vals, idxs), counts, _ = counted(
-        torch, ck, launches, lambda: backend.topk(k=TOP_K),
-        f"dense topk at n={n} (candidate buffer "
-        f"{ck.candidate_bytes(n, TOP_K, 64, dev)} > budget "
-        f"{ck.candidate_budget_bytes(dev)} bytes) k={TOP_K}",
-    )
-    if counts["topk_rect_candidates"] < 1 or counts["topk_twopass_candidates"]:
-        raise AssertionError(f"the rect arm did not run K3 alone: {counts}")
     oracle = create_backend("numpy", hin, mp)
     d = oracle.global_walks()
     if d.max() >= 2**24:
-        raise AssertionError("the rect-arm graph's row sums pass 2^24")
+        raise AssertionError("the dense-arms graph's row sums pass 2^24")
     rows = (0, 1, n // 2, n - 1)
     ids = [str(i) for i in range(n)]
-    got = {ids[r]: [(ids[int(j)], float(v)) for v, j in zip(vals[r], idxs[r])]
-           for r in rows}
-    oracle_rows_match(np, got, ids, d, oracle.pairwise_row, TOP_K, rows,
-                      "dense rect arm")
-    print(f"dense rect arm rows {rows}: bit-identical to the f32 "
-          "renormalization of the f64 oracle's counts")
+    fits = ck.twopass_fits
+    for arm, kernel, gate in (
+            ("K1", "topk_twopass_candidates", fits),
+            ("rect arm", "topk_rect_candidates", lambda *a, **kw: False)):
+        ck.twopass_fits = gate
+        try:
+            (vals, idxs), counts, _ = counted(
+                torch, ck, launches, lambda: backend.topk(k=TOP_K),
+                f"dense topk at n={n} k={TOP_K}, {arm} (K1's candidate "
+                f"buffer {ck.candidate_bytes(n, TOP_K, 64, dev)} bytes, "
+                f"budget {ck.candidate_budget_bytes(dev)})")
+        finally:
+            ck.twopass_fits = fits
+        ran = {name for name, cnt in counts.items() if cnt}
+        if ran != {kernel}:
+            raise AssertionError(f"the {arm} did not run {kernel} alone: "
+                                 f"{counts}")
+        stripes = ck.TWOPASS_STRIPES["topk_twopass_candidates"]
+        if arm == "K1" and stripes != 1:
+            raise AssertionError(f"K1 ran {stripes} stripes, not one")
+        got = {ids[r]: [(ids[int(j)], float(v))
+                        for v, j in zip(vals[r], idxs[r])] for r in rows}
+        oracle_rows_match(np, got, ids, d, oracle.pairwise_row, TOP_K, rows,
+                          f"dense {arm}")
+        print(f"dense {arm} rows {rows}: bit-identical to the f32 "
+              "renormalization of the f64 oracle's counts")
 
 
 def rect_bounds(rows, cols, t, n, v, k, n_stripes):
@@ -5490,8 +5499,8 @@ def tuning_phase(torch, ck, np, workdir, card, hin, ranking):
         print(f"rank-all under the table: cmp-identical to the main path's "
               f"ranking; K1 at the tuned width {tuned_w} tiles "
               f"({tuned_w * ck.TILE} columns; default "
-              f"{ck.TWOPASS_STRIPE_TILES}), launches {rank_launches}, "
-              f"lookups {stats}")
+              f"{ck.default_twopass_stripe_tiles(N_AUTHORS)}), launches "
+              f"{rank_launches}, lookups {stats}")
         for kname, cnt in rank_launches.items():
             launches[kname] += cnt
 
@@ -6006,8 +6015,10 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances,
     # splits C once per graph)
     k1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates(
         c, d, TOP_K, True, limbs=lim))
+    before = ck.TWOPASS_STRIPES["topk_twopass_candidates"]
     cv, cc = ck.topk_twopass_candidates(c, d, TOP_K, True, limbs=lim)
     n_st = cv.shape[1]
+    k1_stripes = ck.TWOPASS_STRIPES["topk_twopass_candidates"] - before
     pass2_ms = time_ms(torch, lambda: ck.sparse.chunked_row_topk(
         cv.view(n, -1), cc.view(n, -1), TOP_K))
     k1_total_ms = time_ms(torch, lambda: ck.fused_topk_twopass(
@@ -6102,8 +6113,14 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances,
     nx, vx = cx.shape
     x1_ms = time_ms(torch, lambda: ck.topk_twopass_candidates_exact(
         cx, dx, TOP_K, True, limbs=lx))
+    before = ck.TWOPASS_STRIPES["topk_twopass_exact"]
     x_stripes = ck.topk_twopass_candidates_exact(
         cx, dx, TOP_K, True, limbs=lx)[0].shape[1]
+    x1_stripes = ck.TWOPASS_STRIPES["topk_twopass_exact"] - before
+    if (k1_stripes, x1_stripes) != (n_st, x_stripes):
+        raise AssertionError(
+            f"TWOPASS_STRIPES read {k1_stripes} / {x1_stripes} for launches "
+            f"of {n_st} / {x_stripes} stripes")
     x1_total_ms = time_ms(torch, lambda: ck.fused_topk_twopass_exact(
         cx, dx, TOP_K, limbs=lx))
     x1_plain_ms = time_ms(torch, lambda: ck.fused_topk_twopass_plain(
@@ -6193,6 +6210,7 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances,
                  k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms, err_k1,
                  k1_f32, k1_bound),
          "pass2_ms": pass2_ms, "with_pass2_ms": k1_total_ms,
+         "twopass_stripes": k1_stripes,
          "ms_by_stripe_columns": {w: a for w, (a, _) in sweep.items()}},
         entry("fused_scores",
               "distributed_pathsim_tpu_torch/csrc/fused_scores.cu",
@@ -6219,7 +6237,8 @@ def timings(torch, ck, hin, hin_ap, launches, backend, card, k3, instances,
                  "distributed_pathsim_tpu_torch/csrc/topk_twopass.cu",
                  None, [], x1_ms, x1_plain_ms, x1_bound, x1_by, x1_lib_ms,
                  x_err["topk_twopass_exact"], x1_f32, x1_bound),
-         "with_pass2_ms": x1_total_ms, "shape": [nx, vx, TOP_K]},
+         "with_pass2_ms": x1_total_ms, "twopass_stripes": x1_stripes,
+         "shape": [nx, vx, TOP_K]},
         {**entry("topk_fold_exact",
                  "distributed_pathsim_tpu_torch/csrc/topk_fold.cu",
                  None, [], x4_ms, x4_plain_ms, x4_bound, x4_by, x4_lib_ms,

@@ -101,24 +101,16 @@ FOLD_SMEM_K_MAX = 137
 # shared memory (K1, K3; csrc/topk_list.cuh CAND_K_MAX). k > CAND_MAX is
 # the single-pass fold kernel's job (K4).
 CAND_MAX = 16
-# Column tiles of K1's widest stripe (16384 columns), the untuned
-# default of the ``twopass_stripe_tiles`` knob: each row's top-k per
-# stripe goes to the candidate buffer. A row's list restarts per stripe,
-# and a stripe's first subtile is scored in full while the list fills, so
-# wider stripes cost K1 less selection, while the buffer, and pass 2's
-# input, is N · ceil(N / stripe) · k candidates, whose budget
-# (twopass_fits) is where the dense rank-all leaves K1 for K3 (about
-# 1.47M authors at k = 10). Narrower stripes serve small N
-# (twopass_stripe_tiles). The measured widths are in the card's tuning
-# table (artifacts/tuning_table_h100.json, written by `dpathsim-torch
-# tune`) and PERF.md's kernel table.
-TWOPASS_STRIPE_TILES = 128
-# (row block, stripe) units K3's grid aims for when it sets its stripe
-# width (rect_stripe_tiles), the untuned default of the
-# ``rect_target_units`` knob: about two per block slot of an H100 (132
-# SMs, two blocks each), which the card's in-order block dispatch still
-# balances, with stripes as wide as that allows (a row's list restarts
-# per stripe).
+# (row block, stripe) units a two-pass grid aims for when it sets its
+# stripe width: K3's (rect_stripe_tiles; the untuned default of the
+# ``rect_target_units`` knob) and K1's untuned width
+# (default_twopass_stripe_tiles). About two per block slot of an H100
+# (132 SMs, two blocks each), which the card's in-order block dispatch
+# still balances, with stripes as wide as that allows: a row's list
+# restarts per stripe, and a stripe's first subtile is scored in full
+# while the list fills. So from 512 row blocks (65,536 rows) on, a K1
+# row block is one unit with one list over all columns, and K1's
+# candidate buffer, pass 2's input, is N · k entries.
 RECT_TARGET_UNITS = 512
 # Rows of one score block in the plain rect version (it never holds more
 # than about 2^27 scores at once).
@@ -178,6 +170,11 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # fold (csrc/u8_tile.cuh), summed over launches: how often the slow
 # instance still engages. Reset with LAUNCHES.
 WIDE_ROW_BLOCKS = {name: 0 for name in KERNELS}
+# Column stripes of each K1 launch (approx and exact instances), summed
+# over launches: a row's list restarts once a stripe. Reset with
+# LAUNCHES.
+TWOPASS_STRIPES = {name: 0 for name in ("topk_twopass_candidates",
+                                        "topk_twopass_exact")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
@@ -190,6 +187,8 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         WIDE_ROW_BLOCKS[name] = 0
+    for name in TWOPASS_STRIPES:
+        TWOPASS_STRIPES[name] = 0
 
 
 def true_f32() -> None:
@@ -801,6 +800,7 @@ def topk_twopass_candidates(c: torch.Tensor, d: torch.Tensor, k: int,
              int(mask_self), stripe_tiles, lim.blocks.data_ptr()),
             (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
              cols.data_ptr()))
+        TWOPASS_STRIPES["topk_twopass_candidates"] += n_st
     return vals, cols
 
 
@@ -1036,6 +1036,7 @@ def topk_twopass_candidates_exact(c: torch.Tensor, d: torch.Tensor, k: int,
              lim.blocks.data_ptr()),
             (lim.sub.data_ptr(), d_min.data_ptr(), vals.data_ptr(),
              cols.data_ptr(), None if scored is None else scored.data_ptr()))
+        TWOPASS_STRIPES["topk_twopass_exact"] += n_st
     return vals, cols
 
 
@@ -1123,12 +1124,12 @@ def _usable_tuned(value, most: int | None, buffer_bytes, device) -> bool:
 
 
 def default_twopass_stripe_tiles(n: int) -> int:
-    """The untuned K1 stripe width for N rows: :data:`TWOPASS_STRIPE_TILES`,
-    or fewer where that would leave fewer than about
-    :data:`RECT_TARGET_UNITS` (row block, stripe) units to fill the card
-    (below ~64k rows)."""
-    return min(TWOPASS_STRIPE_TILES,
-               _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS))
+    """The untuned K1 stripe width for N rows: K3's rule, stripes only as
+    narrow as gives about :data:`RECT_TARGET_UNITS` (row block, stripe)
+    units to fill the card. 8 tiles at 8,192 rows, 128 (2 stripes) at
+    32,768, and from 512 row blocks (65,536 rows) on the whole width: one
+    list a row over all columns, so a row's list never restarts."""
+    return _stripe_tiles_for_units(n, n, RECT_TARGET_UNITS)
 
 
 def _slot_bytes(exact: bool) -> int:
@@ -1144,20 +1145,26 @@ def twopass_stripe_tiles(n: int, v: int, k: int, device,
     the ``twopass_stripe_tiles`` knob of the tuning table, keyed on (N,
     V), else :func:`default_twopass_stripe_tiles`. A tuned width below 1,
     wider than the factor or, on a card, whose candidate buffer passes
-    the budget, is a ``fallback`` lookup and the heuristic runs. The one decision point:
+    the budget, is a ``fallback`` lookup and the heuristic runs; so is a
+    width narrower than the default taken from another (N, V) bucket
+    (the width that fills the card follows N, so only a width measured
+    at this bucket may restart a row's list more often than the default
+    does). The one decision point:
     :func:`candidate_bytes`, :func:`twopass_fits` and K1's launch all
     take their width here, so a gate never sees another width than the
     kernel runs."""
     from .. import tuning
 
     n_ct = max(1, -(-n // TILE))
+    default = default_twopass_stripe_tiles(n)
     return tuning.choose(
         "twopass_stripe_tiles", n=n, v=v,
-        default=default_twopass_stripe_tiles(n),
+        default=default,
         valid=lambda w: _usable_tuned(
             w, n_ct,
             lambda w: n * _rect_n_stripes(n, w) * k * _slot_bytes(exact),
             device),
+        valid_near=lambda w: w >= default,
     )
 
 
@@ -1165,7 +1172,8 @@ def candidate_bytes(n: int, k: int, v: int, device,
                     exact: bool = False) -> int:
     """K1's candidate buffer: N · n_stripes · k · (4 + 4) bytes (8 + 4
     for the exact instance), stripes of :func:`twopass_stripe_tiles`
-    column tiles."""
+    column tiles: N · k · 8 (12) bytes from 65,536 rows on, where the
+    default runs one stripe."""
     return n * _rect_n_stripes(
         n, twopass_stripe_tiles(n, v, k, device, exact)) * k \
         * _slot_bytes(exact)
@@ -1181,7 +1189,10 @@ def twopass_fits(n: int, k: int, device, v: int, exact: bool = False) -> bool:
     """Whether K1's candidate buffer (its exact instance's with
     ``exact``) fits the budget on ``device`` (the port's counterpart of
     the TPU gate of the same name), at the width K1 would run an [N, V]
-    factor with. Only the kernel has a candidate buffer: on the CPU the
+    factor with. At the default width's one stripe the buffer is N · k
+    slots, so every N whose dense factor the card holds passes, and the
+    dense rank-all stays on K1 (its rect arm takes only a buffer over the
+    budget). Only the kernel has a candidate buffer: on the CPU the
     plain version runs, so every shape passes there."""
     if torch.device(device).type != "cuda":
         return True

@@ -8,6 +8,8 @@ heuristic as ``default``. Resolution ladder:
   counter, result="hit");
 - miss → nearest-bucket interpolation within the same (knob, device,
   dtype) (result="nearest");
+- a choice the caller's ``valid`` (or, for a nearest bucket's,
+  ``valid_near``) refuses → the caller's heuristic (result="fallback");
 - nothing applicable, tuning disabled, or no table installed → the
   caller's heuristic (result="default").
 
@@ -183,13 +185,17 @@ def choose(
     dtype: str = "float32",
     default: Any | Callable[[], Any] = None,
     valid: Callable[[Any], bool] | None = None,
+    valid_near: Callable[[Any], bool] | None = None,
 ) -> Any:
     """Resolve one knob for one shape. ``default`` is the caller's own
     heuristic (value or thunk) — returned verbatim on any miss, so an
     untuned process behaves exactly as it did before this subsystem.
     ``valid``: the caller's test of a tuned choice; one it refuses (a JAX
     table's arm that would put a plain version on the card) counts as a
-    ``fallback`` lookup and the default is returned."""
+    ``fallback`` lookup and the default is returned. ``valid_near``: a
+    further test of a choice taken from the nearest bucket, not this
+    shape's own (a choice that only holds at the shape it was measured
+    at); one it refuses is a ``fallback`` lookup too."""
     if knob not in KNOBS:
         raise KeyError(f"unknown tuning knob {knob!r}; see tuning.registry")
 
@@ -211,7 +217,9 @@ def choose(
             _count(knob, "default")
             return _default()
         choice, result = _decode(near[0].choice), "nearest"
-    if valid is not None and not valid(choice):
+    if (valid is not None and not valid(choice)) or (
+            result == "nearest" and valid_near is not None
+            and not valid_near(choice)):
         _count(knob, "fallback")
         return _default()
     _count(knob, result)

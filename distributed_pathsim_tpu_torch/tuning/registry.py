@@ -72,8 +72,10 @@ class Knob:
 
 
 def _twopass_stripe_candidates(ctx: dict) -> list[int]:
-    """K1's stripe widths in column tiles, less those wider than the
-    factor's column tiles and, when the context names ``k`` and
+    """K1's stripe widths in column tiles and, for a given N, its untuned
+    width (ops/cuda_kernels.default_twopass_stripe_tiles) and the whole
+    factor's width (one stripe), less those wider than the factor's
+    column tiles and, when the context names ``k`` and
     ``budget_bytes``, those whose candidate buffer would pass the budget
     (ops/cuda_kernels.candidate_budget_bytes)."""
     widths = [8, 16, 32, 64, 128, 256]
@@ -84,6 +86,7 @@ def _twopass_stripe_candidates(ctx: dict) -> list[int]:
     n = int(ctx["n"])
     n_ct = -(-n // ck.TILE)
     k, budget = ctx.get("k"), ctx.get("budget_bytes")
+    widths = sorted({*widths, ck.default_twopass_stripe_tiles(n), n_ct})
     return [
         w for w in widths
         if w <= n_ct and (
@@ -351,8 +354,9 @@ def resolve_ladder(geometry: str, max_batch: int) -> tuple[int, ...]:
 
 KNOB_DEFAULTS: dict[str, dict[str, str]] = {
     "ops/cuda_kernels.py": {
-        "TWOPASS_STRIPE_TILES": "twopass_stripe_tiles",  # K1's stripe
-        "RECT_TARGET_UNITS": "rect_target_units",        # K3's grid aim
+        # K3's grid aim (and K1's untuned width:
+        # cuda_kernels.default_twopass_stripe_tiles)
+        "RECT_TARGET_UNITS": "rect_target_units",
     },
 }
 

@@ -19,21 +19,22 @@ def test_corpus_gives_the_jax_findings(case, tmp_path):
 
 
 def test_tn001_reads_the_port_registry_and_its_knob_defaults(monkeypatch):
-    """TN001 reads the port's ``tuning/registry.py``: K1's and K3's
-    stripe knobs' untuned defaults stand as the registry's defaults
-    (``KNOB_DEFAULTS``), each naming a registered knob and a constant
+    """TN001 reads the port's ``tuning/registry.py``: K3's unit target,
+    which K1's untuned width follows too, stands as the registry's
+    default (``KNOB_DEFAULTS``), naming a registered knob and a constant
     its file defines; kernel layout stands sanctioned. A default whose
-    knob the registry stops registering is a stray constant again."""
+    knob the registry stops registering is no longer let stand: a
+    tile-like one is a stray constant again."""
     from distributed_pathsim_tpu_torch.analysis import load_modules
     from distributed_pathsim_tpu_torch.analysis.core import default_roots
     from distributed_pathsim_tpu_torch.analysis.tuning_constants import (
         _const_assignments,
+        _sanctioned,
         scan_modules,
     )
     from distributed_pathsim_tpu_torch.tuning import registry
 
     assert registry.KNOB_DEFAULTS["ops/cuda_kernels.py"] == {
-        "TWOPASS_STRIPE_TILES": "twopass_stripe_tiles",
         "RECT_TARGET_UNITS": "rect_target_units",
     }
     pkg = default_roots()["package"]
@@ -49,8 +50,24 @@ def test_tn001_reads_the_port_registry_and_its_knob_defaults(monkeypatch):
     kernels = [by_rel["ops/cuda_kernels.py"], by_rel["backends/torch_dense.py"]]
     assert scan_modules(kernels) == []
     monkeypatch.setattr(registry, "KNOB_DEFAULTS", {
-        "ops/cuda_kernels.py": {"TWOPASS_STRIPE_TILES": "no_such_knob",
-                                "RECT_TARGET_UNITS": "rect_target_units"},
+        "ops/cuda_kernels.py": {"RECT_TARGET_UNITS": "no_such_knob"},
+    })
+    assert "RECT_TARGET_UNITS" not in _sanctioned()["ops/cuda_kernels.py"]
+    # end to end: a tile-like constant let stand only as a knob's default
+    # is a finding once the registry drops that knob
+    monkeypatch.setattr(registry, "SANCTIONED_CONSTANTS", {
+        **registry.SANCTIONED_CONSTANTS,
+        "ops/cuda_kernels.py":
+            registry.SANCTIONED_CONSTANTS["ops/cuda_kernels.py"] - {"TILE"},
+    })
+    monkeypatch.setattr(registry, "KNOB_DEFAULTS", {
+        "ops/cuda_kernels.py": {"RECT_TARGET_UNITS": "rect_target_units",
+                                "TILE": "twopass_stripe_tiles"},
+    })
+    assert scan_modules(kernels) == []
+    monkeypatch.setattr(registry, "KNOB_DEFAULTS", {
+        "ops/cuda_kernels.py": {"RECT_TARGET_UNITS": "rect_target_units",
+                                "TILE": "no_such_knob"},
     })
     assert [(f.rule, f.symbol) for f in scan_modules(kernels)] == [
-        ("TN001", "TWOPASS_STRIPE_TILES")]
+        ("TN001", "TILE")]

@@ -124,12 +124,14 @@ def test_candidate_budget(monkeypatch):
     """The budget is an eighth of the card's memory; the CPU's plain
     version has no candidate buffer, so every shape fits there."""
     # one list of k per row and stripe: 2 stripes of 128 column tiles at
-    # the bench shape; narrower stripes below ~64k rows keep the card busy
-    assert ck.twopass_stripe_tiles(32768, 384, 10, "cpu") \
-        == ck.TWOPASS_STRIPE_TILES == 128
+    # the bench shape; narrower stripes below ~64k rows keep the card
+    # busy, and from 65,536 rows on a row has one stripe
+    assert ck.twopass_stripe_tiles(32768, 384, 10, "cpu") == 128
     assert ck.candidate_bytes(32768, 10, 384, "cpu") == 32768 * 2 * 10 * 8
     assert ck.twopass_stripe_tiles(8192, 384, 16, "cpu") == 8
     assert ck.candidate_bytes(8192, 16, 384, "cpu") == 8192 * 8 * 16 * 8
+    assert ck.candidate_bytes(1_500_000, 16, 384, "cpu") \
+        == 1_500_000 * 16 * 8
     assert ck.twopass_fits(1_500_000, 16, "cpu", 384)
 
     class Card:
@@ -140,4 +142,6 @@ def test_candidate_budget(monkeypatch):
     assert ck.candidate_budget_bytes("cuda") == 10**10
     assert ck.twopass_fits(32768, 10, "cuda", 384)
     assert ck.twopass_fits(1_400_000, 10, "cuda", 384)
-    assert not ck.twopass_fits(1_500_000, 16, "cuda", 384)
+    assert ck.twopass_fits(1_500_000, 16, "cuda", 384)
+    # one stripe of 16 slots a row passes 10^10 bytes past 78,125,000 rows
+    assert not ck.twopass_fits(80_000_000, 16, "cuda", 384)
